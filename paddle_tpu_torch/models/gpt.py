@@ -1,0 +1,229 @@
+"""GPT-3-style causal LM (counterpart of ``paddle_tpu/models/gpt.py``).
+
+Same configuration, module names and weight layouts as the reference,
+so a state dict crosses between the two packages by name
+(:mod:`paddle_tpu_torch.framework.io`). The LM head is tied to the word
+embedding. Weights are drawn from ``Normal(0, initializer_range)`` with
+one explicit ``torch.Generator`` in construction order.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.layer import Dropout, Embedding, LayerNorm
+
+__all__ = ["GPTAttention", "GPTConfig", "GPTDecoderLayer", "GPTEmbeddings",
+           "GPTForCausalLM", "GPTMLP", "GPTModel", "gpt3_1p3b", "gpt3_tiny"]
+
+
+class GPTConfig:
+    """Model hyperparameters (GPT-3 naming, as in the reference)."""
+
+    def __init__(self, vocab_size=50304, hidden_size=2048, num_layers=24,
+                 num_heads=16, ffn_hidden_size=None, max_seq_len=2048,
+                 dropout=0.1, attention_dropout=0.1, initializer_range=0.02,
+                 layer_norm_epsilon=1e-5, use_recompute=False,
+                 tie_word_embeddings=True, fused_ln=False,
+                 moe_num_experts=0, moe_top_k=2, moe_every=2,
+                 moe_gate="gshard", moe_ep_axis="ep",
+                 moe_capacity_factor=(2.0, 2.0)):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.ffn_hidden_size = ffn_hidden_size or 4 * hidden_size
+        self.max_seq_len = max_seq_len
+        self.dropout = dropout
+        self.attention_dropout = attention_dropout
+        self.initializer_range = initializer_range
+        self.layer_norm_epsilon = layer_norm_epsilon
+        self.use_recompute = use_recompute
+        self.tie_word_embeddings = tie_word_embeddings
+        # fused_ln=True routes ln2 and the attention residual through the
+        # fused residual+LN kernel; every other LN takes the LN kernel
+        # whenever its input is on CUDA (fused=None)
+        self.fused_ln = fused_ln
+        self.moe_num_experts = moe_num_experts
+        self.moe_top_k = moe_top_k
+        self.moe_every = moe_every
+        self.moe_gate = moe_gate
+        self.moe_ep_axis = moe_ep_axis
+        self.moe_capacity_factor = moe_capacity_factor
+
+
+def gpt3_1p3b(**kw):
+    """GPT-3 1.3B."""
+    cfg = dict(vocab_size=50304, hidden_size=2048, num_layers=24,
+               num_heads=16, max_seq_len=2048)
+    cfg.update(kw)
+    return GPTConfig(**cfg)
+
+
+def gpt3_tiny(**kw):
+    """Tiny config for tests."""
+    cfg = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+               max_seq_len=128, dropout=0.0, attention_dropout=0.0)
+    cfg.update(kw)
+    return GPTConfig(**cfg)
+
+
+def _ln(config, factory):
+    return LayerNorm(config.hidden_size, epsilon=config.layer_norm_epsilon,
+                     fused=config.fused_ln or None, **factory)
+
+
+class GPTEmbeddings(nn.Module):
+    """Word (vocab-parallel) + learned position embeddings."""
+
+    def __init__(self, config, device=None, dtype=None, generator=None):
+        super().__init__()
+        init = dict(std=config.initializer_range, device=device,
+                    dtype=dtype, generator=generator)
+        self.word_embeddings = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size, **init)
+        self.position_embeddings = Embedding(
+            config.max_seq_len, config.hidden_size, **init)
+        self.dropout = Dropout(config.dropout, generator=generator)
+
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[-1],
+                                        device=input_ids.device)
+        h = self.word_embeddings(input_ids) + self.position_embeddings(
+            position_ids)
+        return self.dropout(h)
+
+
+class GPTAttention(nn.Module):
+    """Causal self-attention: fused qkv projection whose columns are
+    laid out ``[head, 3 * head_dim]``, then the output projection."""
+
+    def __init__(self, config, device=None, dtype=None, generator=None):
+        super().__init__()
+        self.num_heads = config.num_heads
+        self.head_dim = config.hidden_size // config.num_heads
+        init = dict(std=config.initializer_range, device=device,
+                    dtype=dtype, generator=generator)
+        self.qkv_proj = ColumnParallelLinear(
+            config.hidden_size, 3 * config.hidden_size, gather_output=False,
+            **init)
+        self.out_proj = RowParallelLinear(
+            config.hidden_size, config.hidden_size, input_is_parallel=True,
+            **init)
+        self.attn_dropout_p = config.attention_dropout
+
+    def forward(self, hidden, kv_ctx=None):
+        if self.training and self.attn_dropout_p > 0.0:
+            raise NotImplementedError(
+                "attention dropout (training) is not ported yet: call "
+                "model.eval(), or set attention_dropout=0")
+        b, s = hidden.shape[0], hidden.shape[1]
+        qkv = self.qkv_proj(hidden)
+        qkv = qkv.reshape(b, s, self.num_heads, 3 * self.head_dim)
+        q, k, v = qkv.split(self.head_dim, dim=-1)
+        if kv_ctx is not None:
+            # serving hook: the context owns KV residency (paged pools)
+            # and attention over the cached history
+            out = kv_ctx.attend(q, k, v)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = out.reshape(b, s, self.num_heads * self.head_dim)
+        return self.out_proj(out)
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, config, device=None, dtype=None, generator=None):
+        super().__init__()
+        init = dict(std=config.initializer_range, device=device,
+                    dtype=dtype, generator=generator)
+        self.fc1 = ColumnParallelLinear(
+            config.hidden_size, config.ffn_hidden_size, gather_output=False,
+            **init)
+        self.fc2 = RowParallelLinear(
+            config.ffn_hidden_size, config.hidden_size,
+            input_is_parallel=True, **init)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate=True))
+
+
+class GPTDecoderLayer(nn.Module):
+    """Pre-LN transformer decoder block."""
+
+    def __init__(self, config, device=None, dtype=None, generator=None):
+        super().__init__()
+        factory = dict(device=device, dtype=dtype)
+        self._fused_ln = config.fused_ln
+        self.ln1 = _ln(config, factory)
+        self.attn = GPTAttention(config, generator=generator, **factory)
+        self.ln2 = _ln(config, factory)
+        self.mlp = GPTMLP(config, generator=generator, **factory)
+        self.dropout = Dropout(config.dropout, generator=generator)
+
+    def forward(self, x, kv_ctx=None):
+        if self._fused_ln:
+            # the attention residual add and ln2 in one kernel, which
+            # returns both the new stream and ln2's output
+            a = self.dropout(self.attn(self.ln1(x), kv_ctx=kv_ctx))
+            x, h2 = F.fused_ln_residual(a, x, self.ln2.weight, self.ln2.bias,
+                                        self.ln2._epsilon, fused=True)
+            return x + self.dropout(self.mlp(h2))
+        x = x + self.dropout(self.attn(self.ln1(x), kv_ctx=kv_ctx))
+        return x + self.dropout(self.mlp(self.ln2(x)))
+
+
+class GPTModel(nn.Module):
+    def __init__(self, config, device=None, dtype=None, generator=None):
+        super().__init__()
+        if config.moe_num_experts > 0:
+            raise NotImplementedError(
+                "GPT with MoE blocks (moe_num_experts > 0) is not ported yet")
+        if config.use_recompute:
+            raise NotImplementedError(
+                "use_recompute belongs to training, which is not ported yet")
+        self.config = config
+        factory = dict(device=device, dtype=dtype)
+        self.embeddings = GPTEmbeddings(config, generator=generator,
+                                        **factory)
+        self.layers = nn.ModuleList(
+            [GPTDecoderLayer(config, generator=generator, **factory)
+             for _ in range(config.num_layers)])
+        self.final_ln = _ln(config, factory)
+
+    def forward(self, input_ids, position_ids=None, kv_ctx=None):
+        h = self.embeddings(input_ids, position_ids)
+        for layer in self.layers:
+            h = layer(h, kv_ctx=kv_ctx)
+        return self.final_ln(h)
+
+
+class GPTForCausalLM(nn.Module):
+    """GPT with the LM head tied to the word embedding
+    (``logits = h @ W_emb^T``).
+
+    Built on ``device`` (default CUDA; RuntimeError without it unless
+    ``device="cpu"``) in ``dtype`` (default float32), its weights drawn
+    with ``generator`` (default: a generator on ``device`` seeded 0).
+    """
+
+    def __init__(self, config, device=None, dtype=None, generator=None):
+        super().__init__()
+        if not config.tie_word_embeddings:
+            raise NotImplementedError(
+                "an untied LM head is not ported yet (tie_word_embeddings)")
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.config = config
+        self.gpt = GPTModel(config, device=device, dtype=dtype,
+                            generator=generator)
+
+    def forward(self, input_ids, position_ids=None, kv_ctx=None):
+        h = self.gpt(input_ids, position_ids, kv_ctx=kv_ctx)
+        w = self.gpt.embeddings.word_embeddings.weight
+        return torch.matmul(h, w.t())

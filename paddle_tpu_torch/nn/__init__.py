@@ -1,0 +1,5 @@
+"""Neural-network layers and functionals of the port."""
+from paddle_tpu_torch.nn import functional
+from paddle_tpu_torch.nn.layer import Dropout, Embedding, LayerNorm, Linear
+
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "functional"]

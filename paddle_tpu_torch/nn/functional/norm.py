@@ -1,0 +1,66 @@
+"""Normalization functionals (counterpart of
+``paddle_tpu/nn/functional/norm.py``).
+
+The fused path runs the LayerNorm kernels of
+:mod:`paddle_tpu_torch.ops.cuda.norm`; it is the default for a tensor on
+CUDA, as the Pallas path is the default on a TPU. A kernel that fails
+raises: there is no fallback to the composition.
+"""
+from __future__ import annotations
+
+import torch
+
+from paddle_tpu_torch.ops.cuda import norm as _kernels
+
+__all__ = ["fused_ln_residual", "layer_norm"]
+
+
+def _use_fused(fused, x):
+    """An explicit ``fused`` wins; None means "on CUDA", as the
+    reference's None means "on a TPU". On a CPU tensor the fused path
+    computes the kernel's plain version."""
+    if fused is not None:
+        return bool(fused)
+    return x.is_cuda
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
+               fused=None):
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    nd = len(tuple(normalized_shape))
+    if nd == 1 and _use_fused(fused, x):
+        return _kernels.ln_fwd(x.contiguous(), weight, bias, epsilon)
+    axes = tuple(range(x.dim() - nd, x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
+    out = (x - mean) / torch.sqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def fused_ln_residual(x, residual, weight=None, bias=None, epsilon=1e-5,
+                      act=None, fused=None):
+    """``h = x + residual; y = act(LN(h))``, returning ``(h, y)``: the
+    residual-stream update and the next sublayer's normalized input.
+    The fused path (one kernel) needs a weight; the composition below
+    takes its statistics from h in h's type, as the reference's does.
+    ``act`` is None or ``"gelu"`` (tanh form)."""
+    if _use_fused(fused, x) and weight is not None:
+        return _kernels.ln_res_fwd(x.contiguous(), residual.contiguous(),
+                                   weight, bias, epsilon, act)
+    h = x + residual
+    hf = h.float()
+    mean = hf.mean(dim=-1, keepdim=True)
+    var = ((hf - mean) ** 2).mean(dim=-1, keepdim=True)
+    out = (hf - mean) / torch.sqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    if act == "gelu":
+        out = torch.nn.functional.gelu(out, approximate="tanh")
+    return h, out.to(h.dtype)

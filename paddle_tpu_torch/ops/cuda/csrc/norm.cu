@@ -1,0 +1,338 @@
+// LayerNorm forward kernels for Hopper (sm_90a), with a plain C interface.
+//
+// ln_fwd replaces paddle_tpu/ops/pallas/norm.py:_ln_kernel (the Pallas
+// kernel behind fused_layer_norm). ln_res_fwd replaces
+// paddle_tpu/ops/pallas/norm.py:_ln_res_kernel (behind fused_ln_residual
+// and fused_add_layer_norm).
+//
+// What bounds them on an H100: bytes. With e the element size, ln_fwd
+// reads R*H*e and writes R*H*e; ln_res_fwd reads 2*R*H*e (x and r) and
+// writes 2*R*H*e (h and y); both also read 2*H weights. The arithmetic is
+// a few operations per element, far below the card's rate per byte.
+//
+// Design: one warp per row, the whole row held in registers (H <= 4096:
+// at most 128 floats per lane), so each element crosses device memory
+// once each way. Loads and stores are 16 bytes per lane. Both reductions
+// (the mean, then the mean of squared deviations: two passes over the
+// registers, never E[x^2] - mean^2) are warp shuffles: no shared memory,
+// no block barrier. A ragged row count needs no padding: a warp past the
+// last row returns.
+//
+// At decode (R = max_num_seqs = 8 rows) a launch is two blocks, and its
+// time is launch latency, not bandwidth.
+//
+// Every entry point launches on the stream it is given, does not
+// synchronise, and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarpsPerBlock = 4;
+constexpr int kChunk = 8;         // elements a lane moves per step
+constexpr int kMaxHidden = 4096;  // 16 chunks per lane
+
+enum Dtype { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ void load_chunk(const float* p, float v[kChunk]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
+  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(bits)));
+}
+
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float v[kChunk]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = bf16_bits_to_float(w[i] & 0xffffu);
+    v[2 * i + 1] = bf16_bits_to_float(w[i] >> 16);
+  }
+}
+
+__device__ __forceinline__ void store_chunk(float* p, const float v[kChunk]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
+}
+
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* p, const float v[kChunk]) {
+  uint4 u;
+  u.x = pack_bf16(v[0], v[1]);
+  u.y = pack_bf16(v[2], v[3]);
+  u.z = pack_bf16(v[4], v[5]);
+  u.w = pack_bf16(v[6], v[7]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// tanh-form gelu, constants as in paddle_tpu/ops/pallas/norm.py:_gelu_grad
+__device__ __forceinline__ float gelu_tanh(float u) {
+  const float k = 0.7978845608028654f;  // sqrt(2/pi)
+  const float c = 0.044715f;
+  const float t = tanhf(k * (u + c * u * u * u));
+  return 0.5f * u * (1.0f + t);
+}
+
+// Replaces the row values v (this lane's chunks) by their deviations
+// from the row mean and returns rsqrt(var + eps).
+template <int NCHUNK>
+__device__ __forceinline__ float center_and_rstd(float (&v)[NCHUNK][kChunk], float sum,
+                                                 int lane, int nchunks, int hidden,
+                                                 float eps) {
+  const float mean = warp_sum(sum) / static_cast<float>(hidden);
+  float sq = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NCHUNK; ++j) {
+    if (lane + 32 * j < nchunks) {
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) {
+        const float d = v[j][e] - mean;
+        v[j][e] = d;
+        sq += d * d;
+      }
+    }
+  }
+  const float var = warp_sum(sq) / static_cast<float>(hidden);
+  return rsqrtf(var + eps);
+}
+
+// y = (v * rstd) * w + b over one chunk (w == nullptr: no affine).
+template <typename TW>
+__device__ __forceinline__ void affine_chunk(const float v[kChunk], float rstd, const TW* w,
+                                             const TW* b, int col, float o[kChunk]) {
+  if (w == nullptr) {
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) o[e] = v[e] * rstd;
+    return;
+  }
+  float wv[kChunk];
+  float bv[kChunk] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  load_chunk(w + col, wv);
+  if (b != nullptr) load_chunk(b + col, bv);
+#pragma unroll
+  for (int e = 0; e < kChunk; ++e) o[e] = v[e] * rstd * wv[e] + bv[e];
+}
+
+template <typename TX, typename TW, int NCHUNK>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    ln_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                  const TW* __restrict__ b, TX* __restrict__ y, int rows, int hidden,
+                  float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int nchunks = hidden / kChunk;
+  const size_t base = static_cast<size_t>(row) * hidden;
+
+  float v[NCHUNK][kChunk];
+  float sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NCHUNK; ++j) {
+    const int c = lane + 32 * j;
+    if (c < nchunks) {
+      load_chunk(x + base + c * kChunk, v[j]);
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) sum += v[j][e];
+    }
+  }
+  const float rstd = center_and_rstd<NCHUNK>(v, sum, lane, nchunks, hidden, eps);
+#pragma unroll
+  for (int j = 0; j < NCHUNK; ++j) {
+    const int c = lane + 32 * j;
+    if (c < nchunks) {
+      float o[kChunk];
+      affine_chunk(v[j], rstd, w, b, c * kChunk, o);
+      store_chunk(y + base + c * kChunk, o);
+    }
+  }
+}
+
+template <typename TX, typename TR, typename TO, typename TW, int NCHUNK>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    ln_res_fwd_kernel(const TX* __restrict__ x, const TR* __restrict__ r,
+                      const TW* __restrict__ w, const TW* __restrict__ b,
+                      TO* __restrict__ h_out, TO* __restrict__ y, int rows, int hidden,
+                      float eps, int gelu) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int nchunks = hidden / kChunk;
+  const size_t base = static_cast<size_t>(row) * hidden;
+
+  // h = x + r is summed in f32; the statistics and y come from this f32
+  // h, not from h rounded to the output type (as in _ln_res_kernel).
+  float v[NCHUNK][kChunk];
+  float sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NCHUNK; ++j) {
+    const int c = lane + 32 * j;
+    if (c < nchunks) {
+      float rv[kChunk];
+      load_chunk(x + base + c * kChunk, v[j]);
+      load_chunk(r + base + c * kChunk, rv);
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) {
+        v[j][e] += rv[e];
+        sum += v[j][e];
+      }
+      store_chunk(h_out + base + c * kChunk, v[j]);
+    }
+  }
+  const float rstd = center_and_rstd<NCHUNK>(v, sum, lane, nchunks, hidden, eps);
+#pragma unroll
+  for (int j = 0; j < NCHUNK; ++j) {
+    const int c = lane + 32 * j;
+    if (c < nchunks) {
+      float o[kChunk];
+      affine_chunk(v[j], rstd, w, b, c * kChunk, o);
+      if (gelu) {
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) o[e] = gelu_tanh(o[e]);
+      }
+      store_chunk(y + base + c * kChunk, o);
+    }
+  }
+}
+
+// Chunks per lane, rounded up to the instantiated power of two (0: too wide).
+int chunks_per_lane(int hidden) {
+  const int per_lane = (hidden / kChunk + 31) / 32;
+  for (int n = 1; n <= kMaxHidden / kChunk / 32; n *= 2)
+    if (per_lane <= n) return n;
+  return 0;
+}
+
+dim3 grid_for(int rows) { return dim3((rows + kWarpsPerBlock - 1) / kWarpsPerBlock); }
+
+template <typename TX, typename TW, int NCHUNK>
+void launch_ln(const void* x, const void* w, const void* b, void* y, int rows, int hidden,
+               float eps, cudaStream_t stream) {
+  ln_fwd_kernel<TX, TW, NCHUNK><<<grid_for(rows), kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<const TW*>(b),
+      static_cast<TX*>(y), rows, hidden, eps);
+}
+
+template <typename TX, typename TW>
+void dispatch_ln(int nchunk, const void* x, const void* w, const void* b, void* y, int rows,
+                 int hidden, float eps, cudaStream_t s) {
+  switch (nchunk) {
+    case 1: launch_ln<TX, TW, 1>(x, w, b, y, rows, hidden, eps, s); break;
+    case 2: launch_ln<TX, TW, 2>(x, w, b, y, rows, hidden, eps, s); break;
+    case 4: launch_ln<TX, TW, 4>(x, w, b, y, rows, hidden, eps, s); break;
+    case 8: launch_ln<TX, TW, 8>(x, w, b, y, rows, hidden, eps, s); break;
+    default: launch_ln<TX, TW, 16>(x, w, b, y, rows, hidden, eps, s); break;
+  }
+}
+
+template <typename TX, typename TR, typename TO, typename TW, int NCHUNK>
+void launch_ln_res(const void* x, const void* r, const void* w, const void* b, void* h,
+                   void* y, int rows, int hidden, float eps, int gelu, cudaStream_t stream) {
+  ln_res_fwd_kernel<TX, TR, TO, TW, NCHUNK>
+      <<<grid_for(rows), kWarpsPerBlock * 32, 0, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TR*>(r), static_cast<const TW*>(w),
+          static_cast<const TW*>(b), static_cast<TO*>(h), static_cast<TO*>(y), rows, hidden,
+          eps, gelu);
+}
+
+template <typename TX, typename TR, typename TO, typename TW>
+void dispatch_ln_res(int nchunk, const void* x, const void* r, const void* w, const void* b,
+                     void* h, void* y, int rows, int hidden, float eps, int gelu,
+                     cudaStream_t s) {
+  switch (nchunk) {
+    case 1: launch_ln_res<TX, TR, TO, TW, 1>(x, r, w, b, h, y, rows, hidden, eps, gelu, s); break;
+    case 2: launch_ln_res<TX, TR, TO, TW, 2>(x, r, w, b, h, y, rows, hidden, eps, gelu, s); break;
+    case 4: launch_ln_res<TX, TR, TO, TW, 4>(x, r, w, b, h, y, rows, hidden, eps, gelu, s); break;
+    case 8: launch_ln_res<TX, TR, TO, TW, 8>(x, r, w, b, h, y, rows, hidden, eps, gelu, s); break;
+    default: launch_ln_res<TX, TR, TO, TW, 16>(x, r, w, b, h, y, rows, hidden, eps, gelu, s); break;
+  }
+}
+
+// The output type of ln_res_fwd is promote_types(x, r): bf16 only when
+// both inputs are bf16.
+template <typename TW>
+void dispatch_ln_res_inputs(int nchunk, int x_dtype, int r_dtype, const void* x,
+                            const void* r, const void* w, const void* b, void* h, void* y,
+                            int rows, int hidden, float eps, int gelu, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (x_dtype == kBF16 && r_dtype == kBF16)
+    dispatch_ln_res<bf16, bf16, bf16, TW>(nchunk, x, r, w, b, h, y, rows, hidden, eps, gelu, s);
+  else if (x_dtype == kBF16)
+    dispatch_ln_res<bf16, float, float, TW>(nchunk, x, r, w, b, h, y, rows, hidden, eps, gelu,
+                                            s);
+  else if (r_dtype == kBF16)
+    dispatch_ln_res<float, bf16, float, TW>(nchunk, x, r, w, b, h, y, rows, hidden, eps, gelu,
+                                            s);
+  else
+    dispatch_ln_res<float, float, float, TW>(nchunk, x, r, w, b, h, y, rows, hidden, eps,
+                                             gelu, s);
+}
+
+bool valid_dtype(int d) { return d == kF32 || d == kBF16; }
+
+}  // namespace
+
+// y = LN(x) * w + b over the last axis of a contiguous [rows, hidden]
+// x. w and b may be null (no affine; b alone null: zero bias). y has
+// x's type.
+extern "C" int ln_fwd(const void* x, const void* w, const void* b, void* y, int rows,
+                      int hidden, int x_dtype, int w_dtype, float eps, int device,
+                      void* stream) {
+  const int nchunk = chunks_per_lane(hidden);
+  if (rows <= 0 || hidden <= 0 || hidden % kChunk || nchunk == 0 || !valid_dtype(x_dtype) ||
+      !valid_dtype(w_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == kBF16) {
+    if (w_dtype == kBF16)
+      dispatch_ln<__nv_bfloat16, __nv_bfloat16>(nchunk, x, w, b, y, rows, hidden, eps, s);
+    else
+      dispatch_ln<__nv_bfloat16, float>(nchunk, x, w, b, y, rows, hidden, eps, s);
+  } else {
+    if (w_dtype == kBF16)
+      dispatch_ln<float, __nv_bfloat16>(nchunk, x, w, b, y, rows, hidden, eps, s);
+    else
+      dispatch_ln<float, float>(nchunk, x, w, b, y, rows, hidden, eps, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// h = x + r; y = act(LN(h) * w + b), act = tanh-gelu when gelu != 0.
+// x and r are contiguous [rows, hidden]; w is required, b may be null.
+// h and y have type promote_types(x, r).
+extern "C" int ln_res_fwd(const void* x, const void* r, const void* w, const void* b, void* h,
+                          void* y, int rows, int hidden, int x_dtype, int r_dtype,
+                          int w_dtype, int gelu, float eps, int device, void* stream) {
+  const int nchunk = chunks_per_lane(hidden);
+  if (rows <= 0 || hidden <= 0 || hidden % kChunk || nchunk == 0 || w == nullptr ||
+      !valid_dtype(x_dtype) || !valid_dtype(r_dtype) || !valid_dtype(w_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_dtype == kBF16)
+    dispatch_ln_res_inputs<__nv_bfloat16>(nchunk, x_dtype, r_dtype, x, r, w, b, h, y, rows,
+                                          hidden, eps, gelu, s);
+  else
+    dispatch_ln_res_inputs<float>(nchunk, x_dtype, r_dtype, x, r, w, b, h, y, rows, hidden,
+                                  eps, gelu, s);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,9 @@
+"""Mixed precision of the port: autocast and the activation-residency
+policy (counterpart of ``paddle_tpu/amp``)."""
+from paddle_tpu_torch.amp.auto_cast import auto_cast, downcast_inputs
+from paddle_tpu_torch.amp.policy import (ActivationPolicy,
+                                         activation_residency,
+                                         current_policy)
+
+__all__ = ["ActivationPolicy", "activation_residency", "auto_cast",
+           "current_policy", "downcast_inputs"]

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["load_numpy_state_dict", "numpy_state_dict"]
+__all__ = ["load_numpy_state_dict", "numpy_grads", "numpy_state_dict"]
 
 
 def load_numpy_state_dict(module, arrays):
@@ -47,4 +47,16 @@ def numpy_state_dict(module):
         if t.dtype == torch.bfloat16:
             t = t.float()
         out[name] = t.numpy()
+    return out
+
+
+def numpy_grads(module):
+    """``{name: numpy array}`` of the gradients ``module``'s parameters
+    hold (parameters without one are left out), by the state dict's
+    names; bf16 gradients come out as float32."""
+    out = {}
+    for name, p in module.named_parameters():
+        if p.grad is not None:
+            g = p.grad.detach().cpu()
+            out[name] = (g.float() if g.dtype == torch.bfloat16 else g).numpy()
     return out

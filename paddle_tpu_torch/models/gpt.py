@@ -131,7 +131,10 @@ class GPTAttention(nn.Module):
             # and attention over the cached history
             out = kv_ctx.attend(q, k, v)
         else:
-            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            out = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True,
+                dropout_p=self.attn_dropout_p if self.training else 0.0,
+                training=self.training)
         out = out.reshape(b, s, self.num_heads * self.head_dim)
         return self.out_proj(out)
 
@@ -185,7 +188,7 @@ class GPTModel(nn.Module):
                 "GPT with MoE blocks (moe_num_experts > 0) is not ported yet")
         if config.use_recompute:
             raise NotImplementedError(
-                "use_recompute belongs to training, which is not ported yet")
+                "use_recompute (recompute in training) is not ported yet")
         self.config = config
         factory = dict(device=device, dtype=dtype)
         self.embeddings = GPTEmbeddings(config, generator=generator,
@@ -205,6 +208,10 @@ class GPTModel(nn.Module):
 class GPTForCausalLM(nn.Module):
     """GPT with the LM head tied to the word embedding
     (``logits = h @ W_emb^T``).
+
+    Trains with f32 master weights under ``to_static(amp_policy="bf16")``
+    (bf16 activations, f32 gradients); attention dropout in training and
+    ``use_recompute`` raise NotImplementedError.
 
     Built on ``device`` (default CUDA; RuntimeError without it unless
     ``device="cpu"``) in ``dtype`` (default float32), its weights drawn
@@ -226,4 +233,4 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, position_ids=None, kv_ctx=None):
         h = self.gpt(input_ids, position_ids, kv_ctx=kv_ctx)
         w = self.gpt.embeddings.word_embeddings.weight
-        return torch.matmul(h, w.t())
+        return F.matmul(h, w, transpose_y=True)

@@ -4,13 +4,95 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["dropout", "linear"]
+from paddle_tpu_torch.amp.auto_cast import downcast_inputs
+
+__all__ = ["dropout", "linear", "matmul"]
 
 
 def linear(x, weight, bias=None):
     """``y = x @ W + b`` with W laid out ``[in, out]``, as in the
-    reference."""
-    return torch.nn.functional.linear(x, weight.t(), bias)
+    reference. Under autocast an f32 master weight is cast to the
+    activation's bf16 for the product, and its gradients (and the
+    bias's) come back accumulated in f32."""
+    x2, w2 = downcast_inputs(x, weight, opname="linear")
+    if _is_master_downcast(x2, w2, weight):
+        if bias is not None:
+            return _LinearMaster.apply(x2, weight, bias, w2)
+        return _MatmulMaster.apply(x2, weight, False, w2)
+    return torch.nn.functional.linear(x2, w2.t(), bias)
+
+
+def matmul(x, y, transpose_y=False):
+    """``x @ y`` (``x @ y^T`` with ``transpose_y``); under autocast an f32
+    master ``y`` takes the same wide-gradient path as :func:`linear`."""
+    x2, y2 = downcast_inputs(x, y, opname="matmul")
+    if _is_master_downcast(x2, y2, y):
+        return _MatmulMaster.apply(x2, y, transpose_y, y2)
+    return torch.matmul(x2, y2.transpose(-1, -2) if transpose_y else y2)
+
+
+def _is_master_downcast(a2, w2, w):
+    """True when autocast narrowed an f32 master weight for a product
+    with an activation of the same narrow type: the one predicate that
+    selects the wide-gradient path (``_is_master_downcast`` in the
+    reference)."""
+    return (w2.dtype != w.dtype
+            and w2.dtype in (torch.bfloat16, torch.float16)
+            and a2.dtype == w2.dtype
+            and w.dim() == 2 and a2.dim() >= 2)
+
+
+def _mm_f32(a, b):
+    """``a @ b`` of two narrow-float matrices, accumulated and returned in
+    f32: one bf16 GEMM with an f32 output on CUDA, the same products on
+    upcast operands on the CPU."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _LinearMaster(torch.autograd.Function):
+    """``_linear_master``: the product runs on ``wc``, the master W
+    already cast to the activation type (by autocast), and b cast to it;
+    da stays in that type, dw and db accumulate and land in f32 on the
+    masters."""
+
+    @staticmethod
+    def forward(ctx, a, w, b, wc):
+        ctx.save_for_backward(a, wc)
+        return torch.nn.functional.linear(a, wc.t(), b.to(a.dtype))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, wc = ctx.saved_tensors
+        a2 = a.reshape(-1, a.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1])
+        da = torch.matmul(g, wc.t())
+        dw = _mm_f32(a2.t(), g2)
+        db = g2.sum(dim=0, dtype=torch.float32)
+        return da, dw, db, None
+
+
+class _MatmulMaster(torch.autograd.Function):
+    """``_mm_master``: ``a @ W`` (``a @ W^T`` with ``trans_y``, the tied
+    LM head) on ``wc``, W cast to the activation type; dw lands in f32."""
+
+    @staticmethod
+    def forward(ctx, a, w, trans_y, wc):
+        ctx.save_for_backward(a, wc)
+        ctx.trans_y = trans_y
+        return torch.matmul(a, wc.t() if trans_y else wc)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, wc = ctx.saved_tensors
+        a2 = a.reshape(-1, a.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1])
+        if ctx.trans_y:                          # y = a @ W^T, W [n, k]
+            return torch.matmul(g, wc), _mm_f32(g2.t(), a2), None, None
+        return torch.matmul(g, wc.t()), _mm_f32(a2.t(), g2), None, None
 
 
 def dropout(x, p=0.5, training=True, generator=None):

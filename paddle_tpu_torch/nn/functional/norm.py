@@ -2,9 +2,11 @@
 ``paddle_tpu/nn/functional/norm.py``).
 
 The fused path runs the LayerNorm kernels of
-:mod:`paddle_tpu_torch.ops.cuda.norm`; it is the default for a tensor on
-CUDA, as the Pallas path is the default on a TPU. A kernel that fails
-raises: there is no fallback to the composition.
+:mod:`paddle_tpu_torch.ops.cuda.norm` through their autograd Functions
+(forward kernel, and the backward kernel that recomputes the
+statistics); it is the default for a tensor on CUDA, as the Pallas path
+is the default on a TPU. A kernel that fails raises: there is no
+fallback to the composition.
 """
 from __future__ import annotations
 

@@ -1,22 +1,37 @@
-// LayerNorm forward kernels for Hopper (sm_90a), with a plain C interface.
+// LayerNorm kernels for Hopper (sm_90a), with a plain C interface.
 //
 // ln_fwd replaces paddle_tpu/ops/pallas/norm.py:_ln_kernel (the Pallas
 // kernel behind fused_layer_norm). ln_res_fwd replaces
 // paddle_tpu/ops/pallas/norm.py:_ln_res_kernel (behind fused_ln_residual
-// and fused_add_layer_norm).
+// and fused_add_layer_norm). ln_bwd replaces both backward kernels,
+// :_ln_bwd_kernel_plain and :_ln_bwd_kernel_res, which share one body
+// (_ln_bwd_core, driven by _ln_bwd_pallas); a null gh selects the plain
+// variant.
 //
 // What bounds them on an H100: bytes. With e the element size, ln_fwd
 // reads R*H*e and writes R*H*e; ln_res_fwd reads 2*R*H*e (x and r) and
-// writes 2*R*H*e (h and y); both also read 2*H weights. The arithmetic is
-// a few operations per element, far below the card's rate per byte.
+// writes 2*R*H*e (h and y); both also read 2*H weights. ln_bwd reads h and
+// gy (and gh) and writes dx: 3*R*H*e (4 with gh), plus its f32 partials.
+// The arithmetic is a few operations per element, far below the card's
+// rate per byte.
 //
-// Design: one warp per row, the whole row held in registers (H <= 4096:
-// at most 128 floats per lane), so each element crosses device memory
-// once each way. Loads and stores are 16 bytes per lane. Both reductions
-// (the mean, then the mean of squared deviations: two passes over the
-// registers, never E[x^2] - mean^2) are warp shuffles: no shared memory,
-// no block barrier. A ragged row count needs no padding: a warp past the
-// last row returns.
+// Forward design: one warp per row, the whole row held in registers
+// (H <= 4096: at most 128 floats per lane), so each element crosses
+// device memory once each way. Loads and stores are 16 bytes per lane.
+// Both reductions (the mean, then the mean of squared deviations: two
+// passes over the registers, never E[x^2] - mean^2) are warp shuffles: no
+// shared memory, no block barrier. A ragged row count needs no padding: a
+// warp past the last row returns.
+//
+// Backward design: the backward keeps four row-length values live (h,
+// gy, xhat and the dw/db sums), too many for one warp's registers at
+// H = 4096, so a block of H/8 threads (H <= 8192) owns a row, each thread
+// 8 columns, and walks a run of consecutive rows. Its three row
+// reductions go through the warps' shuffles and one shared-memory pass in
+// a fixed order. Each thread keeps the dw/db sums of its columns over the
+// block's rows in registers and writes them once, as one row of f32
+// [n_blocks, H] partials that the caller sums (as _ln_bwd_pallas sums the
+// per-block partials): no atomics, so the result is the same every run.
 //
 // At decode (R = max_num_seqs = 8 rows) a launch is two blocks, and its
 // time is launch latency, not bandwidth.
@@ -211,6 +226,122 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
+// d gelu(u) / du for the tanh form (paddle_tpu/ops/pallas/norm.py:_gelu_grad)
+__device__ __forceinline__ float gelu_tanh_grad(float u) {
+  const float k = 0.7978845608028654f;
+  const float c = 0.044715f;
+  const float t = tanhf(k * (u + c * u * u * u));
+  return 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * k * (1.0f + 3.0f * c * u * u);
+}
+
+// Sums of a and b over the block, the same on every thread, summed in a
+// fixed order. red holds 2 * 32 floats (at most 32 warps).
+__device__ __forceinline__ float2 block_sum2(float a, float b, float* red) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[warp] = a;
+    red[32 + warp] = b;
+  }
+  __syncthreads();
+  float2 s = make_float2(0.0f, 0.0f);
+  for (int i = 0; i < nwarps; ++i) {
+    s.x += red[i];
+    s.y += red[32 + i];
+  }
+  __syncthreads();  // red may be written again
+  return s;
+}
+
+// LayerNorm backward from the saved pre-norm rows h (_ln_bwd_core):
+// recompute mean, rstd and xhat; with gelu, gy *= gelu'(xhat*w + b);
+// dx = rstd * (gy*w - mean(gy*w) - xhat * mean(gy*w*xhat)) (+ gh);
+// per-block partials dw = sum(gy * xhat), db = sum(gy).
+template <typename TH, typename TW>
+__global__ void __launch_bounds__(kMaxHidden / kChunk)
+    ln_bwd_kernel(const TH* __restrict__ h, const TH* __restrict__ gy,
+                  const TH* __restrict__ gh, const TW* __restrict__ w,
+                  const TW* __restrict__ b, TH* __restrict__ dx, float* __restrict__ dw_part,
+                  float* __restrict__ db_part, int rows, int hidden, int rows_per_block,
+                  float eps, int gelu) {
+  __shared__ float red[64];
+  const int col = threadIdx.x * kChunk;
+  const bool active = col < hidden;
+  const float n = static_cast<float>(hidden);
+  float wv[kChunk], bv[kChunk], dwa[kChunk], dba[kChunk];
+#pragma unroll
+  for (int e = 0; e < kChunk; ++e) {
+    wv[e] = 0.0f;
+    bv[e] = 0.0f;
+    dwa[e] = 0.0f;
+    dba[e] = 0.0f;
+  }
+  if (active) {
+    load_chunk(w + col, wv);
+    if (b != nullptr) load_chunk(b + col, bv);
+  }
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(rows, r0 + rows_per_block);
+  for (int row = r0; row < r1; ++row) {
+    const size_t at = static_cast<size_t>(row) * hidden + col;
+    float xv[kChunk], gv[kChunk];
+    float s = 0.0f;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      xv[e] = 0.0f;
+      gv[e] = 0.0f;
+    }
+    if (active) {
+      load_chunk(h + at, xv);
+      load_chunk(gy + at, gv);
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) s += xv[e];
+    }
+    const float mean = block_sum2(s, 0.0f, red).x / n;
+    float sq = 0.0f;
+    if (active) {
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) {
+        xv[e] -= mean;
+        sq += xv[e] * xv[e];
+      }
+    }
+    const float rstd = rsqrtf(block_sum2(sq, 0.0f, red).x / n + eps);
+    float s1 = 0.0f, s2 = 0.0f;
+    float gw[kChunk];
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      xv[e] *= rstd;  // xhat
+      if (gelu) gv[e] *= gelu_tanh_grad(xv[e] * wv[e] + bv[e]);
+      gw[e] = gv[e] * wv[e];
+      s1 += gw[e];
+      s2 += gw[e] * xv[e];
+    }
+    if (!active) s1 = s2 = 0.0f;
+    const float2 m = block_sum2(s1, s2, red);
+    const float m1 = m.x / n, m2 = m.y / n;
+    if (active) {
+      float d[kChunk], ghv[kChunk];
+      if (gh != nullptr) load_chunk(gh + at, ghv);
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) {
+        d[e] = rstd * (gw[e] - m1 - xv[e] * m2);
+        if (gh != nullptr) d[e] += ghv[e];
+        dwa[e] += gv[e] * xv[e];
+        dba[e] += gv[e];
+      }
+      store_chunk(dx + at, d);
+    }
+  }
+  if (active && r0 < r1) {
+    const size_t at = static_cast<size_t>(blockIdx.x) * hidden + col;
+    store_chunk(dw_part + at, dwa);
+    store_chunk(db_part + at, dba);
+  }
+}
+
 // Chunks per lane, rounded up to the instantiated power of two (0: too wide).
 int chunks_per_lane(int hidden) {
   const int per_lane = (hidden / kChunk + 31) / 32;
@@ -334,5 +465,39 @@ extern "C" int ln_res_fwd(const void* x, const void* r, const void* w, const voi
   else
     dispatch_ln_res_inputs<float>(nchunk, x_dtype, r_dtype, x, r, w, b, h, y, rows, hidden,
                                   eps, gelu, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// LayerNorm backward (both Pallas variants): h, gy, gh and dx are
+// contiguous [rows, hidden] of one type; gh may be null (the plain
+// variant, h then being the LayerNorm's input x). w is required, b may be
+// null (zero). Block i handles rows [i*rows_per_block, (i+1)*rows_per_block)
+// and writes row i of the f32 partials dw_part and db_part, each
+// [ceil(rows / rows_per_block), hidden].
+extern "C" int ln_bwd(const void* h, const void* gy, const void* gh, const void* w,
+                      const void* b, void* dx, void* dw_part, void* db_part, int rows,
+                      int hidden, int rows_per_block, int h_dtype, int w_dtype, int gelu,
+                      float eps, int device, void* stream) {
+  if (rows <= 0 || hidden <= 0 || hidden % kChunk || hidden > kMaxHidden ||
+      rows_per_block <= 0 || w == nullptr || !valid_dtype(h_dtype) || !valid_dtype(w_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = ((hidden / kChunk + 31) / 32) * 32;
+  const dim3 grid((rows + rows_per_block - 1) / rows_per_block);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+#define LN_BWD_LAUNCH(TH, TW)                                                              \
+  ln_bwd_kernel<TH, TW><<<grid, threads, 0, s>>>(                                          \
+      static_cast<const TH*>(h), static_cast<const TH*>(gy), static_cast<const TH*>(gh),   \
+      static_cast<const TW*>(w), static_cast<const TW*>(b), static_cast<TH*>(dx),          \
+      static_cast<float*>(dw_part), static_cast<float*>(db_part), rows, hidden,            \
+      rows_per_block, eps, gelu)
+  if (h_dtype == kBF16) {
+    if (w_dtype == kBF16) LN_BWD_LAUNCH(bf16, bf16); else LN_BWD_LAUNCH(bf16, float);
+  } else {
+    if (w_dtype == kBF16) LN_BWD_LAUNCH(float, bf16); else LN_BWD_LAUNCH(float, float);
+  }
+#undef LN_BWD_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,274 @@
+"""Flash attention kernels (``csrc/flash_attention.cu``): wrappers,
+autograd, plain versions and launch counts.
+
+- :func:`flash_fwd` replaces
+  ``paddle_tpu/ops/pallas/flash_attention.py:_fwd_kernel``;
+- :func:`flash_bwd_dq` replaces ``_bwd_dq_kernel``;
+- :func:`flash_bwd_dkv` replaces ``_bwd_dkv_kernel``.
+
+Tensors are ``[batch, seq, heads, head_dim]`` with a contiguous last
+axis; the kernels read and write them through their strides, so views
+(the q/k/v split of a fused projection) need no copy. ``lse`` and
+``delta`` are f32 ``[batch * heads, seq_q]``. The causal mask is
+top-left aligned (``col <= row``), as in the Pallas kernels.
+
+:func:`flash_attention_bshd` is the differentiable entry point, the
+counterpart of the reference's ``flash_attention_bshd`` and its custom
+VJP (``_flash_bhsd``): the backward computes ``delta = rowsum(do * o)``
+in f32 and hands it to both backward kernels.
+
+A wrapper given CPU tensors computes its plain version
+(:func:`_flash_fwd_ref`, :func:`_flash_bwd_dq_ref`,
+:func:`_flash_bwd_dkv_ref`: the whole softmax at once, in f32, rounding p
+and ds where the kernels do). Given CUDA tensors
+it launches the kernels on the current stream, without synchronising, or
+raises. ``LAUNCHES`` counts the kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from paddle_tpu_torch.ops.cuda import launch
+
+__all__ = ["HEAD_DIM", "LAUNCHES", "flash_attention_bshd", "flash_bwd_dkv",
+           "flash_bwd_dq", "flash_fwd"]
+
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+HEAD_DIM = 128                 # the instantiated kernels' (GPT-1.3B's)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_longlong)
+_TAIL = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+_SIGNATURES = {
+    "flash_fwd": [_P, _P, _P, _P, _P, _S] + _TAIL,
+    "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _S] + _TAIL,
+    "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _S] + _TAIL,
+}
+
+
+# ------------------------------------------------------ plain versions
+def _scores(q, k, causal, scale):
+    """log2-domain scores ``[b, h, sq, sk]`` in f32, masked to -1e30."""
+    s = torch.matmul(q.float().transpose(1, 2),
+                     k.float().permute(0, 2, 3, 1)) * (scale * _LOG2E)
+    if causal:
+        sq, sk = s.shape[-2:]
+        rows = torch.arange(sq, device=s.device)[:, None]
+        cols = torch.arange(sk, device=s.device)[None, :]
+        s = s.masked_fill(cols > rows, _NEG_INF)
+    return s
+
+
+def _flash_fwd_ref(q, k, v, causal, scale):
+    """Plain version of :func:`flash_fwd`: ``(o, lse)``."""
+    b, sq, h, _ = q.shape
+    s = _scores(q, k, causal, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.matmul(p.to(v.dtype).float(), v.float().transpose(1, 2)) / l_safe
+    lse = (m * _LN2 + torch.log(l_safe)).reshape(b * h, sq)
+    return o.transpose(1, 2).to(q.dtype).contiguous(), lse
+
+
+def _probs(q, k, lse, causal, scale):
+    b, sq, h, _ = q.shape
+    return torch.exp2(_scores(q, k, causal, scale)
+                      - lse.reshape(b, h, sq, 1) * _LOG2E)
+
+
+def _dscores(q, k, v, do, lse, delta, causal, scale):
+    """(p, ds) ``[b, h, sq, sk]`` in f32, as the backward kernels form
+    them."""
+    b, sq, h, _ = q.shape
+    p = _probs(q, k, lse, causal, scale)
+    dp = torch.matmul(do.float().transpose(1, 2),
+                      v.float().permute(0, 2, 3, 1))
+    return p, p * (dp - delta.reshape(b, h, sq, 1)) * scale
+
+
+def _bshd(g, like):
+    return g.transpose(1, 2).to(like.dtype).contiguous()
+
+
+def _flash_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale):
+    """Plain version of :func:`flash_bwd_dq`."""
+    _, ds = _dscores(q, k, v, do, lse, delta, causal, scale)
+    return _bshd(torch.matmul(ds.to(k.dtype).float(),
+                              k.float().transpose(1, 2)), q)
+
+
+def _flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale):
+    """Plain version of :func:`flash_bwd_dkv`: ``(dk, dv)``."""
+    p, ds = _dscores(q, k, v, do, lse, delta, causal, scale)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2),
+                      do.float().transpose(1, 2))
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                      q.float().transpose(1, 2))
+    return _bshd(dk, k), _bshd(dv, v)
+
+
+# -------------------------------------------------------------- checks
+def _check_shapes(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash attention takes [batch, seq, heads, "
+                         "head_dim] tensors")
+    b, _, h, d = q.shape
+    if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
+        raise ValueError(f"flash attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError("flash attention: empty sequence")
+
+
+def _check_kernel_operand(name, t, dtype):
+    if t.dtype != dtype or t.dtype not in _DTYPES:
+        raise TypeError(f"flash attention {name}: dtype {t.dtype} (float32 "
+                        f"or bfloat16, all operands alike)")
+    if t.shape[-1] != HEAD_DIM:
+        raise ValueError(f"flash attention {name}: head_dim {t.shape[-1]} "
+                         f"is not {HEAD_DIM}")
+    e = t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or \
+            any(s * e % 16 for s in t.stride()[:3]):
+        raise ValueError(f"flash attention {name}: the last axis must be "
+                         f"contiguous and rows 16-byte aligned (strides "
+                         f"{t.stride()})")
+
+
+def _check_rowstats(name, t, rows, cols, device):
+    if t.dtype != torch.float32 or tuple(t.shape) != (rows, cols) \
+            or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"flash attention {name}: must be a contiguous f32 "
+                         f"[{rows}, {cols}] tensor on {device}")
+
+
+def _strides(*tensors):
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _lib():
+    return launch.bind(_SIGNATURES)
+
+
+# ------------------------------------------------------------ wrappers
+def flash_fwd(q, k, v, causal=False, scale=None):
+    """Attention forward: ``(o, lse)`` with o ``[b, sq, h, d]`` in q's
+    type and lse f32 ``[b * h, sq]`` (natural log)."""
+    _check_shapes(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = _scale_of(q, scale)
+    if launch.route("flash attention", q, k, v) == "cpu":
+        return _flash_fwd_ref(q, k, v, causal, scale)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_kernel_operand(name, t, q.dtype)
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    rc = _lib().flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        _strides(q, k, v, o), b, h, sq, sk, d, _DTYPES[q.dtype], scale,
+        int(bool(causal)), q.device.index, launch.stream(q.device))
+    launch.raise_on(rc, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    _check_shapes(q, k, v)
+    if do.shape != q.shape:
+        raise ValueError(f"flash attention: do {tuple(do.shape)} != q "
+                         f"{tuple(q.shape)}")
+    if launch.route("flash attention", q, k, v, do, lse, delta) == "cpu":
+        return "cpu"
+    b, sq, h, _ = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_kernel_operand(name, t, q.dtype)
+    _check_rowstats("lse", lse, b * h, sq, q.device)
+    _check_rowstats("delta", delta, b * h, sq, q.device)
+    return "cuda"
+
+
+def _bwd_tail(q, k, causal, scale):
+    b, sq, h, d = q.shape
+    return (b, h, sq, k.shape[1], d, _DTYPES[q.dtype], scale,
+            int(bool(causal)), q.device.index, launch.stream(q.device))
+
+
+def _scale_of(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, scale=None):
+    """dq given ``lse`` and ``delta`` (f32 ``[b * h, sq]``; ``delta =
+    rowsum(do * o)``, or ``delta - dlse`` when lse has a cotangent too),
+    in q's type."""
+    scale = _scale_of(q, scale)
+    if _check_bwd(q, k, v, do, lse, delta) == "cpu":
+        return _flash_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rc = _lib().flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _strides(q, k, v, do, dq), *_bwd_tail(q, k, causal, scale))
+    launch.raise_on(rc, "flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
+    """``(dk, dv)`` given ``lse`` and ``delta``, in k's and v's type."""
+    scale = _scale_of(q, scale)
+    if _check_bwd(q, k, v, do, lse, delta) == "cpu":
+        return _flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    rc = _lib().flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(q, k, v, do, dk, dv), *_bwd_tail(q, k, causal, scale))
+    launch.raise_on(rc, "flash_bwd_dkv")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+# ------------------------------------------------------------ autograd
+class _FlashAttention(torch.autograd.Function):
+    """``_flash_fwd_rule``/``_flash_bwd_rule``: saves q, k, v, o, lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        b, sq, h, _ = q.shape
+        delta = (do.float() * o.float()).sum(dim=-1)          # [b, sq, h]
+        delta = delta.transpose(1, 2).reshape(b * h, sq).contiguous()
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
+                               ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bshd(q, k, v, causal=False, scale=None):
+    """Differentiable flash attention on ``[batch, seq, heads,
+    head_dim]`` inputs; ``scale`` defaults to 1/sqrt(head_dim)."""
+    return _FlashAttention.apply(q, k, v, bool(causal), _scale_of(q, scale))

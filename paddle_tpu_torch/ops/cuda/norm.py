@@ -1,14 +1,23 @@
-"""LayerNorm forward kernels (``csrc/norm.cu``): wrappers, plain
+"""LayerNorm kernels (``csrc/norm.cu``): wrappers, autograd, plain
 versions and launch counts.
 
 - :func:`ln_fwd` replaces ``paddle_tpu/ops/pallas/norm.py:_ln_kernel``;
-- :func:`ln_res_fwd` replaces ``paddle_tpu/ops/pallas/norm.py:_ln_res_kernel``.
+- :func:`ln_res_fwd` replaces ``paddle_tpu/ops/pallas/norm.py:_ln_res_kernel``;
+- :func:`ln_bwd` replaces ``_ln_bwd_kernel_plain`` and ``_ln_bwd_kernel_res``
+  (one kernel; ``gh=None`` is the plain variant).
+
+:func:`ln_fwd` and :func:`ln_res_fwd` are differentiable: autograd
+Functions that save only the LayerNorm's input (``x``, or ``h`` for the
+residual form) and the weights, and whose backward recomputes the
+statistics in :func:`ln_bwd`, as the reference's custom VJPs do
+(``_ln_fwd_rule``/``_ln_bwd_rule``, ``_ln_res_fwd_rule``/``_ln_res_bwd_rule``).
 
 A wrapper given CPU tensors computes its plain version
-(:func:`_ln_fwd_ref`, :func:`_ln_res_fwd_ref`: the same f32 arithmetic
-in PyTorch). Given CUDA tensors it launches the kernel on the current
-stream, without synchronising, or raises. ``LAUNCHES`` counts the
-kernel launches.
+(:func:`_ln_fwd_ref`, :func:`_ln_res_fwd_ref`, :func:`_ln_bwd_ref`: the
+same f32 arithmetic in PyTorch). Given CUDA tensors it launches the
+kernel on the current stream, without synchronising, or raises.
+``LAUNCHES`` counts the kernel launches (``ln_bwd`` and ``ln_bwd_res``
+count the plain and residual variants apart).
 """
 from __future__ import annotations
 
@@ -16,16 +25,17 @@ import ctypes
 
 import torch
 
-from paddle_tpu_torch.ops.cuda import build
+from paddle_tpu_torch.ops.cuda import launch
 
-__all__ = ["LAUNCHES", "MAX_HIDDEN", "ln_fwd", "ln_res_fwd"]
+__all__ = ["LAUNCHES", "MAX_HIDDEN", "ln_bwd", "ln_fwd", "ln_res_fwd"]
 
-LAUNCHES = {"ln_fwd": 0, "ln_res_fwd": 0}
-MAX_HIDDEN = 4096        # one warp holds a row in registers
+LAUNCHES = {"ln_fwd": 0, "ln_res_fwd": 0, "ln_bwd": 0, "ln_bwd_res": 0}
+MAX_HIDDEN = 4096        # forward: a warp holds a row; backward: H/8 threads
 _CHUNK = 8               # hidden must be a multiple: 16-byte accesses
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GELU_K = 0.7978845608028654   # sqrt(2/pi)
 _GELU_C = 0.044715
+_BWD_BLOCKS = 256         # ln_bwd: blocks a launch aims for (>= 1 row each)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,20 +43,13 @@ _SIGNATURES = {
     "ln_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "ln_res_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    ctypes.c_float, _I, _P],
+    "ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+               ctypes.c_float, _I, _P],
 }
-_declared = False
 
 
 def _lib():
-    global _declared
-    lib = build.load_library()
-    if not _declared:
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _declared = True
-    return lib
+    return launch.bind(_SIGNATURES)
 
 
 # ------------------------------------------------------ plain versions
@@ -83,6 +86,41 @@ def _ln_res_fwd_ref(x, residual, weight, bias, eps, act=None):
     return h.to(out), y.to(out)
 
 
+def _gelu_tanh_grad(u):
+    t = torch.tanh(_GELU_K * (u + _GELU_C * u * u * u))
+    return 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * _GELU_K \
+        * (1.0 + 3.0 * _GELU_C * u * u)
+
+
+def _ln_bwd_ref(h, gy, weight, bias, eps, act=None, gh=None):
+    """Plain version of :func:`ln_bwd` (``_ln_bwd_core``): statistics
+    recomputed from h in f32; dx (+ gh) in h's type, dw/db summed in f32
+    and cast to the weights' types. With no weight it is the reference's
+    no-affine composition (``_ln_bwd_jnp``): dw and db are None."""
+    hf = h.float()
+    g = gy.float()
+    mean = hf.mean(dim=-1, keepdim=True)
+    xc = hf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    if act == "gelu":
+        u = xhat * weight.float()
+        if bias is not None:
+            u = u + bias.float()
+        g = g * _gelu_tanh_grad(u)
+    gw = g * weight.float() if weight is not None else g
+    m1 = gw.mean(dim=-1, keepdim=True)
+    m2 = (gw * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd * (gw - m1 - xhat * m2)
+    if gh is not None:
+        dx = dx + gh.float()
+    lead = tuple(range(h.dim() - 1))
+    dw = (g * xhat).sum(dim=lead).to(weight.dtype) \
+        if weight is not None else None
+    db = g.sum(dim=lead).to(bias.dtype) if bias is not None else None
+    return dx.to(h.dtype), dw, db
+
+
 # -------------------------------------------------------------- checks
 def _check_rows(name, t, hidden=None):
     if t.dtype not in _DTYPES:
@@ -116,37 +154,12 @@ def _check_vector(name, t, hidden, device, dtype=None):
 
 
 def _route(*tensors):
-    """"cpu" for the plain version, "cuda" for the kernel; anything
-    else (a mix of devices, another device type) raises."""
-    devices = {t.device for t in tensors if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    (device,) = devices
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no LayerNorm kernel for device {device}")
-    return device.type
+    return launch.route("LayerNorm", *tensors)
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
-# ------------------------------------------------------------ wrappers
-def ln_fwd(x, weight=None, bias=None, eps=1e-5):
-    """LayerNorm over the last axis of ``x`` (f32 math, output in x's
-    type). ``weight``/``bias`` may be None; a bias without a weight is
-    ignored, as in the TPU kernel."""
-    if weight is None:
-        bias = None
+# ----------------------------------------------------------- launchers
+def _ln_fwd_launch(x, weight, bias, eps):
     if _route(x, weight, bias) == "cpu":
         return _ln_fwd_ref(x, weight, bias, eps)
     _check_rows("ln_fwd x", x)
@@ -159,22 +172,16 @@ def ln_fwd(x, weight=None, bias=None, eps=1e-5):
     if rows == 0:
         return y
     rc = _lib().ln_fwd(
-        x.data_ptr(), _ptr(weight), _ptr(bias), y.data_ptr(), rows, hidden,
+        x.data_ptr(), launch.ptr(weight), launch.ptr(bias), y.data_ptr(),
+        rows, hidden,
         _DTYPES[x.dtype], _DTYPES[weight.dtype] if weight is not None else 0,
-        float(eps), x.device.index, _stream(x.device))
-    _raise_on(rc, "ln_fwd")
+        float(eps), x.device.index, launch.stream(x.device))
+    launch.raise_on(rc, "ln_fwd")
     LAUNCHES["ln_fwd"] += 1
     return y
 
 
-def ln_res_fwd(x, residual, weight, bias=None, eps=1e-5, act=None):
-    """``h = x + residual; y = act(LN(h) * weight + bias)`` over the last
-    axis; returns ``(h, y)`` in promote_types(x, residual). ``act`` is
-    None or ``"gelu"`` (tanh form)."""
-    if act not in (None, "gelu"):
-        raise ValueError(f"act must be None or 'gelu', got {act!r}")
-    if weight is None:
-        raise ValueError("ln_res_fwd needs a weight")
+def _ln_res_fwd_launch(x, residual, weight, bias, eps, act):
     if _route(x, residual, weight, bias) == "cpu":
         return _ln_res_fwd_ref(x, residual, weight, bias, eps, act)
     _check_rows("ln_res_fwd x", x)
@@ -192,10 +199,128 @@ def ln_res_fwd(x, residual, weight, bias=None, eps=1e-5, act=None):
     if rows == 0:
         return h, y
     rc = _lib().ln_res_fwd(
-        x.data_ptr(), residual.data_ptr(), weight.data_ptr(), _ptr(bias),
+        x.data_ptr(), residual.data_ptr(), weight.data_ptr(),
+        launch.ptr(bias),
         h.data_ptr(), y.data_ptr(), rows, hidden, _DTYPES[x.dtype],
         _DTYPES[residual.dtype], _DTYPES[weight.dtype], int(act == "gelu"),
-        float(eps), x.device.index, _stream(x.device))
-    _raise_on(rc, "ln_res_fwd")
+        float(eps), x.device.index, launch.stream(x.device))
+    launch.raise_on(rc, "ln_res_fwd")
     LAUNCHES["ln_res_fwd"] += 1
     return h, y
+
+
+def ln_bwd(h, gy, weight, bias=None, eps=1e-5, act=None, gh=None):
+    """LayerNorm backward from the saved pre-norm rows ``h`` and the
+    cotangent ``gy`` of its output (``act`` as in the forward); ``gh``,
+    the cotangent of h itself in the residual form, is added to dx.
+    Returns ``(dx, dw, db)``: dx in h's type, dw/db in the weights'
+    types (db None without a bias)."""
+    if act not in (None, "gelu"):
+        raise ValueError(f"act must be None or 'gelu', got {act!r}")
+    if weight is None:
+        raise ValueError("ln_bwd needs a weight")
+    if _route(h, gy, gh, weight, bias) == "cpu":
+        return _ln_bwd_ref(h, gy, weight, bias, eps, act, gh)
+    _check_rows("ln_bwd h", h)
+    hidden = h.shape[-1]
+    for name, t in (("gy", gy), ("gh", gh)):
+        if t is None:
+            continue
+        _check_rows(f"ln_bwd {name}", t, hidden)
+        if t.shape != h.shape or t.dtype != h.dtype:
+            raise ValueError(f"ln_bwd: {name} {tuple(t.shape)} {t.dtype} != "
+                             f"h {tuple(h.shape)} {h.dtype}")
+    _check_vector("ln_bwd weight", weight, hidden, h.device)
+    _check_vector("ln_bwd bias", bias, hidden, h.device, weight.dtype)
+    dx = torch.empty_like(h)
+    rows = h.numel() // hidden
+    if rows == 0:
+        return (dx, torch.zeros_like(weight),
+                None if bias is None else torch.zeros_like(bias))
+    per_block = -(-rows // _BWD_BLOCKS)
+    parts = torch.empty((2, -(-rows // per_block), hidden),
+                        dtype=torch.float32, device=h.device)
+    rc = _lib().ln_bwd(
+        h.data_ptr(), gy.data_ptr(), launch.ptr(gh), weight.data_ptr(),
+        launch.ptr(bias),
+        dx.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows, hidden,
+        per_block, _DTYPES[h.dtype], _DTYPES[weight.dtype], int(act == "gelu"),
+        float(eps), h.device.index, launch.stream(h.device))
+    launch.raise_on(rc, "ln_bwd")
+    LAUNCHES["ln_bwd" if gh is None else "ln_bwd_res"] += 1
+    dw = parts[0].sum(dim=0).to(weight.dtype)
+    db = None if bias is None else parts[1].sum(dim=0).to(bias.dtype)
+    return dx, dw, db
+
+
+# ------------------------------------------------------------ autograd
+class _LayerNorm(torch.autograd.Function):
+    """``_ln_fwd_rule``/``_ln_bwd_rule``: saves x and the weights."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return _ln_fwd_launch(x, weight, bias, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        x, weight, bias = ctx.saved_tensors
+        if weight is None:             # no kernel: the plain composition
+            dx, _, _ = _ln_bwd_ref(x, gy, None, None, ctx.eps)
+            return dx, None, None, None
+        dx, dw, db = ln_bwd(x, gy.contiguous(), weight, bias, ctx.eps)
+        return dx, dw, db, None
+
+
+class _LayerNormResidual(torch.autograd.Function):
+    """``_ln_res_fwd_rule``/``_ln_res_bwd_rule``: saves h and the
+    weights; an unused h (no cotangent) takes the plain backward."""
+
+    @staticmethod
+    def forward(ctx, x, residual, weight, bias, eps, act):
+        h, y = _ln_res_fwd_launch(x, residual, weight, bias, eps, act)
+        ctx.save_for_backward(h, weight, bias)
+        ctx.eps, ctx.act = eps, act
+        ctx.dtypes = (x.dtype, residual.dtype)
+        ctx.set_materialize_grads(False)
+        return h, y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gh, gy):
+        h, weight, bias = ctx.saved_tensors
+        dw = db = None
+        if gy is not None:
+            gh = None if gh is None else gh.contiguous()
+            dh, dw, db = ln_bwd(h, gy.contiguous(), weight, bias, ctx.eps,
+                                ctx.act, gh)
+        elif gh is not None:
+            dh = gh
+        else:
+            return None, None, None, None, None, None
+        x_dtype, r_dtype = ctx.dtypes
+        return dh.to(x_dtype), dh.to(r_dtype), dw, db, None, None
+
+
+# ------------------------------------------------------------ wrappers
+def ln_fwd(x, weight=None, bias=None, eps=1e-5):
+    """LayerNorm over the last axis of ``x`` (f32 math, output in x's
+    type). ``weight``/``bias`` may be None; a bias without a weight is
+    ignored, as in the TPU kernel. Differentiable in x, weight and bias."""
+    if weight is None:
+        bias = None
+    return _LayerNorm.apply(x, weight, bias, eps)
+
+
+def ln_res_fwd(x, residual, weight, bias=None, eps=1e-5, act=None):
+    """``h = x + residual; y = act(LN(h) * weight + bias)`` over the last
+    axis; returns ``(h, y)`` in promote_types(x, residual). ``act`` is
+    None or ``"gelu"`` (tanh form). Differentiable in x, residual, weight
+    and bias."""
+    if act not in (None, "gelu"):
+        raise ValueError(f"act must be None or 'gelu', got {act!r}")
+    if weight is None:
+        raise ValueError("ln_res_fwd needs a weight")
+    return _LayerNormResidual.apply(x, residual, weight, bias, eps, act)

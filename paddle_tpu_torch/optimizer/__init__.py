@@ -1,0 +1,5 @@
+"""Optimizers of the port (counterpart of ``paddle_tpu/optimizer``)."""
+from paddle_tpu_torch.optimizer.adam import Adam, AdamW
+from paddle_tpu_torch.optimizer.optimizer import Optimizer
+
+__all__ = ["Adam", "AdamW", "Optimizer"]

@@ -1,0 +1,192 @@
+"""paddle_tpu_torch flash attention: the plain versions of the three
+kernels against the reference's Pallas kernels (interpret mode on the
+CPU), the autograd Function against autograd through a composition, the
+attention functional against the reference's, and the no-fallback
+contract of the CUDA wrappers.
+
+Tolerances: f32 at atol = rtol = 1e-5 (the reference accumulates over
+blocks of 16 keys, the plain version over the whole row: the same
+products summed in another order). bf16: the plain version and the
+Pallas kernel round p and ds to bf16 at the same places, but p comes
+from a running maximum in the kernel and from the row's maximum here, so
+a p can round to a neighbouring bf16 value (2^-8 relative); outputs are
+held within 2^-7 of the tensor's largest magnitude (two bf16 ulps there).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import paddle_tpu as P
+from paddle_tpu.nn import functional as PF
+from paddle_tpu.ops.pallas import flash_attention as pallas_flash
+
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.ops.cuda import build
+from paddle_tpu_torch.ops.cuda import flash_attention as flash
+
+BLOCK = 16            # reference blocks: s = 40 is a ragged 3 x 3 grid
+
+
+def _data(b, sq, sk, h, d, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, h, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, h, d)).astype(np.float32)
+    do = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax(a, dtype):
+    """[b, s, h, d] numpy -> the reference's [b, h, s, d] layout."""
+    return jnp.asarray(a.transpose(0, 2, 1, 3)).astype(dtype)
+
+
+def _torch(a, dtype):
+    return torch.tensor(a).to(dtype)
+
+
+def _close(got, want, dtype):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    err = np.abs(got - want)
+    if dtype == "bfloat16":
+        tol = 2.0 ** -7 * np.abs(want).max()
+    else:
+        tol = 1e-5 + 1e-5 * np.abs(want)
+    assert (err <= tol).all(), f"max abs err {err.max()}"
+
+
+def _bshd(a_bhsd):
+    """The reference's [b, h, s, d] result as numpy [b, s, h, d] f32."""
+    return np.asarray(jnp.asarray(a_bhsd).astype(jnp.float32)).transpose(
+        0, 2, 1, 3)
+
+
+CASES = [  # (causal, sq, sk, dtype)
+    (True, 40, 40, "float32"),
+    (False, 40, 40, "float32"),
+    (False, 24, 40, "float32"),     # dense sq != sk (_bwd_dkv's seq_q)
+    (True, 40, 40, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("causal,sq,sk,dtype", CASES)
+def test_plain_versions_match_pallas_kernels(causal, sq, sk, dtype):
+    b, h, d = 1, 2, 16
+    q, k, v, do = _data(b, sq, sk, h, d, seed=sq + sk + int(causal))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv, jdo = (_jax(a, jdt) for a in (q, k, v, do))
+    want_o, want_lse = pallas_flash._flash_fwd(jq, jk, jv, causal, scale,
+                                               BLOCK, BLOCK, True)
+    tq, tk, tv, tdo = (_torch(a, tdt) for a in (q, k, v, do))
+    o, lse = flash._flash_fwd_ref(tq, tk, tv, causal, scale)
+    assert o.shape == tq.shape and o.dtype == tdt
+    assert lse.shape == (b * h, sq) and lse.dtype == torch.float32
+    _close(o.float().numpy(), _bshd(want_o), dtype)
+    _close(lse.numpy(), np.asarray(want_lse).reshape(b * h, sq), "float32")
+
+    # the backward from the same lse and delta on both sides
+    delta = (tdo.float() * o.float()).sum(-1).transpose(1, 2)   # [b, h, sq]
+    jlse = jnp.asarray(lse.numpy()).reshape(b, h, sq)
+    want = pallas_flash._flash_bwd_impl(
+        jq, jk, jv, jdo, jlse, jnp.asarray(delta.numpy()), causal, scale,
+        BLOCK, BLOCK, True)
+    args = (tq, tk, tv, tdo, lse, delta.reshape(b * h, sq), causal, scale)
+    got = (flash.flash_bwd_dq(*args),) + flash.flash_bwd_dkv(*args)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.shape == t.shape and g.dtype == tdt
+        _close(g.float().numpy(), _bshd(w), dtype)
+
+
+def _composition(q, k, v, causal, scale):
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool)
+                          .triu(1), -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_autograd_function_matches_composition(causal):
+    q, k, v, do = (torch.tensor(a) for a in _data(2, 33, 33, 3, 16, seed=5))
+    grads = []
+    for fn in (lambda *a: flash.flash_attention_bshd(*a, causal=causal),
+               lambda *a: _composition(*a, causal, 0.25)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do)
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    assert not any(flash.LAUNCHES.values())     # CPU: plain versions only
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_functional_matches_reference(causal):
+    """The port's attention functional (flash plain version on the CPU)
+    against the reference's (which falls back to _sdpa_ref off-TPU)."""
+    q, k, v, _ = _data(2, 24, 24, 2, 16, seed=7)
+    want = PF.scaled_dot_product_attention(
+        P.to_tensor(q), P.to_tensor(k), P.to_tensor(v), is_causal=causal)
+    got = F.scaled_dot_product_attention(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), is_causal=causal)
+    _close(got.numpy(), np.asarray(want._value), "float32")
+
+
+def test_functional_mask_and_dropout():
+    q, k, v, _ = (torch.tensor(a) for a in _data(1, 8, 8, 2, 16, seed=9))
+    keep = torch.ones(8, 8, dtype=torch.bool).tril()
+    masked = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+    causal = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    np.testing.assert_allclose(masked.numpy(), causal.numpy(), atol=1e-6)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        F.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+    F.scaled_dot_product_attention(q, k, v, dropout_p=0.1, training=False)
+
+
+def test_cuda_request_raises_without_toolkit(monkeypatch, tmp_path):
+    """A tensor routed to the kernels never reaches a plain version: with
+    no nvcc every wrapper raises."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain_called(*a, **k):
+        raise AssertionError("plain version reached on the CUDA route")
+
+    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(flash.launch, "route", lambda *a: "cuda")
+    monkeypatch.setattr(flash, "_flash_fwd_ref", plain_called)
+    monkeypatch.setattr(flash, "_flash_bwd_dq_ref", plain_called)
+    monkeypatch.setattr(flash, "_flash_bwd_dkv_ref", plain_called)
+    q, k, v, do = (torch.tensor(a) for a in _data(1, 8, 8, 2, 128, seed=1))
+    stats = torch.zeros(2, 8)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        flash.flash_fwd(q, k, v, causal=True)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        flash.flash_bwd_dq(q, k, v, do, stats, stats, causal=True)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        flash.flash_bwd_dkv(q, k, v, do, stats, stats, causal=True)
+    assert not any(flash.LAUNCHES.values())
+
+
+def test_bad_inputs_raise():
+    x = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="disagree"):
+        flash.flash_fwd(x, torch.zeros(1, 8, 3, 64), torch.zeros(1, 8, 3, 64))
+    with pytest.raises(ValueError, match="head_dim"):
+        flash._check_kernel_operand("q", torch.zeros(1, 8, 2, 80),
+                                    torch.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        flash._check_kernel_operand("q", x.half(), torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash._check_kernel_operand(
+            "q", torch.zeros(1, 8, 128, 2).transpose(2, 3), torch.float32)
+    with pytest.raises(ValueError, match="no flash attention kernel"):
+        flash.flash_fwd(*(torch.empty(1, 8, 2, 64, device="meta"),) * 3)

@@ -1,5 +1,6 @@
 """paddle_tpu_torch LayerNorm kernels: plain versions against the
-reference's Pallas kernels (interpret mode on the CPU), the fused
+reference's Pallas kernels (interpret mode on the CPU), the autograd
+Functions against ``jax.vjp`` of the reference's custom VJPs, the fused
 dispatch, and the no-fallback contract of the CUDA wrappers.
 
 Tolerances: f32 at atol = rtol = 1e-5 (the f32 sums run in another
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import norm as pallas_norm
@@ -154,12 +156,18 @@ def test_cuda_request_raises_without_toolkit(monkeypatch, tmp_path):
     monkeypatch.setattr(norm, "_route", lambda *t: "cuda")
     monkeypatch.setattr(norm, "_ln_fwd_ref", plain_called)
     monkeypatch.setattr(norm, "_ln_res_fwd_ref", plain_called)
+    monkeypatch.setattr(norm, "_ln_bwd_ref", plain_called)
     x, r, w, b = (torch.tensor(a) for a in _data(8))
     with pytest.raises(RuntimeError, match="nvcc"):
         norm.ln_fwd(x, w, b)
     with pytest.raises(RuntimeError, match="nvcc"):
         norm.ln_res_fwd(x, r, w, b)
-    assert norm.LAUNCHES == {"ln_fwd": 0, "ln_res_fwd": 0}
+    with pytest.raises(RuntimeError, match="nvcc"):
+        norm.ln_bwd(x, r, w, b)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        norm.ln_bwd(x, r, w, b, gh=r)
+    assert norm.LAUNCHES == {"ln_fwd": 0, "ln_res_fwd": 0, "ln_bwd": 0,
+                             "ln_bwd_res": 0}
 
 
 def test_other_devices_and_bad_inputs_raise():
@@ -171,6 +179,11 @@ def test_other_devices_and_bad_inputs_raise():
                         torch.ones(HIDDEN), act="relu")
     with pytest.raises(ValueError, match="weight"):
         norm.ln_res_fwd(torch.zeros(2, HIDDEN), torch.zeros(2, HIDDEN), None)
+    with pytest.raises(ValueError, match="weight"):
+        norm.ln_bwd(torch.zeros(2, HIDDEN), torch.zeros(2, HIDDEN), None)
+    with pytest.raises(ValueError, match="act"):
+        norm.ln_bwd(torch.zeros(2, HIDDEN), torch.zeros(2, HIDDEN),
+                    torch.ones(HIDDEN), act="relu")
     with pytest.raises(ValueError, match="multiple of 8"):
         norm._check_rows("x", torch.zeros(2, 12))
     with pytest.raises(ValueError, match="contiguous"):
@@ -178,3 +191,94 @@ def test_other_devices_and_bad_inputs_raise():
     with pytest.raises(TypeError, match="dtype"):
         norm._check_rows("x", torch.zeros(2, HIDDEN, dtype=torch.float16))
 
+
+# ------------------------------------------------------------- backward
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual,act", [(False, None), (True, None),
+                                          (True, "gelu")])
+def test_ln_bwd_matches_pallas_kernel(residual, act, dtype):
+    """_ln_bwd_ref against _ln_bwd_pallas (both Pallas variants) on the
+    same h, gy (and gh), 13 rows: a ragged row block."""
+    h, gy, w, b = _data(13, seed=5)
+    gh = np.random.default_rng(6).standard_normal(h.shape).astype(np.float32)
+    (jh, th), (jg, tg), (jgh, tgh) = (_pair(a, dtype) for a in (h, gy, gh))
+    jw, tw = jnp.asarray(w), torch.tensor(w)
+    jb, tb = jnp.asarray(b), torch.tensor(b)
+    want = pallas_norm._ln_bwd_pallas(jh, jw, jb, jg,
+                                      jgh if residual else None, EPS, act,
+                                      None, True)
+    got = norm.ln_bwd(th, tg, tw, tb, EPS, act, tgh if residual else None)
+    assert got[0].dtype == th.dtype and got[1].dtype == got[2].dtype \
+        == torch.float32
+    _assert_close(got[0], want[0], dtype)
+    for g, wnt in zip(got[1:], want[1:]):
+        # dw/db: f32 sums of 13 rows of bf16-rounded products
+        _assert_close(g, wnt, "float32" if dtype == "float32" else
+                      "bfloat16")
+
+
+@pytest.mark.parametrize("affine", ["weight_bias", "weight", "none"])
+def test_layer_norm_function_grads_match_jax(affine):
+    """The autograd Function of ln_fwd (the repaired wrapper) against
+    jax.vjp of the reference's fused_layer_norm (its custom VJP: the
+    Pallas backward kernel with a weight, the jnp composition
+    without)."""
+    x, g, w, b = _data(13, seed=7)
+    if affine == "none":
+        w = b = None
+    elif affine == "weight":
+        b = None
+    args = [a for a in (x, w, b)]
+    y, vjp = jax.vjp(lambda *t: pallas_norm.fused_layer_norm(
+        *t, EPS, None, True), *[None if a is None else jnp.asarray(a)
+                                for a in args])
+    want = vjp(jnp.asarray(g))
+    leaves = [None if a is None else torch.tensor(a).requires_grad_()
+              for a in args]
+    out = norm.ln_fwd(*leaves, EPS)
+    _assert_close(out.detach(), y, "float32")
+    out.backward(torch.tensor(g))
+    for t, wnt in zip(leaves, want):
+        if t is None:
+            assert wnt is None
+        else:
+            _assert_close(t.grad, wnt, "float32")
+
+
+@pytest.mark.parametrize("h_used", [True, False])
+@pytest.mark.parametrize("act", [None, "gelu"])
+def test_ln_residual_function_grads_match_jax(act, h_used):
+    """The autograd Function of ln_res_fwd against jax.vjp of the
+    reference's fused_ln_residual; an unused h (no cotangent) takes the
+    plain backward, as a zero cotangent does in the reference."""
+    x, r, w, b = _data(13, seed=8)
+    rng = np.random.default_rng(9)
+    ch = rng.standard_normal(x.shape).astype(np.float32)
+    cy = rng.standard_normal(x.shape).astype(np.float32)
+    if not h_used:
+        ch = np.zeros_like(ch)
+    _, vjp = jax.vjp(lambda *t: pallas_norm.fused_ln_residual(
+        *t, EPS, act, None, True), *map(jnp.asarray, (x, r, w, b)))
+    want = vjp((jnp.asarray(ch), jnp.asarray(cy)))
+    leaves = [torch.tensor(a).requires_grad_() for a in (x, r, w, b)]
+    h, y = norm.ln_res_fwd(*leaves, EPS, act)
+    if h_used:
+        torch.autograd.backward([h, y], [torch.tensor(ch), torch.tensor(cy)])
+    else:
+        y.backward(torch.tensor(cy))
+    for t, wnt in zip(leaves, want):
+        _assert_close(t.grad, wnt, "float32")
+
+
+def test_ln_residual_grads_take_the_input_dtypes():
+    """dx and dres come back in the types of x and residual
+    (_ln_res_bwd_rule), whatever the promoted type of h."""
+    x, r, w, b = _data(8, seed=10)
+    tx = torch.tensor(x).to(torch.bfloat16).requires_grad_()
+    tr = torch.tensor(r).requires_grad_()
+    tw = torch.tensor(w).requires_grad_()
+    h, y = norm.ln_res_fwd(tx, tr, tw, None, EPS)
+    assert h.dtype == y.dtype == torch.float32
+    (y.sum() + h.sum()).backward()
+    assert tx.grad.dtype == torch.bfloat16
+    assert tr.grad.dtype == tw.grad.dtype == torch.float32

@@ -1,0 +1,176 @@
+"""paddle_tpu_torch training: the GPT train step of
+``tools/perfgate.py:build_gpt_train_step`` (gpt3_tiny with fused_ln,
+AdamW(1e-4, fused=False), ids and labels 2 x 32) in the port and in
+paddle_tpu from the same initial weights, the bf16 activation policy,
+the optimizer and the loss.
+
+Tolerances: f32 losses within 1e-4 over 3 steps and first-step
+gradients within 1e-4 of each tensor's largest magnitude (the same f32
+arithmetic in another order, with the attention softmax summed over
+blocks in neither package on the CPU); the bf16-policy loss trajectory
+within 0.05 of the f32 one (the reference's contract for its policy).
+"""
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as P
+import paddle_tpu.nn.functional as PF
+from paddle_tpu.models.gpt import GPTForCausalLM as RefGPT
+from paddle_tpu.models.gpt import gpt3_tiny as ref_tiny
+
+import paddle_tpu_torch as T
+from paddle_tpu_torch.framework.io import load_numpy_state_dict, numpy_grads
+from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.ops.cuda import flash_attention, norm
+
+VOCAB = 256
+
+
+@pytest.fixture(scope="module")
+def reference_run():
+    """paddle_tpu's step (to_static, f32): initial weights, the batch,
+    3 losses and the first step's gradients by name."""
+    P.seed(0)
+    cfg = ref_tiny(fused_ln=True)
+    model = RefGPT(cfg)
+    init = {k: np.asarray(t._value) for k, t in model.state_dict().items()}
+    opt = P.optimizer.AdamW(learning_rate=1e-4,
+                            parameters=model.parameters(), fused=False)
+
+    @P.jit.to_static(amp_policy=None)
+    def train_step(ids, labels):
+        opt.clear_grad()
+        logits = model(ids)
+        loss = PF.cross_entropy(logits.reshape([-1, VOCAB]),
+                                labels.reshape([-1]))
+        loss.backward()
+        opt.step()
+        return loss
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, VOCAB, (2, 32))
+    labels = rng.integers(0, VOCAB, (2, 32))
+    losses, grads = [], None
+    for _ in range(3):
+        losses.append(float(train_step(P.to_tensor(ids, dtype="int64"),
+                                       P.to_tensor(labels, dtype="int64"))))
+        if grads is None:
+            grads = {n: np.asarray(p.grad._value)
+                     for n, p in model.named_parameters()}
+    return init, ids, labels, losses, grads
+
+
+def _port_run(init, ids, labels, steps, amp_policy=None):
+    model = GPTForCausalLM(gpt3_tiny(fused_ln=True), device="cpu")
+    load_numpy_state_dict(model, init)
+    opt = T.optimizer.AdamW(learning_rate=1e-4,
+                            parameters=model.parameters(), fused=False)
+
+    @T.jit.to_static(amp_policy=amp_policy)
+    def train_step(ids, labels):
+        opt.clear_grad()
+        logits = model(ids)
+        loss = F.cross_entropy(logits.reshape([-1, VOCAB]),
+                               labels.reshape([-1]))
+        loss.backward()
+        opt.step()
+        return loss
+
+    ids, labels = torch.tensor(ids), torch.tensor(labels)
+    losses, grads = [], None
+    for _ in range(steps):
+        losses.append(train_step(ids, labels).item())
+        if grads is None:
+            grads = numpy_grads(model)
+    return model, losses, grads
+
+
+def test_f32_step_matches_reference(reference_run):
+    init, ids, labels, want_losses, want_grads = reference_run
+    _, losses, grads = _port_run(init, ids, labels, 3)
+    np.testing.assert_allclose(losses, want_losses, rtol=0, atol=1e-4)
+    assert losses[-1] < losses[0]
+    assert sorted(grads) == sorted(want_grads)
+    for name, want in want_grads.items():
+        err = np.abs(grads[name] - want).max()
+        assert err <= 1e-4 * np.abs(want).max(), (name, err)
+    assert not any(norm.LAUNCHES.values())           # CPU: plain versions
+    assert not any(flash_attention.LAUNCHES.values())
+
+
+def test_bf16_policy_trajectory_within_contract(reference_run):
+    init, ids, labels, _, _ = reference_run
+    _, f32, _ = _port_run(init, ids, labels, 10)
+    model, bf16, grads = _port_run(init, ids, labels, 10, amp_policy="bf16")
+    assert np.isfinite(bf16).all()
+    assert np.abs(np.asarray(bf16) - np.asarray(f32)).max() <= 0.05
+    # masters, their gradients and the moments stay f32
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(g.dtype == np.float32 and np.isfinite(g).all()
+               for g in grads.values())
+    assert len(grads) == len(list(model.parameters()))
+
+
+def test_policy_casts_module_inputs_only_inside_the_step():
+    model = GPTForCausalLM(gpt3_tiny(fused_ln=True), device="cpu")
+    seen = []
+    model.gpt.layers[0].register_forward_pre_hook(
+        lambda _m, args: seen.append(args[0].dtype))
+    ids = torch.zeros(1, 8, dtype=torch.long)
+    step = T.jit.to_static(lambda: model(ids), amp_policy="bf16")
+    logits = step()
+    assert seen == [torch.bfloat16] and logits.dtype == torch.bfloat16
+    model(ids)                         # outside the step: no cast
+    assert seen[-1] == torch.float32
+    with T.amp.activation_residency("bf16") as pol:
+        assert T.amp.current_policy() is pol
+    assert T.amp.current_policy() is None
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="remat"):
+        T.jit.to_static(lambda: None, remat=True)
+    with pytest.raises(NotImplementedError, match="guard"):
+        T.jit.to_static(lambda: None, guard=True)
+    with pytest.raises(ValueError, match="bf16"):
+        T.jit.to_static(lambda: None, amp_policy="bp16")
+    p = [torch.nn.Parameter(torch.zeros(2))]
+    with pytest.raises(NotImplementedError, match="fused"):
+        T.optimizer.AdamW(parameters=p, fused=True)
+    with pytest.raises(ValueError, match="named"):
+        T.optimizer.AdamW(parameters=p, apply_decay_param_fun=lambda n: True)
+
+
+def test_adamw_decays_before_the_update_and_only_where_asked():
+    """With zero gradients the Adam step is 0/(0 + eps) = 0, so each
+    parameter moves by the decoupled decay alone, and only where
+    apply_decay_param_fun says so."""
+    lin = torch.nn.Linear(4, 3)
+    before = {n: p.detach().clone() for n, p in lin.named_parameters()}
+    opt = T.optimizer.AdamW(learning_rate=0.5, weight_decay=0.1,
+                            parameters=lin.named_parameters(),
+                            apply_decay_param_fun=lambda n: n == "weight")
+    for p in lin.parameters():
+        p.grad = torch.zeros_like(p)
+    opt.step()
+    torch.testing.assert_close(lin.weight.detach(),
+                               before["weight"] * (1 - 0.5 * 0.1))
+    torch.testing.assert_close(lin.bias.detach(), before["bias"])
+    opt.clear_grad()
+    assert all(p.grad is None for p in lin.parameters())
+
+
+def test_cross_entropy_matches_reference():
+    rng = np.random.default_rng(3)
+    logits = rng.standard_normal((2, 5, 7)).astype(np.float32)
+    labels = rng.integers(0, 7, (2, 5))
+    labels[0, 1] = labels[1, 4] = -100                 # ignored
+    want = PF.cross_entropy(P.to_tensor(logits), P.to_tensor(labels))
+    got = F.cross_entropy(torch.tensor(logits), torch.tensor(labels))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    with T.amp.auto_cast():                  # bf16 logits are raised to f32
+        got16 = F.cross_entropy(torch.tensor(logits).bfloat16(),
+                                torch.tensor(labels)[..., None])
+    assert got16.dtype == torch.float32

@@ -28,19 +28,41 @@ Phases, in order (any failure raises and exits non-zero):
    then the autograd Functions (kernel path) against autograd through
    the plain versions, and each kernel's time beside its bound, its plain
    version's and the library call's;
-6. training: GPT-1.3B (``gpt3_1p3b(fused_ln=True)``, dropout 0, f32
+6. fused AdamW kernels: the update and the guard's sums of squares at
+   the training path's weight shapes (and an odd-row single block, and
+   ``cols % 8 != 0``), f32 and bf16 moments, decay on and off, guard off
+   and on with one NaN planted in one row block under guard, each
+   against its plain version bit for bit (that block's p, m and v
+   bit-identical to the inputs); then their times beside their bounds,
+   the plain version's and ``torch._fused_adamw_``'s;
+7. training: GPT-1.3B (``gpt3_1p3b(fused_ln=True)``, dropout 0, f32
    master weights from a seeded generator) takes 10 steps of
    ``to_static(amp_policy="bf16")`` + ``AdamW(fused=False)`` on one
    seeded batch of 4 x 1024 tokens; every loss is finite, the last is
    below the first by more than ``LOSS_DROP``, every parameter ends
    with a finite gradient, and each step launches each kernel exactly as
    often as the model has call sites; then one step under
-   ``torch.profiler`` says where a step's time goes.
+   ``torch.profiler`` says where a step's time goes;
+8. guarded training: the same model, weights and batch through the
+   reference's optimized, guarded step (``to_static(amp_policy="bf16",
+   guard=True)``, ``AdamW(fused=True, guard=True)``) watched by a
+   ``TrainingSentinel``: 10 clean steps (every action OK, 3091 guarded
+   regions, losses within ``TRAJECTORY_TOL`` of phase 7's), then a
+   ``nan_grad`` fault in the word embedding's gradient: the step is
+   classified ``nan_grad`` with one bad region, that 128-row block keeps
+   its p, m and v, the rest moves, the embedding's beta powers hold;
+   launch counts exact; its breakdown and profile;
+9. fused, unguarded: ``AdamW(fused=True)`` at depth 2 against
+   ``AdamW(fused=False)``, 3 steps;
+10. rollback: at depth 2, a fault-free run and a run with ``nan_grad`` on
+   steps 7 and 8 (checkpoint at 4, ``skip_limit`` 2): detected at step
+   7, 2 skips, 1 rollback, and the resumed run's losses and weights
+   equal the fault-free run's bit for bit.
 
-Each main path (serving, training) runs with every launch count set to 0
-just before it and read just after. The last line is ``{"ok": true,
-"device": {...}}``; the line before it holds the kernels' numbers as
-JSON.
+Each main path (serving, the training runs) runs with every launch count
+set to 0 just before it and read just after. The last line is ``{"ok":
+true, "device": {...}}``; the line before it holds the kernels' numbers
+as JSON.
 """
 from __future__ import annotations
 
@@ -48,9 +70,11 @@ import argparse
 import gc
 import json
 import math
+import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -66,14 +90,19 @@ LN_OPS_PER_ELEM = 8                  # sum, sub, square, sum, scale, w, b
 TIMED_ROWS = 8                       # the decode shape: most launches
 NORM_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/norm.cu"
 FLASH_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu"
+OPTIM_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/optim.cu"
 REPLACES = {"ln_fwd": "paddle_tpu/ops/pallas/norm.py:55",
             "ln_res_fwd": "paddle_tpu/ops/pallas/norm.py:190",
             "flash_fwd": "paddle_tpu/ops/pallas/flash_attention.py:94",
             "flash_bwd_dq": "paddle_tpu/ops/pallas/flash_attention.py:144",
             "flash_bwd_dkv": "paddle_tpu/ops/pallas/flash_attention.py:181",
             "ln_bwd": "paddle_tpu/ops/pallas/norm.py:225",
-            "ln_bwd_res": "paddle_tpu/ops/pallas/norm.py:233"}
-SOURCES = {name: FLASH_SOURCE if name.startswith("flash") else NORM_SOURCE
+            "ln_bwd_res": "paddle_tpu/ops/pallas/norm.py:233",
+            "adam_update": "paddle_tpu/ops/pallas/optim.py:61",
+            "adam_update_guard": "paddle_tpu/ops/pallas/optim.py:61",
+            "adam_guard_sumsq": "paddle_tpu/ops/pallas/optim.py:61"}
+SOURCES = {name: FLASH_SOURCE if name.startswith("flash") else
+           OPTIM_SOURCE if name.startswith("adam") else NORM_SOURCE
            for name in REPLACES}
 BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor cores
 # the training path: batch, sequence, heads, head_dim (GPT-1.3B)
@@ -81,6 +110,18 @@ B, S, H, D = 4, 1024, 16, 128
 TRAIN_STEPS = 10
 LOSS_DROP = 0.1                      # last loss <= first - LOSS_DROP
 LN_BWD_OPS_PER_ELEM = 20             # stats, xhat, two row sums, dx, dw, db
+# the fused AdamW: GPT-1.3B's rank-2 weights by shape and count (word
+# and position embeddings, then qkv, out, fc1, fc2 of each layer)
+ADAM_PATH_SHAPES = {(50304, 2048): 1, (2048, 2048): 25, (2048, 6144): 24,
+                    (2048, 8192): 24, (8192, 2048): 24}
+# and two layouts the path does not have: an odd-row single block, and
+# cols % 8 != 0 over several blocks
+ADAM_CHECK_SHAPES = tuple(ADAM_PATH_SHAPES) + ((1003, 520), (4096, 1001))
+ADAM_LR, ADAM_T, ADAM_WD = 1e-4, 3, 0.01      # AdamW(1e-4) at its 3rd step
+ADAM_OPS_PER_ELEM = 15               # decay, two moments, two divides, sqrt
+GUARD_REGIONS = 3091                 # 2,897 row blocks + 194 rank-1 params
+TRAJECTORY_TOL = 0.05                # guarded vs unfused losses, per step
+CHAOS_CKPT, CHAOS_FAULT, CHAOS_TOTAL, CHAOS_SKIPS = 4, 7, 10, 2
 
 
 def card_line():
@@ -296,15 +337,15 @@ def _prompts(seed, vocab, n=8):
 
 
 def reset_launches():
-    from paddle_tpu_torch.ops.cuda import flash_attention, norm
-    for counts in (norm.LAUNCHES, flash_attention.LAUNCHES):
+    from paddle_tpu_torch.ops.cuda import flash_attention, norm, optim
+    for counts in (norm.LAUNCHES, flash_attention.LAUNCHES, optim.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def read_launches():
-    from paddle_tpu_torch.ops.cuda import flash_attention, norm
-    return {**norm.LAUNCHES, **flash_attention.LAUNCHES}
+    from paddle_tpu_torch.ops.cuda import flash_attention, norm, optim
+    return {**norm.LAUNCHES, **flash_attention.LAUNCHES, **optim.LAUNCHES}
 
 
 def phase_serving(profile):
@@ -684,6 +725,185 @@ def phase_train_kernels():
     return err, time_train_kernels(gen)
 
 
+# ------------------------------------------------------- fused AdamW
+def _adam_inputs(shape, gen, m_dtype, g_dtype=torch.float32):
+    def rnd(scale=1.0):
+        return scale * torch.randn(shape, device="cuda", generator=gen)
+    p, g = rnd(), rnd().to(g_dtype)
+    m, v = rnd(0.1).to(m_dtype), (rnd(0.1) ** 2).to(m_dtype)
+    return p, g, m, v
+
+
+def _adam_sc(decay_on):
+    c1, c2 = 1 - 0.9 ** ADAM_T, 1 - 0.999 ** ADAM_T
+    return torch.tensor([ADAM_LR, c1, c2, float(decay_on)], device="cuda")
+
+
+ADAM_KW = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+
+
+def check_adam(name, got, want):
+    """p, m and v bit for bit equal to the plain version, bf16 moments
+    too: both round with IEEE-rounded f32 ops in the reference kernel's
+    order (the kernel through ``__f*_rn`` intrinsics, so nvcc contracts
+    nothing into an FMA). A looser limit would not see a wrong decay: at
+    ``AdamW(1e-4)``'s lr·wd = 1e-6 the decoupled decay moves p by
+    1e-6·|p|, inside rtol 1e-6, while it moves p by several f32 ulps."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    differ = got.view(bits[got.dtype]) != want.view(bits[want.dtype])
+    err = (got.float() - want.float()).abs()
+    if bool(differ.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: {int(differ.sum())} elements differ "
+                             f"from the plain version, max abs err "
+                             f"{err.max().item()}")
+    words = name.split()
+    SHARES.setdefault((words[0], words[-1]), 0.0)
+    return 0.0
+
+
+def check_parts(name, got, want):
+    """Sums of squares: finite verdicts exact, finite sums within 1e-5
+    relative (f32 sums in another order)."""
+    if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+        raise AssertionError(f"{name}: finite verdicts differ")
+    ok = torch.isfinite(want)
+    if not bool(ok.any()):
+        return 0.0
+    got, want = got[ok], want[ok]
+    return _held(name, got, (got - want).abs(), 1e-5 * want.abs() + 1e-30)
+
+
+def phase_adam_kernels():
+    """Kernel #9 against its plain version at the path's shapes (and two
+    layouts it does not have), then its times."""
+    from paddle_tpu_torch.ops.cuda import optim
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    err = {"adam_update": 0.0, "adam_update_guard": 0.0,
+           "adam_guard_sumsq": 0.0}
+    cases = [(shape, mdt, torch.float32, decay_on, guard)
+             for shape in ADAM_CHECK_SHAPES
+             for mdt in (torch.float32, torch.bfloat16)
+             for decay_on in (True, False) for guard in (False, True)]
+    cases.append(((2048, 6144), torch.float32, torch.bfloat16, True, True))
+    for shape, mdt, gdt, decay_on, guard in cases:
+        p, g, m, v = _adam_inputs(shape, gen, mdt, gdt)
+        br, regions = optim._regions(shape)
+        bad = None
+        if guard:                     # one NaN in one row block
+            bad = regions // 2
+            g[bad * br + br // 2, shape[1] // 3] = float("nan")
+        p_in, m_in, v_in = p.clone(), m.clone(), v.clone()
+        ref = [p.clone(), m.clone(), v.clone()]
+        sc = _adam_sc(decay_on)
+        name = "adam_update_guard" if guard else "adam_update"
+        parts = optim.fused_adam_update(p, g, m, v, sc, **ADAM_KW,
+                                        weight_decay=ADAM_WD, guard=guard)
+        ref_parts = optim._adam_ref(*ref[:1], g, *ref[1:], sc, ADAM_KW[
+            "beta1"], ADAM_KW["beta2"], ADAM_KW["eps"], ADAM_WD, guard)
+        torch.cuda.synchronize()
+        tag = (f"{shape} decay_on={decay_on} g={str(gdt)[6:]} "
+               f"{str(mdt).split('.')[1]}")
+        for what, got, want in zip("pmv", (p, m, v), ref):
+            err[name] = max(err[name], check_adam(
+                f"{name} {what} {tag}", got, want))
+        if guard:
+            check_parts(f"{name} parts {tag}", parts, ref_parts)
+            rows = slice(bad * br, (bad + 1) * br)
+            for what, got, before in zip("pmv", (p, m, v),
+                                         (p_in, m_in, v_in)):
+                if not torch.equal(got[rows], before[rows]):
+                    raise AssertionError(f"{name} {tag}: block {bad}'s "
+                                         f"{what} changed under a NaN")
+            if regions > 1 and torch.equal(p, p_in):
+                raise AssertionError(f"{name} {tag}: no block moved")
+            layout = optim._layout(shape)
+            chunk = optim._chunk_sumsq(g, layout)
+            want = optim._chunk_sumsq_ref(g, layout)
+            torch.cuda.synchronize()
+            err["adam_guard_sumsq"] = max(err["adam_guard_sumsq"], check_parts(
+                f"adam_guard_sumsq {tag}", chunk, want))
+    print(f"[adam kernels] agree with their plain versions on {len(cases)} "
+          f"cases; max abs err {err}")
+    print(f"[adam kernels] largest error as a share of its limit: "
+          f"{shares(*err)}")
+    return (err, *time_adam_kernels(gen))
+
+
+def time_adam_kernels(gen):
+    """The update (unguarded and guarded) and the sums of squares at each
+    path shape, f32 everything as on the path, by CUDA events; then
+    per-step sums over GPT-1.3B's 98 rank-2 weights."""
+    from paddle_tpu_torch.ops.cuda import optim
+    few = dict(reps=10, per_rep=5)
+    t = {}
+    for shape, count in ADAM_PATH_SHAPES.items():
+        n = shape[0] * shape[1]
+        copies = max(1, math.ceil(200e6 / (16 * n)))
+        sets = [_adam_inputs(shape, gen, torch.float32)
+                for _ in range(copies)]
+        sc = _adam_sc(True)
+        layout = optim._layout(shape)
+        parts = [optim._chunk_sumsq(g, layout) for _p, g, _m, _v in sets]
+        kw = dict(**ADAM_KW, weight_decay=ADAM_WD)
+        upd = [(p, g, m, v, sc) for p, g, m, v in sets]
+        upd_guard = [(p, g, m, v, sc, layout, *ADAM_KW.values(), ADAM_WD, cp)
+                     for (p, g, m, v), cp in zip(sets, parts)]
+        ref = [(p, g, m, v, sc, *ADAM_KW.values(), ADAM_WD, False)
+               for p, g, m, v in sets]
+        ref_guard = [a[:-1] + (True,) for a in ref]
+        steps = [torch.zeros((), device="cuda") for _ in sets]
+        lib = [([p], [g], [m], [v], [], [st])
+               for (p, g, m, v), st in zip(sets, steps)]
+
+        def fused_adamw(*lists):
+            torch._fused_adamw_(*lists, lr=ADAM_LR, beta1=0.9, beta2=0.999,
+                                weight_decay=ADAM_WD, eps=1e-8,
+                                amsgrad=False, maximize=False)
+
+        regions = layout[2]
+        vecdot = [(g.view(regions, -1),) * 2 for _p, g, _m, _v in sets]
+        rows = {
+            "adam_update": (lambda *a: optim.fused_adam_update(*a, **kw),
+                            upd, optim._adam_ref, ref, 28 * n,
+                            (fused_adamw, lib)),
+            "adam_update_guard": (optim._update, upd_guard, optim._adam_ref,
+                                  ref_guard, 28 * n, None),
+            "adam_guard_sumsq": (optim._chunk_sumsq, [(g, layout) for
+                                 _p, g, _m, _v in sets],
+                                 optim._chunk_sumsq_ref,
+                                 [(g, layout) for _p, g, _m, _v in sets],
+                                 4 * n, (torch.linalg.vecdot, vecdot)),
+        }
+        for name, (fn, args, plain, plain_args, bytes_, lib_call) in \
+                rows.items():
+            ops = (2 if name == "adam_guard_sumsq" else ADAM_OPS_PER_ELEM) * n
+            bound, by = _bound(bytes_, ops, F32_OPS_PER_S)
+            t[(name, shape)] = {
+                "ms": device_ms(fn, args, **few),
+                "plain_ms": device_ms(plain, plain_args, **few),
+                "bound_ms": bound, "bound_by": by,
+                "library_ms": device_ms(lib_call[0], lib_call[1], **few)
+                if lib_call else None,
+                "shape": list(shape), "dtype": "float32",
+                "per_step": count}
+        del sets, parts, upd, upd_guard, ref, ref_guard, lib, vecdot
+    for key, v in t.items():
+        print(f"[adam kernels] {key[0]} {key[1]}: " + ", ".join(
+            f"{k} {x:.5f}" if isinstance(x, float) else f"{k} {x}"
+            for k, x in v.items() if k not in ("shape", "per_step")))
+    per_step = {}
+    for name in ("adam_update", "adam_update_guard", "adam_guard_sumsq"):
+        rows = [v for key, v in t.items() if key[0] == name]
+        total = {k: None if rows[0][k] is None else
+                 sum(v[k] * v["per_step"] for v in rows)
+                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        per_step[name] = total
+        print(f"[adam kernels] {name}, one GPT-1.3B step (98 weights): " +
+              ", ".join(f"{k} {x:.3f}" if x is not None else f"{k} null"
+                        for k, x in total.items()))
+    return t, per_step
+
+
 # -------------------------------------------------------------- training
 def phase_train():
     """GPT-1.3B, 10 train steps through the port's entry points."""
@@ -729,11 +949,7 @@ def phase_train():
         losses.append(loss)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    per_step = {"flash_fwd": cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
-                "flash_bwd_dkv": cfg.num_layers,
-                "ln_fwd": cfg.num_layers + 1, "ln_res_fwd": cfg.num_layers,
-                "ln_bwd": cfg.num_layers + 1, "ln_bwd_res": cfg.num_layers}
-    expect = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+    expect = step_launches(cfg, TRAIN_STEPS, fused=False, guard=False)
     print(f"[train] losses {losses}")
     print(f"[train] launches {launches}")
     if launches != expect:
@@ -757,16 +973,31 @@ def phase_train():
           f"{B * S / steady:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
     breakdown(model, opt, ids, labels, vocab, steady)
     profile_train_step(train_step, ids, labels, steady)
-    return launches
+    return launches, losses
 
 
-def breakdown(model, opt, ids, labels, vocab, step_s):
+def step_launches(cfg, steps, fused, guard):
+    """Each kernel's launches over ``steps`` train steps of ``cfg``: the
+    model's call sites, and one fused update of each rank-2 weight (four
+    a layer, two embeddings), guarded with its sums of squares."""
+    n, rank2 = cfg.num_layers, 4 * cfg.num_layers + 2
+    per_step = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                "ln_fwd": n + 1, "ln_res_fwd": n, "ln_bwd": n + 1,
+                "ln_bwd_res": n,
+                "adam_update": rank2 if fused and not guard else 0,
+                "adam_update_guard": rank2 if fused and guard else 0,
+                "adam_guard_sumsq": rank2 if fused and guard else 0}
+    return {k: steps * v for k, v in per_step.items()}
+
+
+def breakdown(model, opt, ids, labels, vocab, step_s, tag="train"):
     """Device time of the step's two halves, by CUDA events (median of
     3): forward + loss + backward under the bf16 policy, then the
-    optimizer update."""
+    optimizer update; and the host time of ``opt.step()``'s call (the
+    time to enqueue it, no synchronisation inside)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.nn import functional as F
-    halves = {"forward+backward": [], "optimizer": []}
+    halves = {"forward+backward": [], "optimizer": [], "optimizer host": []}
     for _ in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         opt.clear_grad()
@@ -776,17 +1007,20 @@ def breakdown(model, opt, ids, labels, vocab, step_s):
                                    labels.reshape([-1]))
             loss.backward()
         ev[1].record()
+        t0 = time.perf_counter()
         opt.step()
+        halves["optimizer host"].append((time.perf_counter() - t0) * 1e3)
         ev[2].record()
         ev[2].synchronize()
         halves["forward+backward"].append(ev[0].elapsed_time(ev[1]))
         halves["optimizer"].append(ev[1].elapsed_time(ev[2]))
-    print("[train breakdown] " + ", ".join(
+    print(f"[{tag} breakdown] " + ", ".join(
         f"{k} {statistics.median(v):.1f} ms" for k, v in halves.items())
-        + f" of a {step_s * 1e3:.1f} ms step (CUDA events, median of 3)")
+        + f" of a {step_s * 1e3:.1f} ms step (CUDA events and host "
+        f"clock, median of 3)")
 
 
-def profile_train_step(train_step, ids, labels, step_s):
+def profile_train_step(train_step, ids, labels, step_s, tag="train"):
     """Device time by kernel over one train step under torch.profiler,
     and its share of the step's unprofiled wall time."""
     from torch.profiler import ProfilerActivity
@@ -799,12 +1033,300 @@ def profile_train_step(train_step, ids, labels, step_s):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"[train profile] one step: {busy_ms:.1f} ms of kernel time, "
+    print(f"[{tag} profile] one step: {busy_ms:.1f} ms of kernel time, "
           f"{100 * busy_ms / (step_s * 1e3):.1f} % of the {step_s * 1e3:.1f}"
           f" ms step; by kernel:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
-        print(f"[train profile] {e.self_device_time_total / 1e3:9.3f} ms "
+        print(f"[{tag} profile] {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:110]}")
+
+
+def _gpt(num_layers=None):
+    """GPT-1.3B (optionally cut to ``num_layers``) with f32 masters from
+    seed 0, in train mode, as phase 7 builds it."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_1p3b
+    kw = {} if num_layers is None else {"num_layers": num_layers}
+    cfg = gpt3_1p3b(fused_ln=True, dropout=0.0, attention_dropout=0.0, **kw)
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(0))
+    model.train()
+    return cfg, model
+
+
+def _train_step(model, opt, vocab, guard):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn import functional as F
+
+    @pt.jit.to_static(amp_policy="bf16", guard=guard)
+    def train_step(ids, labels):
+        opt.clear_grad()
+        logits = model(ids)
+        loss = F.cross_entropy(logits.reshape([-1, vocab]),
+                               labels.reshape([-1]))
+        loss.backward()
+        opt.step()
+        return loss
+
+    return train_step
+
+
+def _batch(vocab, seed):
+    data = torch.Generator("cuda").manual_seed(seed)
+    return (torch.randint(0, vocab, (B, S), device="cuda", generator=data),
+            torch.randint(0, vocab, (B, S), device="cuda", generator=data))
+
+
+def _check_held_block(opt, emb_name, emb, rows, before):
+    """Right after the faulted step: the poisoned row block of the
+    embedding kept its p, m and v bytes, every other block moved, and
+    the embedding's beta powers held."""
+    st = opt.state_dict()
+    now = {k: st[f"{emb_name}_{k}"] for k in before if k != "p"}
+    now["p"] = emb.detach()
+    br = rows.stop - rows.start
+    for k in ("p", "moment1", "moment2"):
+        moved = (now[k] != before[k]).reshape(-1, br * emb.shape[1]).any(1)
+        block = rows.start // br
+        if bool(moved[block]):
+            raise AssertionError(f"faulted block's {k} changed")
+        if int(moved.sum()) != moved.numel() - 1:
+            raise AssertionError(f"{k}: only {int(moved.sum())} of "
+                                 f"{moved.numel() - 1} clean blocks moved")
+    for k in ("beta1_pow", "beta2_pow"):
+        if not torch.equal(now[k], before[k]):
+            raise AssertionError(f"the embedding's {k} advanced")
+    return (f"rows {rows.start}-{rows.stop - 1} of {emb_name} kept their "
+            f"p, m and v bytes, the other {moved.numel() - 1} blocks moved, "
+            f"beta powers held at {before['beta1_pow'].item():.6f}, "
+            f"{before['beta2_pow'].item():.6f}")
+
+
+def phase_train_guarded(unfused_losses):
+    """GPT-1.3B through the reference's optimized, guarded step, watched
+    by a TrainingSentinel; a nan_grad fault after 10 clean steps."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.cuda import optim
+    from paddle_tpu_torch.resilience import (FaultInjector, FaultPlan,
+                                             FaultSpec, SentinelAction,
+                                             TrainingSentinel, sentinel)
+    t0 = time.perf_counter()
+    cfg, model = _gpt()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.named_parameters(),
+                             fused=True, guard=True)
+    train_step = _train_step(model, opt, cfg.vocab_size, guard=True)
+    ids, labels = _batch(cfg.vocab_size, 1)              # phase 7's batch
+    emb_name, emb = next(iter(model.named_parameters()))
+    if emb_name != "gpt.embeddings.word_embeddings.weight":
+        raise AssertionError(f"first parameter is {emb_name}")
+    plan = FaultPlan([FaultSpec("optimizer.grads", "nan_grad",
+                                at=TRAIN_STEPS)], seed=0)
+    # the element corrupt_array poisons, and its 128-row block
+    idx = random.Random(plan.seed * 1000003 + TRAIN_STEPS * 101).randrange(
+        emb.numel())
+    br, _ = optim._regions(emb.shape)
+    block = idx // emb.shape[1] // br
+    rows = slice(block * br, (block + 1) * br)
+    torch.cuda.synchronize()
+    print(f"[guarded train] built in {time.perf_counter() - t0:.1f} s; "
+          f"to_static(amp_policy='bf16', guard=True), AdamW(1e-4, "
+          f"fused=True, guard=True), TrainingSentinel(skip_limit=3); "
+          f"nan_grad at step {TRAIN_STEPS + 1} lands in {emb_name} row "
+          f"{idx // emb.shape[1]}, block {block}")
+
+    sent = TrainingSentinel(skip_limit=3)
+    losses, step_s, actions, summaries = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with FaultInjector(plan):
+        sentinel.install(sent)
+        try:
+            for step in range(1, TRAIN_STEPS + 3):
+                if step == TRAIN_STEPS + 1:
+                    st = opt.state_dict()
+                    before = {k: st[f"{emb_name}_{k}"].clone() for k in (
+                        "moment1", "moment2", "beta1_pow", "beta2_pow")}
+                    before["p"] = emb.detach().clone()
+                t0 = time.perf_counter()
+                train_step(ids, labels)
+                summary = opt.guard_summary()                # synchronises
+                step_s.append(time.perf_counter() - t0)
+                loss = train_step.last_guard["loss"]
+                actions.append(sent.observe(step, loss=loss,
+                                            summary=summary))
+                losses.append(loss)
+                summaries.append(summary)
+                if step == TRAIN_STEPS + 1:
+                    held = _check_held_block(opt, emb_name, emb, rows,
+                                             before)
+        finally:
+            sentinel.uninstall(sent)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    clean = losses[:TRAIN_STEPS]
+    print(f"[guarded train] losses {losses}")
+    print(f"[guarded train] actions {[a.name for a in actions]}; "
+          f"summaries {summaries}")
+    print(f"[guarded train] launches {launches}")
+    expect = step_launches(cfg, TRAIN_STEPS + 2, fused=True, guard=True)
+    if launches != expect:
+        raise AssertionError(f"guarded launches {launches} != {expect}")
+    want = [SentinelAction.OK] * TRAIN_STEPS + [SentinelAction.SKIP,
+                                                SentinelAction.OK]
+    if actions != want:
+        raise AssertionError(f"actions {actions} != {want}")
+    if any(s.regions != GUARD_REGIONS for s in summaries):
+        raise AssertionError(f"regions {[s.regions for s in summaries]} "
+                             f"!= {GUARD_REGIONS}")
+    evt, faulted = sent.anomalies[0], summaries[TRAIN_STEPS]
+    if len(sent.anomalies) != 1 or evt.kind != "nan_grad" or \
+            evt.step != TRAIN_STEPS + 1 or faulted.bad_regions != 1:
+        raise AssertionError(f"fault misclassified: {sent.anomalies}, "
+                             f"{faulted}")
+    if any(s.bad_regions for i, s in enumerate(summaries)
+           if i != TRAIN_STEPS):
+        raise AssertionError("a clean step had a bad region")
+    print(f"[guarded train] faulted step: {held}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not clean[-1] <= clean[0] - LOSS_DROP:
+        raise AssertionError(f"loss did not fall by {LOSS_DROP}: {clean}")
+    delta = max(abs(a - b) for a, b in zip(clean, unfused_losses))
+    print(f"[guarded train] clean losses against phase 7's (fused=False, "
+          f"no guard): largest |delta| {delta:.3e} (limit {TRAJECTORY_TOL})")
+    if delta > TRAJECTORY_TOL:
+        raise AssertionError(f"guarded trajectory off by {delta}")
+    bad = [n for n, p in model.named_parameters()
+           if not bool(torch.isfinite(p).all())]
+    if bad:
+        raise AssertionError(f"non-finite weights: {bad}")
+    steady = statistics.median(step_s[1:TRAIN_STEPS])
+    print(f"[guarded train] {card_line()}: step {steady * 1e3:.1f} ms "
+          f"(median of steps 2-{TRAIN_STEPS}, host clock to the guard "
+          f"summary's read; first {step_s[0] * 1e3:.1f} ms), "
+          f"{B * S / steady:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    breakdown(model, opt, ids, labels, cfg.vocab_size, steady,
+              tag="guarded train")
+    profile_train_step(train_step, ids, labels, steady, tag="guarded train")
+    return launches
+
+
+def phase_fused_unguarded():
+    """AdamW(fused=True) without the guard, at depth 2, against
+    AdamW(fused=False) from the same weights on the same batch."""
+    import paddle_tpu_torch as pt
+    runs = {}
+    for fused in (False, True):
+        cfg, model = _gpt(num_layers=2)
+        opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters(), fused=fused)
+        step = _train_step(model, opt, cfg.vocab_size, guard=False)
+        ids, labels = _batch(cfg.vocab_size, 1)
+        reset_launches()
+        runs[fused] = [step(ids, labels).item() for _ in range(3)]
+        launches = read_launches()
+        del model, opt, step
+    expect = step_launches(cfg, 3, fused=True, guard=False)
+    delta = max(abs(a - b) for a, b in zip(runs[True], runs[False]))
+    print(f"[fused adamw] depth 2, 3 steps: fused {runs[True]}, unfused "
+          f"{runs[False]}, largest |delta| {delta:.3e} (limit 1e-3); "
+          f"launches {launches}")
+    if launches != expect:
+        raise AssertionError(f"fused launches {launches} != {expect}")
+    if delta > 1e-3:
+        raise AssertionError(f"fused AdamW off the unfused loop by {delta}")
+    return launches
+
+
+def _chaos_run(ckpt_dir, plan):
+    """TestChaosAcceptance's loop at GPT-1.3B width and depth 2: one
+    seeded batch a step, a checkpoint after step CHAOS_CKPT, rollback
+    after CHAOS_SKIPS anomalies in a row."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.resilience import (Checkpointer, FaultInjector,
+                                             SentinelAction,
+                                             TrainingSentinel, faultinject)
+    cfg, model = _gpt(num_layers=2)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.named_parameters(),
+                             fused=True, guard=True)
+    step_fn = _train_step(model, opt, cfg.vocab_size, guard=True)
+    ck = Checkpointer(ckpt_dir, keep=2)
+    sent = TrainingSentinel(checkpointer=ck, model=model, optimizer=opt,
+                            skip_limit=CHAOS_SKIPS, lr_cooldown=1.0)
+    inj = faultinject.install(FaultInjector(plan)) if plan else None
+    losses, executed, io_s = {}, 0, 0.0
+    try:
+        step = 1
+        while step <= CHAOS_TOTAL:
+            step_fn(*_batch(cfg.vocab_size, 1000 + step))
+            executed += 1
+            act = sent.observe(step, loss=step_fn.last_guard["loss"],
+                               summary=opt.guard_summary())
+            if act is SentinelAction.ROLLBACK:
+                step = sent.resume_step
+                continue
+            if act is SentinelAction.OK:
+                losses[step] = step_fn.last_guard["loss"]
+                if step == CHAOS_CKPT:
+                    t0 = time.perf_counter()
+                    ck.save_train_state(step, model, opt)
+                    io_s += time.perf_counter() - t0
+                    sent.note_checkpoint(step)
+            step += 1
+    finally:
+        if inj is not None:
+            faultinject.uninstall(inj)
+    return cfg, model, losses, sent, executed, io_s
+
+
+def phase_rollback():
+    """The chaos acceptance proof at full width, depth 2: a fault-free
+    run and a run with nan_grad on steps 7 and 8 end with the same
+    losses and weights, bit for bit."""
+    from paddle_tpu_torch.resilience import FaultPlan, FaultSpec
+    plan = FaultPlan([FaultSpec("optimizer.grads", "nan_grad",
+                                at=CHAOS_FAULT - 1, times=CHAOS_SKIPS)],
+                     seed=3, name="chaos-nan_grad")
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, clean_model, clean, _, n_clean, io_clean = _chaos_run(
+            str(Path(tmp) / "clean"), None)
+        _, model, faulted, sent, n_fault, io_fault = _chaos_run(
+            str(Path(tmp) / "faulted"), plan)
+        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*.pkl"))
+    launches = read_launches()
+    print(f"[rollback] depth 2, {n_clean} + {n_fault} steps in "
+          f"{time.perf_counter() - t0:.1f} s (checkpoint saves "
+          f"{io_clean + io_fault:.1f} s, {ckpt_bytes / 2**30:.2f} GiB on disk "
+          f"at the end); anomalies {[a.to_dict() for a in sent.anomalies]}, "
+          f"skips {sent.skips_total}, rollbacks {sent.rollbacks}, resumed "
+          f"at step {sent.resume_step}")
+    print(f"[rollback] fault-free losses {clean}")
+    print(f"[rollback] resumed losses    {faulted}")
+    expect = step_launches(cfg, n_clean + n_fault, fused=True, guard=True)
+    if launches != expect:
+        raise AssertionError(f"rollback launches {launches} != {expect}")
+    if not sent.anomalies or sent.anomalies[0].step != CHAOS_FAULT or \
+            sent.anomalies[0].kind != "nan_grad":
+        raise AssertionError(f"not detected at step {CHAOS_FAULT}: "
+                             f"{sent.anomalies}")
+    if (sent.skips_total, sent.rollbacks) != (CHAOS_SKIPS, 1):
+        raise AssertionError(f"{sent.skips_total} skips, {sent.rollbacks} "
+                             f"rollbacks")
+    if faulted != clean:
+        raise AssertionError("resumed losses differ from the fault-free run")
+    differ = [n for (n, a), (_, b) in zip(model.named_parameters(),
+                                          clean_model.named_parameters())
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"resumed weights differ: {differ}")
+    print(f"[rollback] the resumed run's {len(faulted)} losses and "
+          f"{len(list(model.parameters()))} weights equal the fault-free "
+          f"run's bit for bit")
+    return launches
 
 
 def main(argv=None):
@@ -818,30 +1340,48 @@ def main(argv=None):
     phase_build()
     max_err, timings = phase_kernels()
     train_err, train_timings = phase_train_kernels()
+    adam_err, adam_timings, adam_per_step = phase_adam_kernels()
     serving = phase_serving(args.profile)
     gc.collect()
     torch.cuda.empty_cache()
-    train = phase_train()
+    train, unfused_losses = phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {"serving": serving, "train": train,
+             "guarded_train": phase_train_guarded(unfused_losses)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["fused_train"] = phase_fused_unguarded()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["rollback"] = phase_rollback()
     max_err.update(train_err)
+    max_err.update(adam_err)
+    embedding = (50304, 2048)
     timed = {"ln_fwd": timings[("ln_fwd", TIMED_ROWS)],
              "ln_res_fwd": timings[("ln_res_fwd", TIMED_ROWS)],
              "flash_fwd": train_timings["flash_fwd"],
              "flash_bwd_dq": train_timings["flash_bwd_dq"],
              "flash_bwd_dkv": train_timings["flash_bwd_dkv"],
              "ln_bwd": train_timings[("ln_bwd", B * S)],
-             "ln_bwd_res": train_timings[("ln_bwd_res", B * S)]}
+             "ln_bwd_res": train_timings[("ln_bwd_res", B * S)],
+             **{name: {**adam_timings[(name, embedding)],
+                       "per_step_ms": adam_per_step[name]}
+                for name in ("adam_update", "adam_update_guard",
+                             "adam_guard_sumsq")}}
     kernels = []
     for name, t in timed.items():
         shape = {k: v for k, v in t.items() if k not in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "per_step")}
         if name in ("ln_fwd", "ln_res_fwd"):
             shape = {"rows": TIMED_ROWS, "hidden": HIDDEN, "dtype": "bfloat16"}
+        by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": serving[name] + train[name],
-            "launches_by_path": {"serving": serving[name],
-                                 "train": train[name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max_err[name],
             "err_share": shares(name)[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -1,4 +1,5 @@
-"""Weight bridge between the reference package and the port.
+"""Weight bridge between the reference package and the port, and the
+port's one durable-write choke point (:func:`write_atomic`).
 
 Both packages name and lay out their weights alike (Linear ``[in, out]``,
 embeddings ``[vocab, hidden]``, the same dotted keys), so a state dict
@@ -7,10 +8,52 @@ crosses as ``{name: numpy array}``: from the reference with
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-__all__ = ["load_numpy_state_dict", "numpy_grads", "numpy_state_dict"]
+__all__ = ["load_numpy_state_dict", "numpy_grads", "numpy_state_dict",
+           "to_numpy", "write_atomic"]
+
+
+def to_numpy(obj):
+    """``obj`` with every tensor in it (dicts, lists, tuples) replaced by
+    a numpy copy on the host; bf16 comes out as float32 (numpy has no
+    bf16 of its own)."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    if isinstance(obj, dict):
+        return {k: to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_numpy(v) for v in obj)
+    return obj
+
+
+def write_atomic(path, data, site="io.save"):
+    """Durably write the bytes ``data`` to ``path``: a temp file in the
+    target directory, fsync, then an atomic ``os.replace``, so a reader
+    never sees a half-written file and a crash mid-write leaves the
+    previous one intact (``paddle_tpu/framework/io.py:write_atomic``
+    for bytes).
+
+    Fault site ``io.save`` (kind ``torn_write``): ``keep_fraction``
+    truncates the payload before the rename (only a content digest
+    catches it)."""
+    from paddle_tpu_torch.resilience import faultinject
+    spec = faultinject.fire(site, path=path, size=len(data))
+    torn = spec is not None and spec.kind == "torn_write"
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        if torn:
+            f.flush()
+            keep = float(spec.payload.get("keep_fraction", 0.5))
+            f.truncate(max(0, int(f.tell() * keep)))
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
 
 
 def load_numpy_state_dict(module, arrays):
@@ -41,22 +84,12 @@ def load_numpy_state_dict(module, arrays):
 def numpy_state_dict(module):
     """``{name: numpy array}`` of ``module``'s state; bf16 tensors come
     out as float32 (numpy has no bf16 of its own)."""
-    out = {}
-    for name, t in module.state_dict().items():
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        out[name] = t.numpy()
-    return out
+    return to_numpy(dict(module.state_dict()))
 
 
 def numpy_grads(module):
     """``{name: numpy array}`` of the gradients ``module``'s parameters
     hold (parameters without one are left out), by the state dict's
     names; bf16 gradients come out as float32."""
-    out = {}
-    for name, p in module.named_parameters():
-        if p.grad is not None:
-            g = p.grad.detach().cpu()
-            out[name] = (g.float() if g.dtype == torch.bfloat16 else g).numpy()
-    return out
+    return {name: to_numpy(p.grad) for name, p in module.named_parameters()
+            if p.grad is not None}

@@ -1,46 +1,105 @@
 """Adam and AdamW (counterpart of ``paddle_tpu/optimizer/adam.py``).
 
-The update is the reference's unfused loop, step for step: moments in
-f32, the bias correction divides (``mhat = m / (1 - beta1^t)``), eps is
-added to ``sqrt(vhat)``, and AdamW's decoupled decay
+The unfused update is the reference's loop, step for step: moments in
+f32 math, the bias correction divides (``mhat = m / (1 - beta1^t)``),
+eps is added to ``sqrt(vhat)``, and AdamW's decoupled decay
 ``p *= 1 - lr * coeff`` comes before the Adam update, gated by
 ``apply_decay_param_fun``. ``torch.optim.AdamW`` puts eps elsewhere, so
-it is not a substitute. The fused single-pass kernel (``fused=True``,
-``paddle_tpu/ops/pallas/optim.py``) is not ported yet.
+it is not a substitute.
+
+``fused=True`` sends every rank-2 parameter through the single-pass
+kernel (:func:`paddle_tpu_torch.ops.cuda.optim.fused_adam_update`,
+kernel #9 of the reference, ``paddle_tpu/ops/pallas/optim.py``), which
+folds the decoupled decay in; rank-1 parameters keep the loop, as in the
+reference. ``moment_dtype="bfloat16"`` stores the moments in bf16 (the
+math stays f32).
 """
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.ops.cuda.optim import fused_adam_update
 from paddle_tpu_torch.optimizer.optimizer import Optimizer
 
 __all__ = ["Adam", "AdamW"]
 
+_MOMENT_DTYPES = {None: torch.float32, "float32": torch.float32,
+                  "bfloat16": torch.bfloat16}
+
 
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-08, parameters=None, fused=False):
-        if fused:
-            raise NotImplementedError(
-                "the fused AdamW kernel (fused=True) is not ported yet")
-        super().__init__(learning_rate, parameters)
+                 epsilon=1e-08, parameters=None, moment_dtype=None,
+                 fused=False, guard=False):
+        super().__init__(learning_rate, parameters, guard=guard)
+        if moment_dtype not in _MOMENT_DTYPES:
+            raise ValueError(f"moment_dtype must be float32 or bfloat16, "
+                             f"got {moment_dtype!r}")
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
+        self._moment_dtype = _MOMENT_DTYPES[moment_dtype]
+        self._fused = bool(fused)
+
+    def _fused_decay(self, p):
+        """(decoupled coefficient, gate) the fused kernel applies: plain
+        Adam has none."""
+        return 0.0, True
 
     def _update_param(self, p, g):
-        m = self._acc("moment1", p)
-        v = self._acc("moment2", p)
+        mdt = self._moment_dtype
+        m = self._acc("moment1", p, dtype=mdt)
+        v = self._acc("moment2", p, dtype=mdt)
         b1p = self._acc("beta1_pow", p, init=1.0, shape=())
         b2p = self._acc("beta2_pow", p, init=1.0, shape=())
+        if self._will_fuse(p):
+            self._fused_update(p, g, m, v, b1p, b2p)
+            return
         b1p.mul_(self._beta1)
         b2p.mul_(self._beta2)
         g = g.float()
-        m.mul_(self._beta1).add_(g, alpha=1 - self._beta1)
-        v.mul_(self._beta2).add_((1 - self._beta2) * g * g)
-        upd = (m / (1 - b1p)).mul_(self._lr)                # lr * mhat
-        upd.div_((v / (1 - b2p)).sqrt_().add_(self._epsilon))
+        mf = m if m.dtype == torch.float32 else m.float()
+        vf = v if v.dtype == torch.float32 else v.float()
+        mf.mul_(self._beta1).add_(g, alpha=1 - self._beta1)
+        vf.mul_(self._beta2).add_((1 - self._beta2) * g * g)
+        upd = (mf / (1 - b1p)).mul_(self._lr)               # lr * mhat
+        upd.div_((vf / (1 - b2p)).sqrt_().add_(self._epsilon))
+        if mf is not m:
+            m.copy_(mf)
+            v.copy_(vf)
         p.copy_(p.float() - upd)
+
+    def _fused_update(self, p, g, m, v, b1p, b2p):
+        """Kernel #9 on one rank-2 parameter. The bias-correction powers
+        advance only on a committed step: under guard their update is
+        gated on this parameter's whole-parameter verdict, while the
+        kernel gates each row block. When only some blocks are bad, the
+        good blocks commit with this step's corrections while the powers
+        hold: a bounded one-step correction offset on those blocks,
+        always finite, which the sentinel's rollback erases (the common
+        anomaly, a NaN loss, makes every gradient NaN and gates every
+        block: an exact zero update)."""
+        coeff, decay_on = self._fused_decay(p)
+        b1_new = b1p * self._beta1
+        b2_new = b2p * self._beta2
+        lr = torch.full((), self._lr, device=p.device)
+        sc = torch.stack([lr, 1 - b1_new, 1 - b2_new,
+                          torch.full((), float(decay_on), device=p.device)])
+        parts = fused_adam_update(
+            p, g, m, v, sc, beta1=self._beta1, beta2=self._beta2,
+            eps=self._epsilon, weight_decay=coeff, guard=self._guard)
+        if self._guard:
+            total = parts.sum()
+            good = torch.isfinite(total)
+            self._guard_parts.append(total)
+            self._guard_bad.append(
+                torch.logical_not(torch.isfinite(parts)).float().sum())
+            self._guard_regions += parts.numel()
+            torch.where(good, b1_new, b1p, out=b1p)
+            torch.where(good, b2_new, b2p, out=b2p)
+        else:
+            b1p.copy_(b1_new)
+            b2p.copy_(b2_new)
 
 
 class AdamW(Adam):
@@ -50,9 +109,10 @@ class AdamW(Adam):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=0.01,
-                 apply_decay_param_fun=None, fused=False):
+                 apply_decay_param_fun=None, moment_dtype=None, fused=False,
+                 guard=False):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         fused)
+                         moment_dtype, fused, guard)
         self._coeff = weight_decay if isinstance(weight_decay, float) \
             else 0.01
         if apply_decay_param_fun is not None and \
@@ -61,8 +121,15 @@ class AdamW(Adam):
                              "(pass module.named_parameters())")
         self._apply_decay_param_fun = apply_decay_param_fun
 
-    def _update_param(self, p, g):
+    def _decays(self, p):
         fun = self._apply_decay_param_fun
-        if fun is None or fun(self._names[id(p)]):
+        return fun is None or bool(fun(self._names[id(p)]))
+
+    def _fused_decay(self, p):
+        return self._coeff, self._decays(p)
+
+    def _update_param(self, p, g):
+        if not self._will_fuse(p) and self._decays(p):
+            # the fused kernel folds the decay in, in the same order
             p.copy_(p.float() * (1.0 - self._lr * self._coeff))
         super()._update_param(p, g)

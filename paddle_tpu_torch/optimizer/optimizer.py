@@ -3,10 +3,28 @@
 Paddle's imperative API over torch parameters: ``opt.clear_grad()``,
 ``loss.backward()``, ``opt.step()``. Accumulators (moments, powers) are
 tensors on each parameter's device, made at its first update.
+
+``guard=True`` arms the training sentinel's probe and skip gate
+(:mod:`paddle_tpu_torch.resilience.sentinel`): every step reduces each
+gradient region's f32 sum of squares on the device and commits no
+update for a region whose gradient is not finite. A region is a row
+block of a parameter on the fused path (the kernel gates it) and a
+whole parameter otherwise (:meth:`Optimizer._guarded_update` gates any
+update rule). The step's verdict lands in a ``(4,)`` f32 device tensor
+``[good, grad_sumsq, bad_regions, regions]``, read back only by
+:meth:`Optimizer.guard_summary`: the update itself never waits for the
+host. Unlike the reference, which skips the select when an eager step's
+verdict is concretely good, the port always selects on the device, as
+the reference's traced step does: reading the verdict would cost a host
+sync per parameter.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from paddle_tpu_torch.ops.cuda.optim import supports_fused
+from paddle_tpu_torch.resilience import faultinject
 
 __all__ = ["Optimizer"]
 
@@ -14,39 +32,84 @@ __all__ = ["Optimizer"]
 class Optimizer:
     """``parameters``: tensors, or ``(name, tensor)`` pairs as
     ``module.named_parameters()`` gives them (names are what
-    ``AdamW``'s ``apply_decay_param_fun`` sees)."""
+    ``AdamW``'s ``apply_decay_param_fun`` sees, and what the state dict
+    and fault targets are keyed by; an unnamed parameter is
+    ``param_<i>`` by its position)."""
 
-    def __init__(self, learning_rate=0.001, parameters=None):
+    def __init__(self, learning_rate=0.001, parameters=None, guard=False):
         if parameters is None:
             raise ValueError("optimizer constructed without parameters")
         self._parameter_list = []
         self._names = {}
-        for item in parameters:
+        self._keys = {}
+        for i, item in enumerate(parameters):
             name, p = item if isinstance(item, tuple) else (None, item)
             self._parameter_list.append(p)
             self._names[id(p)] = name
+            self._keys[id(p)] = name if name is not None else f"param_{i}"
         self._lr = float(learning_rate)
         self._accumulators = {}
+        self._inits = {}
+        self._acc_keys = {}         # id(p) -> its accumulators' keys
+        # subclasses with a fused single-pass update kernel set this
+        self._fused = False
+        self._guard = bool(guard)
+        self._guard_summary_t = None
+        self._guard_parts = []      # per-parameter device sum-of-squares
+        self._guard_bad = []        # per-parameter f32 device bad-region counts
+        self._guard_regions = 0
 
-    def _acc(self, name, p, init=0.0, shape=None):
-        """The f32 accumulator ``name`` of ``p`` (p's shape unless
-        ``shape`` is given), filled with ``init`` when first asked for."""
+    def _will_fuse(self, p):
+        """True when this parameter's update runs the fused single-pass
+        kernel (:mod:`paddle_tpu_torch.ops.cuda.optim`)."""
+        return self._fused and supports_fused(p.shape)
+
+    # ---- lr ----
+    def get_lr(self):
+        return self._lr
+
+    def set_lr(self, value):
+        self._lr = float(value)
+
+    # ---- accumulators ----
+    def _acc(self, name, p, init=0.0, shape=None, dtype=torch.float32):
+        """The accumulator ``name`` of ``p`` (p's shape unless ``shape``
+        is given), filled with ``init`` when first asked for."""
         key = (name, id(p))
         if key not in self._accumulators:
             shape = tuple(p.shape) if shape is None else tuple(shape)
             self._accumulators[key] = torch.full(
-                shape, init, dtype=torch.float32, device=p.device)
+                shape, init, dtype=dtype, device=p.device)
+            self._inits[key] = init
+            self._acc_keys.setdefault(id(p), []).append(key)
         return self._accumulators[key]
 
     def _params(self):
         return [p for p in self._parameter_list if p.requires_grad]
 
+    def _params_grads(self):
+        return [(p, p.grad) for p in self._params() if p.grad is not None]
+
     @torch.no_grad()
     def step(self):
         """One update of every parameter that has a gradient."""
-        for p in self._params():
-            if p.grad is not None:
-                self._update_param(p, p.grad)
+        # chaos hooks: `exception` faults at optimizer.step; `bitflip`
+        # and `nan_grad` corrupt one gradient element before the update
+        faultinject.fire("optimizer.step")
+        spec = faultinject.fire("optimizer.grads")
+        if spec is not None and spec.kind in ("bitflip", "nan_grad"):
+            self._inject_grad_fault(spec)
+        if self._guard:
+            self._guard_parts = []
+            self._guard_bad = []
+            self._guard_regions = 0
+        for p, g in self._params_grads():
+            if self._guard and not self._will_fuse(p):
+                self._guarded_update(p, g)
+            else:
+                self._update_param(p, g)
+        if self._guard:
+            self._commit_guard_summary()
 
     def _update_param(self, p, g):
         raise NotImplementedError
@@ -56,3 +119,86 @@ class Optimizer:
         ones)."""
         for p in self._params():
             p.grad = None
+
+    # ---- sentinel guard ----
+    def _inject_grad_fault(self, spec):
+        """Apply a bitflip/nan_grad fault to the target gradient
+        (``payload["param"]`` names it; default: the first parameter
+        with a gradient), deterministically from (plan seed, spec)."""
+        plan = faultinject.active_plan()
+        seed = plan.seed if plan is not None else 0
+        target = spec.payload.get("param")
+        for p, g in self._params_grads():
+            if target is not None and self._keys[id(p)] != target:
+                continue
+            g.copy_(faultinject.corrupt_array(spec, g, seed=seed))
+            return
+
+    def guard_summary(self):
+        """The last guarded step's probe as a
+        :class:`~paddle_tpu_torch.resilience.sentinel.GuardSummary`
+        (None before the first guarded step): the one host read of a
+        guarded step."""
+        if self._guard_summary_t is None:
+            return None
+        from paddle_tpu_torch.resilience.sentinel import GuardSummary
+        return GuardSummary.from_array(self._guard_summary_t.cpu().numpy())
+
+    def _param_state(self, p):
+        """(key, tensor) of p and of every accumulator of p."""
+        return [(None, p)] + [(k, self._accumulators[k])
+                              for k in self._acc_keys.get(id(p), ())]
+
+    def _guarded_update(self, p, g):
+        """Zero-update gate around any update rule: the gradient's f32
+        sum of squares (one reduction serves the finite verdict and the
+        grad-norm probe), the update, then every tensor it changed
+        selected back to its prior value where the verdict is bad
+        (``torch.where``, not a multiply, so NaNs cannot leak)."""
+        gsq = g.float().square().sum()
+        good = torch.isfinite(gsq)
+        self._guard_parts.append(gsq)
+        self._guard_bad.append(torch.logical_not(good).float())
+        self._guard_regions += 1
+        before = {k: t.clone() for k, t in self._param_state(p)}
+        self._update_param(p, g)
+        for k, t in self._param_state(p):
+            old = before.get(k)
+            if old is None:
+                # made during this update: its prior value is its init
+                old = torch.full_like(t, self._inits[k])
+            torch.where(good, t, old, out=t)
+
+    def _commit_guard_summary(self):
+        """Fold the step's per-region probes into the (4,) summary:
+        ``[good, grad_sumsq, bad_regions, regions]``, on the device."""
+        dev = self._parameter_list[0].device if self._parameter_list \
+            else torch.device("cpu")
+        if self._guard_parts:
+            total = torch.stack(self._guard_parts).sum()
+            bad = torch.stack(self._guard_bad).sum()
+        else:
+            total = torch.zeros((), device=dev)
+            bad = torch.zeros((), device=dev)
+        self._guard_summary_t = torch.stack([
+            torch.isfinite(total).float(), total, bad,
+            torch.full((), float(self._guard_regions), device=total.device)])
+
+    # ---- state ----
+    def state_dict(self):
+        """``{"<parameter key>_<accumulator>": tensor}`` of every
+        accumulator made so far."""
+        return {f"{self._keys[pid]}_{name}": t
+                for (name, pid), t in self._accumulators.items()}
+
+    def set_state_dict(self, state_dict):
+        """Copy the accumulators that exist and appear in ``state_dict``
+        (tensors or arrays) back in, each in its own type and device."""
+        with torch.no_grad():
+            for (name, pid), t in self._accumulators.items():
+                key = f"{self._keys[pid]}_{name}"
+                if key in state_dict:
+                    v = state_dict[key]
+                    if not isinstance(v, torch.Tensor):
+                        v = torch.from_numpy(np.asarray(v))
+                    t.copy_(v)

@@ -1,0 +1,247 @@
+"""Deterministic fault injection (counterpart of
+``paddle_tpu/resilience/faultinject.py``): seeded fault plans over named
+hook sites.
+
+A fault plan is data (a JSON-able list of :class:`FaultSpec`), and
+execution is deterministic: faults match on the per-site occurrence
+counter, never on the wall clock or a free-running generator.
+
+Hook sites of the port:
+
+=====================  ====================================================
+site                   where / kinds
+=====================  ====================================================
+``optimizer.step``     ``Optimizer.step``: ``exception``
+``optimizer.grads``    ``Optimizer.step``'s gradient intake: ``bitflip``
+                       flips one bit of one gradient element, ``nan_grad``
+                       makes one element NaN; both through
+                       :func:`corrupt_array`, deterministic on (plan
+                       seed, spec), aimed at ``payload["param"]`` by
+                       name (default: the first parameter with a
+                       gradient)
+``io.save``            ``framework/io.py:write_atomic``: ``torn_write``
+                       (truncate the payload, or skip the rename),
+                       ``exception``
+``io.manifest``        checkpoint manifest rewrites (same writer, its own
+                       occurrence counter)
+=====================  ====================================================
+
+The process kinds (``preempt``, ``rank_kill``, ``wedge``, ``slow``)
+raise NotImplementedError when they fire: their slices of the port come
+later. The reference's spans and counters of injections and recoveries
+wait for the port's observability; an injector keeps its own log
+(``injected``, ``recovered``).
+
+Usage::
+
+    plan = FaultPlan([FaultSpec("optimizer.grads", "nan_grad", at=6)],
+                     seed=0)
+    with FaultInjector(plan):
+        train()
+"""
+from __future__ import annotations
+
+import random
+import threading
+
+import torch
+
+__all__ = [
+    "FaultInjector", "FaultPlan", "FaultSpec", "WorkerFault",
+    "active_plan", "corrupt_array", "fire", "install", "note_recovery",
+    "uninstall",
+]
+
+KINDS = ("torn_write", "exception", "preempt", "pool_exhaust", "slow",
+         "rank_kill", "wedge", "bitflip", "nan_grad", "qps_surge")
+_NOT_PORTED = ("preempt", "rank_kill", "wedge", "slow")
+
+
+class WorkerFault(RuntimeError):
+    """The exception an ``exception``-kind fault raises, with the site
+    and the spec's payload."""
+
+    def __init__(self, site, spec, **ctx):
+        self.site = site
+        self.spec = spec
+        self.ctx = dict(ctx)
+        super().__init__(
+            f"injected fault at {site!r} (kind={spec.kind}, "
+            f"occurrence={spec.at})")
+
+
+class FaultSpec:
+    """One fault: WHERE (site), WHAT (kind), WHEN (occurrence index).
+
+    - ``at``: 0-based occurrence index at the site; the fault fires on
+      occurrences ``[at, at + times)``;
+    - ``payload``: kind-specific knobs (``bitflip``/``nan_grad``:
+      ``param``, ``index``, ``bit``; ``torn_write``: ``keep_fraction``).
+    """
+
+    def __init__(self, site, kind, at=0, times=1, payload=None):
+        if kind not in KINDS:
+            raise ValueError(f"unknown fault kind {kind!r}; one of {KINDS}")
+        if at < 0 or times < 1:
+            raise ValueError("at must be >= 0 and times >= 1")
+        self.site = str(site)
+        self.kind = str(kind)
+        self.at = int(at)
+        self.times = int(times)
+        self.payload = dict(payload) if payload else {}
+
+    def matches(self, occurrence):
+        return self.at <= occurrence < self.at + self.times
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(d["site"], d["kind"], d.get("at", 0),
+                   d.get("times", 1), d.get("payload"))
+
+    def __repr__(self):
+        return (f"FaultSpec({self.site!r}, {self.kind!r}, at={self.at}, "
+                f"times={self.times})")
+
+
+class FaultPlan:
+    """An ordered, seeded collection of faults (specs, or their dicts).
+    The seed anchors :func:`corrupt_array`'s choice of element and bit."""
+
+    def __init__(self, faults=(), seed=0, name="fault-plan"):
+        self.faults = [f if isinstance(f, FaultSpec)
+                       else FaultSpec.from_dict(f) for f in faults]
+        self.seed = int(seed)
+        self.name = str(name)
+
+    def faults_for(self, site):
+        return [f for f in self.faults if f.site == site]
+
+    def __repr__(self):
+        return (f"FaultPlan({self.name!r}, seed={self.seed}, "
+                f"{len(self.faults)} faults)")
+
+
+class FaultInjector:
+    """Installs a :class:`FaultPlan` for the duration of a ``with``
+    block. Keeps per-site occurrence counters, a log of every injection
+    (``injected``: ``(site, spec, occurrence)``) and of every recovery
+    (``recovered``: ``(site, kind, attrs)``)."""
+
+    def __init__(self, plan):
+        self.plan = plan
+        self._counts = {}
+        self._lock = threading.Lock()
+        self.injected = []
+        self.recovered = []
+
+    def poll(self, site):
+        """Advance the site's occurrence counter; return the matching
+        FaultSpec (logged) or None."""
+        with self._lock:
+            occ = self._counts.get(site, 0)
+            self._counts[site] = occ + 1
+            for spec in self.plan.faults_for(site):
+                if spec.matches(occ):
+                    self.injected.append((site, spec, occ))
+                    return spec
+        return None
+
+    def __enter__(self):
+        install(self)
+        return self
+
+    def __exit__(self, *exc):
+        uninstall(self)
+        return False
+
+
+_active = None
+_active_lock = threading.Lock()
+
+
+def install(injector):
+    global _active
+    with _active_lock:
+        if _active is not None:
+            raise RuntimeError("a FaultInjector is already installed "
+                               "(nesting fault plans is not supported)")
+        _active = injector
+    return injector
+
+
+def uninstall(injector=None):
+    global _active
+    with _active_lock:
+        if injector is not None and _active is not injector:
+            return
+        _active = None
+
+
+def active_plan():
+    inj = _active
+    return inj.plan if inj is not None else None
+
+
+def fire(site, **ctx):
+    """The one-line hook of a call site. Returns None when no plan is
+    installed or no fault is due at this occurrence; raises
+    :class:`WorkerFault` for an ``exception`` fault; returns the spec of
+    a site-specific kind (``bitflip``, ``nan_grad``, ``torn_write``, ...)
+    for the caller to apply."""
+    inj = _active
+    if inj is None:
+        return None
+    spec = inj.poll(site)
+    if spec is None:
+        return None
+    if spec.kind == "exception":
+        raise WorkerFault(site, spec, **ctx)
+    if spec.kind in _NOT_PORTED:
+        raise NotImplementedError(
+            f"fault kind {spec.kind!r} is not ported yet")
+    return spec
+
+
+def corrupt_array(spec, value, seed=0, occurrence=0):
+    """Apply a ``bitflip`` / ``nan_grad`` spec to one element of the
+    tensor ``value``; returns a copy in its own float type (f32 or f64;
+    other types corrupt through f32), every other element bit-identical.
+
+    The element and the bit are the reference's, bit for bit:
+    ``payload["index"]`` / ``payload["bit"]`` when given, else from
+    ``random.Random(seed * 1000003 + spec.at * 101 + occurrence)``; a
+    bitflip defaults to the high exponent bit (30 for f32, 62 for f64).
+    """
+    if spec.kind not in ("bitflip", "nan_grad"):
+        raise ValueError(f"corrupt_array cannot apply kind {spec.kind!r}")
+    value = torch.as_tensor(value)
+    dtype = value.dtype if value.dtype in (torch.float32, torch.float64) \
+        else torch.float32
+    out = value.detach().to(dtype=dtype, copy=True)
+    flat = out.reshape(-1)
+    if flat.numel() == 0:
+        return out
+    rng = random.Random(int(seed) * 1000003
+                        + int(spec.at) * 101 + int(occurrence))
+    idx = int(spec.payload.get("index", rng.randrange(flat.numel())))
+    idx %= flat.numel()
+    if spec.kind == "nan_grad":
+        flat[idx] = float("nan")
+    else:
+        width = 32 if dtype == torch.float32 else 64
+        words = flat.view(torch.int32 if width == 32 else torch.int64)
+        bit = int(spec.payload.get("bit", width - 2)) % width
+        mask = 1 << bit
+        if bit == width - 1:
+            mask -= 1 << width               # the sign bit, as a signed word
+        words[idx] ^= mask
+    return out
+
+
+def note_recovery(site, kind, **attrs):
+    """Record a recovery from a (possibly injected) fault on the active
+    injector's ``recovered`` log (a no-op without one)."""
+    inj = _active
+    if inj is not None:
+        with inj._lock:
+            inj.recovered.append((site, kind, dict(attrs)))

@@ -1,0 +1,271 @@
+"""Training sentinel (counterpart of ``paddle_tpu/resilience/sentinel.py``):
+the anomaly record, the guard probe's summary and the skip/rollback
+policy machine.
+
+``to_static(guard=True)`` and ``Optimizer(guard=True)`` compute a
+per-step probe on the device: the loss with its finite flag, the global
+gradient sum of squares and the count of gradient regions that were not
+finite (whose update the optimizer did not commit). The
+:class:`TrainingSentinel` turns the probe stream into actions: an
+anomaly is an :class:`AnomalyDetected` record and a SKIP; ``skip_limit``
+anomalies in a row roll the model and the optimizer back to the last
+good checkpoint with an LR cooldown.
+
+Not ported yet: the reference's gauges, counters and spans (they wait
+for the port's observability), and its localisation (``BatchLineage``,
+``replay_bisect``, ``localize_poison``) and cross-rank digest vote.
+"""
+from __future__ import annotations
+
+import enum
+import threading
+from collections import deque
+
+import numpy as np
+
+__all__ = ["AnomalyDetected", "GuardSummary", "SentinelAction",
+           "TrainingSentinel", "current", "install", "note_anomaly",
+           "uninstall"]
+
+class AnomalyDetected(RuntimeError):
+    """A machine-readable anomaly: WHEN (step), WHAT (kind), WHERE
+    (site), with kind-specific context. Recorded on
+    ``TrainingSentinel.anomalies``; raised only where a caller opts in."""
+
+    def __init__(self, step, kind, site="train", **ctx):
+        self.step = int(step) if step is not None else None
+        self.kind = str(kind)
+        self.site = str(site)
+        self.ctx = dict(ctx)
+        super().__init__(
+            f"anomaly at step {self.step}: kind={self.kind} "
+            f"site={self.site}"
+            + (f" {self.ctx}" if self.ctx else ""))
+
+    def to_dict(self):
+        return {"step": self.step, "kind": self.kind, "site": self.site,
+                **self.ctx}
+
+
+def note_anomaly(kind, site, step=None, **ctx):
+    """The one place every detector records an anomaly through; returns
+    the :class:`AnomalyDetected` record."""
+    return AnomalyDetected(step, kind, site, **ctx)
+
+
+class GuardSummary:
+    """A guarded step's probe, ``[good, grad_sumsq, bad_regions,
+    regions]``: ``good`` is the global verdict (every gradient region
+    finite), ``grad_sumsq`` the f32 global sum of squared gradients (its
+    sqrt the grad norm), ``bad_regions``/``regions`` the gated regions
+    (whole parameters on the unfused path, kernel row blocks on the
+    fused one) that committed no update, and all of them."""
+
+    __slots__ = ("good", "grad_sumsq", "bad_regions", "regions")
+
+    def __init__(self, good, grad_sumsq, bad_regions, regions):
+        self.good = bool(good)
+        self.grad_sumsq = float(grad_sumsq)
+        self.bad_regions = int(bad_regions)
+        self.regions = int(regions)
+
+    @classmethod
+    def from_array(cls, arr):
+        a = np.asarray(arr, np.float64).reshape(-1)
+        if a.size < 4:
+            raise ValueError(f"guard summary needs 4 slots, got {a.size}")
+        return cls(a[0] >= 0.5, a[1], int(a[2]), int(a[3]))
+
+    @property
+    def grad_norm(self):
+        return float(np.sqrt(self.grad_sumsq)) \
+            if np.isfinite(self.grad_sumsq) and self.grad_sumsq >= 0 \
+            else float(self.grad_sumsq)
+
+    def __repr__(self):
+        return (f"GuardSummary(good={self.good}, "
+                f"grad_sumsq={self.grad_sumsq:.6g}, "
+                f"bad_regions={self.bad_regions}/{self.regions})")
+
+
+class SentinelAction(enum.IntEnum):
+    OK = 0
+    SKIP = 1
+    ROLLBACK = 2
+
+
+class TrainingSentinel:
+    """The skip/rollback policy machine over the probe stream.
+
+    ``observe(step, loss=..., summary=...)`` classifies the step:
+
+    - summary verdict bad (gated regions)  → ``nan_grad``
+    - non-finite loss                      → ``nan_loss``
+    - ``grad_norm_limit`` exceeded         → ``grad_norm``
+    - finite loss > ``spike_factor`` × the median of the last
+      ``spike_window`` clean losses        → ``loss_spike``
+
+    Any anomaly returns :attr:`SentinelAction.SKIP` (the optimizer's
+    gate already committed no update for non-finite gradients);
+    ``skip_limit`` anomalies in a row trigger :meth:`rollback` and
+    return :attr:`SentinelAction.ROLLBACK`: the caller resumes from
+    :attr:`resume_step`. ``note_checkpoint(step)`` marks a checkpoint of
+    a clean step as the rollback anchor.
+    """
+
+    def __init__(self, checkpointer=None, model=None, optimizer=None,
+                 skip_limit=3, lr_cooldown=0.5, spike_factor=None,
+                 spike_window=8, grad_norm_limit=None, on_anomaly=None,
+                 auto_rollback=True):
+        if skip_limit < 1:
+            raise ValueError("skip_limit must be >= 1")
+        self.checkpointer = checkpointer
+        self.model = model
+        self.optimizer = optimizer
+        self.skip_limit = int(skip_limit)
+        self.lr_cooldown = float(lr_cooldown)
+        self.spike_factor = (float(spike_factor)
+                             if spike_factor is not None else None)
+        self.spike_window = int(spike_window)
+        self.grad_norm_limit = (float(grad_norm_limit)
+                                if grad_norm_limit is not None else None)
+        self.on_anomaly = on_anomaly
+        self.auto_rollback = bool(auto_rollback)
+        self._lock = threading.Lock()
+        self.anomalies = []          # [AnomalyDetected]
+        self.skip_streak = 0
+        self.skips_total = 0
+        self.rollbacks = 0
+        self.last_good_step = None   # newest clean-step checkpoint
+        self.resume_step = None      # set by rollback()
+        self._recent = deque(maxlen=max(1, self.spike_window))
+        self.last_probe = None
+
+    def _classify(self, step, loss, summary):
+        """(kind, ctx) of the worst anomaly of this step, or (None, {})."""
+        if summary is not None and not summary.good:
+            return "nan_grad", {"bad_regions": summary.bad_regions,
+                                "regions": summary.regions}
+        if loss is not None and not np.isfinite(loss):
+            return "nan_loss", {"loss": float(loss)}
+        if summary is not None and self.grad_norm_limit is not None \
+                and summary.grad_norm > self.grad_norm_limit:
+            return "grad_norm", {"grad_norm": summary.grad_norm,
+                                 "limit": self.grad_norm_limit}
+        if loss is not None and self.spike_factor is not None \
+                and len(self._recent) >= self._recent.maxlen:
+            med = float(np.median(self._recent))
+            if med > 0 and loss > self.spike_factor * med:
+                return "loss_spike", {"loss": float(loss),
+                                      "median": med,
+                                      "factor": self.spike_factor}
+        return None, {}
+
+    def observe(self, step, loss=None, summary=None, site="train"):
+        """Feed one step's probes; returns the action taken. ``loss`` is
+        a Python float (NaN allowed); ``summary`` a
+        :class:`GuardSummary`, a raw (4,) array, or None."""
+        if summary is not None and not isinstance(summary, GuardSummary):
+            summary = GuardSummary.from_array(summary)
+        loss = float(loss) if loss is not None else None
+        with self._lock:
+            kind, ctx = self._classify(step, loss, summary)
+            if kind is None:
+                self.skip_streak = 0
+                if loss is not None:
+                    self._recent.append(loss)
+                return SentinelAction.OK
+            self.skip_streak += 1
+            self.skips_total += 1
+            streak = self.skip_streak
+            do_rollback = (streak >= self.skip_limit
+                           and self.auto_rollback
+                           and self.checkpointer is not None)
+            if do_rollback:
+                self.skip_streak = 0
+        # callback and restore outside the lock: a callback that feeds
+        # back into observe() must not deadlock
+        evt = note_anomaly(kind, site, step=step, streak=streak, **ctx)
+        self.anomalies.append(evt)
+        if self.on_anomaly is not None:
+            try:
+                self.on_anomaly(evt)
+            except Exception:
+                pass
+        if do_rollback and self.rollback(reason=evt) is not None:
+            return SentinelAction.ROLLBACK
+        # no restorable checkpoint: the step is still only skipped
+        return SentinelAction.SKIP
+
+    def note_probe(self, fn_name, probe):
+        """Hook fed by ``to_static(guard=True)`` when this sentinel is the
+        ambient one (:func:`install`): keeps the latest probe."""
+        with self._lock:
+            self.last_probe = dict(probe, fn=str(fn_name))
+
+    def note_checkpoint(self, step):
+        """A checkpoint landed for a step the caller believes clean: it
+        becomes the rollback anchor, unless an anomaly streak is open."""
+        with self._lock:
+            if self.skip_streak == 0:
+                self.last_good_step = int(step)
+
+    def rollback(self, reason=None):
+        """Restore the model and the optimizer from the
+        ``last_good_step`` anchor (the newest good entry when the anchor
+        is unset or gone), apply the LR cooldown, and return the step to
+        resume from (also :attr:`resume_step`); None, counting nothing,
+        without a restorable checkpoint."""
+        if self.checkpointer is None:
+            return None
+        from paddle_tpu_torch.resilience.checkpoint import auto_resume
+        from paddle_tpu_torch.resilience.faultinject import note_recovery
+        start = 0
+        if self.last_good_step is not None:
+            start, _extra = auto_resume(self.checkpointer, self.model,
+                                        self.optimizer,
+                                        step=self.last_good_step)
+        if start == 0:
+            start, _extra = auto_resume(self.checkpointer, self.model,
+                                        self.optimizer)
+        if start == 0:
+            with self._lock:
+                self.resume_step = None
+            return None
+        if self.optimizer is not None and self.lr_cooldown != 1.0:
+            self.optimizer.set_lr(self.optimizer.get_lr() * self.lr_cooldown)
+        with self._lock:
+            self.rollbacks += 1
+            self.resume_step = start
+            self._recent.clear()
+        note_recovery("optimizer.grads", "rollback",
+                      resume_step=self.resume_step,
+                      anomaly=getattr(reason, "kind", None))
+        return self.resume_step
+
+
+# ---------------------------------------------------- ambient sentinel
+_current = None
+_current_lock = threading.Lock()
+
+
+def install(sentinel):
+    """Install the process-ambient sentinel that ``to_static(guard=True)``
+    hands its probes to (informational: the policy runs through
+    explicit ``observe()`` calls)."""
+    global _current
+    with _current_lock:
+        _current = sentinel
+    return sentinel
+
+
+def uninstall(sentinel=None):
+    global _current
+    with _current_lock:
+        if sentinel is not None and _current is not sentinel:
+            return
+        _current = None
+
+
+def current():
+    return _current

@@ -1,14 +1,18 @@
 """paddle_tpu_torch training: the GPT train step of
 ``tools/perfgate.py:build_gpt_train_step`` (gpt3_tiny with fused_ln,
-AdamW(1e-4, fused=False), ids and labels 2 x 32) in the port and in
-paddle_tpu from the same initial weights, the bf16 activation policy,
-the optimizer and the loss.
+ids and labels 2 x 32) in the port and in paddle_tpu from the same
+initial weights, with AdamW(1e-4, fused=False) and in its optimized,
+guarded form (``AdamW(fused=True, guard=True)``,
+``to_static(guard=True)``; the reference's Pallas kernels in interpret
+mode), the bf16 activation policy, the optimizer and the loss.
 
 Tolerances: f32 losses within 1e-4 over 3 steps and first-step
 gradients within 1e-4 of each tensor's largest magnitude (the same f32
 arithmetic in another order, with the attention softmax summed over
-blocks in neither package on the CPU); the bf16-policy loss trajectory
-within 0.05 of the f32 one (the reference's contract for its policy).
+blocks in neither package on the CPU); the guard's verdict and region
+counts exact, its gradient sum of squares within 1e-4 relative; the
+bf16-policy loss trajectory within 0.05 of the f32 one (the reference's
+contract for its policy).
 """
 import numpy as np
 import pytest
@@ -23,23 +27,21 @@ import paddle_tpu_torch as T
 from paddle_tpu_torch.framework.io import load_numpy_state_dict, numpy_grads
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
 from paddle_tpu_torch.nn import functional as F
-from paddle_tpu_torch.ops.cuda import flash_attention, norm
+from paddle_tpu_torch.ops.cuda import flash_attention, norm, optim
 
 VOCAB = 256
 
 
-@pytest.fixture(scope="module")
-def reference_run():
-    """paddle_tpu's step (to_static, f32): initial weights, the batch,
-    3 losses and the first step's gradients by name."""
+def _reference_step(fused=False, guard=False):
+    """paddle_tpu's step (to_static, f32) and its model and optimizer."""
     P.seed(0)
     cfg = ref_tiny(fused_ln=True)
     model = RefGPT(cfg)
-    init = {k: np.asarray(t._value) for k, t in model.state_dict().items()}
     opt = P.optimizer.AdamW(learning_rate=1e-4,
-                            parameters=model.parameters(), fused=False)
+                            parameters=model.parameters(), fused=fused,
+                            guard=guard)
 
-    @P.jit.to_static(amp_policy=None)
+    @P.jit.to_static(amp_policy=None, guard=guard)
     def train_step(ids, labels):
         opt.clear_grad()
         logits = model(ids)
@@ -49,6 +51,15 @@ def reference_run():
         opt.step()
         return loss
 
+    return model, opt, train_step
+
+
+@pytest.fixture(scope="module")
+def reference_run():
+    """paddle_tpu's step (to_static, f32): initial weights, the batch,
+    3 losses and the first step's gradients by name."""
+    model, _, train_step = _reference_step()
+    init = {k: np.asarray(t._value) for k, t in model.state_dict().items()}
     rng = np.random.default_rng(0)
     ids = rng.integers(0, VOCAB, (2, 32))
     labels = rng.integers(0, VOCAB, (2, 32))
@@ -62,13 +73,15 @@ def reference_run():
     return init, ids, labels, losses, grads
 
 
-def _port_run(init, ids, labels, steps, amp_policy=None):
+def _port_step(init, amp_policy=None, fused=False, guard=False):
+    """The port's step from ``init``, and its model and optimizer."""
     model = GPTForCausalLM(gpt3_tiny(fused_ln=True), device="cpu")
     load_numpy_state_dict(model, init)
     opt = T.optimizer.AdamW(learning_rate=1e-4,
-                            parameters=model.parameters(), fused=False)
+                            parameters=model.parameters(), fused=fused,
+                            guard=guard)
 
-    @T.jit.to_static(amp_policy=amp_policy)
+    @T.jit.to_static(amp_policy=amp_policy, guard=guard)
     def train_step(ids, labels):
         opt.clear_grad()
         logits = model(ids)
@@ -78,6 +91,11 @@ def _port_run(init, ids, labels, steps, amp_policy=None):
         opt.step()
         return loss
 
+    return model, opt, train_step
+
+
+def _port_run(init, ids, labels, steps, amp_policy=None):
+    model, _, train_step = _port_step(init, amp_policy)
     ids, labels = torch.tensor(ids), torch.tensor(labels)
     losses, grads = [], None
     for _ in range(steps):
@@ -98,6 +116,37 @@ def test_f32_step_matches_reference(reference_run):
         assert err <= 1e-4 * np.abs(want).max(), (name, err)
     assert not any(norm.LAUNCHES.values())           # CPU: plain versions
     assert not any(flash_attention.LAUNCHES.values())
+
+
+def test_guarded_fused_step_matches_reference(reference_run):
+    """The reference's optimized, guarded step (fused AdamW through the
+    Pallas kernel in interpret mode, guard on both halves) and the
+    port's, from the same weights, over 3 steps at amp_policy=None."""
+    init, ids, labels, _, _ = reference_run
+    ref_model, ref_opt, ref_step = _reference_step(fused=True, guard=True)
+    ref_model.set_state_dict({k: P.to_tensor(v) for k, v in init.items()})
+    _, opt, step = _port_step(init, fused=True, guard=True)
+    regions = 0
+    for p in ref_model.parameters():                 # row blocks, or 1
+        regions += p.shape[0] // optim._pick_block_rows(
+            p.shape[0], p.shape[1] * 4) if len(p.shape) == 2 else 1
+    for _ in range(3):
+        want = float(ref_step(P.to_tensor(ids, dtype="int64"),
+                              P.to_tensor(labels, dtype="int64")))
+        got = step(torch.tensor(ids), torch.tensor(labels)).item()
+        assert abs(got - want) <= 1e-4
+        s, ref_s = opt.guard_summary(), ref_opt.guard_summary()
+        assert (s.good, s.bad_regions, s.regions) == \
+            (ref_s.good, ref_s.bad_regions, ref_s.regions) == \
+            (True, 0, regions)
+        assert s.grad_sumsq == pytest.approx(ref_s.grad_sumsq, rel=1e-4)
+        lg, ref_lg = step.last_guard, ref_step.last_guard
+        assert lg["finite"] == ref_lg["finite"] == [True]
+        assert lg["loss_finite"] is ref_lg["loss_finite"] is True
+        assert lg["loss"] == got
+        np.testing.assert_allclose(lg["values"], ref_lg["values"], rtol=0,
+                                   atol=1e-4)
+    assert not any(optim.LAUNCHES.values())          # CPU: plain version
 
 
 def test_bf16_policy_trajectory_within_contract(reference_run):
@@ -132,13 +181,9 @@ def test_policy_casts_module_inputs_only_inside_the_step():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="remat"):
         T.jit.to_static(lambda: None, remat=True)
-    with pytest.raises(NotImplementedError, match="guard"):
-        T.jit.to_static(lambda: None, guard=True)
     with pytest.raises(ValueError, match="bf16"):
         T.jit.to_static(lambda: None, amp_policy="bp16")
     p = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError, match="fused"):
-        T.optimizer.AdamW(parameters=p, fused=True)
     with pytest.raises(ValueError, match="named"):
         T.optimizer.AdamW(parameters=p, apply_decay_param_fun=lambda n: True)
 

@@ -57,7 +57,21 @@ Phases, in order (any failure raises and exits non-zero):
 10. rollback: at depth 2, a fault-free run and a run with ``nan_grad`` on
    steps 7 and 8 (checkpoint at 4, ``skip_limit`` 2): detected at step
    7, 2 skips, 1 rollback, and the resumed run's losses and weights
-   equal the fault-free run's bit for bit.
+   equal the fault-free run's bit for bit;
+11. (run after phase 6) RMSNorm and block-sparse attention kernels:
+   ``rms_fwd`` at rows 8, 1000, 8192 by hidden 2048, 4096, 8192, f32 and
+   bf16 x with an f32, a bf16 or no weight, within one bf16 ulp (f32
+   1e-5); ``bsa_fwd`` (o and lse) at the path's shape, a long-context
+   shape, BigBird-base's head, a ragged f32 shape and a non-causal mask
+   with an empty q-row (o = 0, finite lse), per element as the flash
+   checks; then their times beside bound, plain version and library;
+12. sparse block: a pre-norm long-context attention block written from
+   the port's public layers (``nn.RMSNorm(2048)``, ``nn.Linear(2048,
+   6144)``, ``F.sparse_attention`` over a CSR of a global+window
+   pattern, ``nn.Linear(2048, 2048)``, the residual) takes 5 steps of
+   ``to_static(amp_policy="bf16")`` + ``AdamW(1e-3, fused=True)`` on 2 x
+   4096 tokens: losses finite and falling, every gradient finite, the
+   pattern analysed once and memoised after, launches exact per step.
 
 Each main path (serving, the training runs) runs with every launch count
 set to 0 just before it and read just after. The last line is ``{"ok":
@@ -91,6 +105,7 @@ TIMED_ROWS = 8                       # the decode shape: most launches
 NORM_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/norm.cu"
 FLASH_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu"
 OPTIM_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/optim.cu"
+BSA_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/block_sparse_attention.cu"
 REPLACES = {"ln_fwd": "paddle_tpu/ops/pallas/norm.py:55",
             "ln_res_fwd": "paddle_tpu/ops/pallas/norm.py:190",
             "flash_fwd": "paddle_tpu/ops/pallas/flash_attention.py:94",
@@ -100,9 +115,12 @@ REPLACES = {"ln_fwd": "paddle_tpu/ops/pallas/norm.py:55",
             "ln_bwd_res": "paddle_tpu/ops/pallas/norm.py:233",
             "adam_update": "paddle_tpu/ops/pallas/optim.py:61",
             "adam_update_guard": "paddle_tpu/ops/pallas/optim.py:61",
-            "adam_guard_sumsq": "paddle_tpu/ops/pallas/optim.py:61"}
+            "adam_guard_sumsq": "paddle_tpu/ops/pallas/optim.py:61",
+            "rms_fwd": "paddle_tpu/ops/pallas/norm.py:66",
+            "bsa_fwd": "paddle_tpu/ops/pallas/block_sparse_attention.py:86"}
 SOURCES = {name: FLASH_SOURCE if name.startswith("flash") else
-           OPTIM_SOURCE if name.startswith("adam") else NORM_SOURCE
+           OPTIM_SOURCE if name.startswith("adam") else
+           BSA_SOURCE if name.startswith("bsa") else NORM_SOURCE
            for name in REPLACES}
 BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor cores
 # the training path: batch, sequence, heads, head_dim (GPT-1.3B)
@@ -122,6 +140,13 @@ ADAM_OPS_PER_ELEM = 15               # decay, two moments, two divides, sqrt
 GUARD_REGIONS = 3091                 # 2,897 row blocks + 194 rank-1 params
 TRAJECTORY_TOL = 0.05                # guarded vs unfused losses, per step
 CHAOS_CKPT, CHAOS_FAULT, CHAOS_TOTAL, CHAOS_SKIPS = 4, 7, 10, 2
+RMS_EPS = 1e-6
+RMS_ROWS = (8, 1000, 8192)           # decode, prefill-sized, the path's
+RMS_HIDDEN = (2048, 4096, 8192)      # GPT-1.3B's, and LLaMA's widths
+RMS_OPS_PER_ELEM = 4                 # square, sum, scale, weight
+# the sparse block path: batch, sequence, mask block, steps (hidden 2048,
+# 16 heads of 128: GPT-1.3B's widths)
+SB_B, SB_S, SB_BLOCK, SB_STEPS = 2, 4096, 64, 5
 
 
 def card_line():
@@ -336,16 +361,21 @@ def _prompts(seed, vocab, n=8):
     return [rng.integers(1, vocab, int(L)).tolist() for L in lens]
 
 
+def _launch_counts():
+    from paddle_tpu_torch.ops.cuda import (block_sparse_attention,
+                                           flash_attention, norm, optim)
+    return (norm.LAUNCHES, flash_attention.LAUNCHES, optim.LAUNCHES,
+            block_sparse_attention.LAUNCHES)
+
+
 def reset_launches():
-    from paddle_tpu_torch.ops.cuda import flash_attention, norm, optim
-    for counts in (norm.LAUNCHES, flash_attention.LAUNCHES, optim.LAUNCHES):
+    for counts in _launch_counts():
         for k in counts:
             counts[k] = 0
 
 
 def read_launches():
-    from paddle_tpu_torch.ops.cuda import flash_attention, norm, optim
-    return {**norm.LAUNCHES, **flash_attention.LAUNCHES, **optim.LAUNCHES}
+    return {k: v for counts in _launch_counts() for k, v in counts.items()}
 
 
 def phase_serving(profile):
@@ -986,7 +1016,8 @@ def step_launches(cfg, steps, fused, guard):
                 "ln_bwd_res": n,
                 "adam_update": rank2 if fused and not guard else 0,
                 "adam_update_guard": rank2 if fused and guard else 0,
-                "adam_guard_sumsq": rank2 if fused and guard else 0}
+                "adam_guard_sumsq": rank2 if fused and guard else 0,
+                "rms_fwd": 0, "bsa_fwd": 0}
     return {k: steps * v for k, v in per_step.items()}
 
 
@@ -1329,6 +1360,308 @@ def phase_rollback():
     return launches
 
 
+# ------------------------------------------- RMSNorm, block-sparse attention
+def _bsa_case(name, gen):
+    """q, k, v, the block mask and its block size of check shape `name`:
+    (a) the sparse block path's, (b) long context, (c) BigBird-base's
+    head, (d) f32 with a ragged sequence, (e) a non-causal mask with an
+    empty q-row."""
+    from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    bf16, f32 = torch.bfloat16, torch.float32
+    shape, dtype, block, bm = {
+        "a": ((SB_B, H, SB_S, D), bf16, SB_BLOCK,
+              bsa.make_global_plus_window_mask(64, 64, 3, 2)),
+        "b": ((1, 16, 16384, 128), bf16, 512,
+              bsa.make_global_plus_window_mask(32, 32, 2, 1)),
+        "c": ((2, 12, 4096, 64), bf16, 64,
+              bsa.make_global_plus_window_mask(64, 64, 3, 2)),
+        "d": ((1, 4, 4000, 128), f32, 64,
+              bsa.make_global_plus_window_mask(63, 63, 3, 2)),
+        "e": ((1, 4, 1024, 128), bf16, 64,
+              bsa.make_sliding_window_mask(16, 16, 2, causal=False)),
+    }[name]
+    if name == "e":
+        bm[5, :] = False
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    return q, k, v, bm, block
+
+
+def _bsa_terms(q, k, v, lse, tables, scale):
+    """Each output element's sum over its active keys of p * |v| (p from
+    the plain version's lse), ``[b, h, sq, d]`` f32: the products whose
+    bf16 factor p the kernel (against a running maximum every 64 keys)
+    and the plain version (every mask block) round at other points."""
+    from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    t = tables.on(q.device)
+    kt, cnt = t["kt"].long(), t["cnt"].long()
+    bq, bk = tables.block_q, tables.block_k
+    nq, nk = kt.shape[0], -(-sk // bk)
+    qb, kb = bsa._blocks(q, bq, nq), bsa._blocks(k, bk, nk)
+    vb = bsa._blocks(v, bk, nk).abs()
+    ok = bsa._key_ok(sk, bk, nk, q.device)
+    lse2 = bsa._rows(lse, bq, nq)[..., None] * bsa._LOG2E
+    terms = torch.zeros_like(qb)
+    for j in range(kt.shape[1]):
+        kj = kt[:, j]
+        s = torch.matmul(qb, kb[:, kj].transpose(-1, -2)) * (scale
+                                                             * bsa._LOG2E)
+        p = torch.exp2(s - lse2).masked_fill(~ok[kj][None, :, None, :], 0.0)
+        terms += torch.where((j < cnt)[None, :, None, None],
+                             torch.matmul(p, vb[:, kj]), 0.0)
+    return terms.reshape(b, h, -1, d)[:, :, :sq]
+
+
+def check_bsa(gen):
+    """bsa_fwd against its plain version at shapes (a)-(e): o per element
+    as the flash forward (``check_terms``), lse within 1e-5; rows with no
+    active block o = 0 and lse finite and equal to the plain version's."""
+    from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    err = 0.0
+    for name in "abcde":
+        q, k, v, bm, block = _bsa_case(name, gen)
+        tables = bsa.prepare_block_mask(bm, block, block)
+        t = tables.on(q.device)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        o, lse = bsa.bsa_fwd(q, k, v, tables)
+        o_ref, lse_ref = bsa._bsa_fwd_ref(q, k, v, t["kt"], t["cnt"], scale,
+                                          block, block)
+        torch.cuda.synchronize()
+        sq = q.shape[2]
+        rows = torch.from_numpy(np.repeat(bm.any(1), block)[:sq]).cuda()
+        tag = f"({name}) {list(q.shape)} block {block} " \
+              f"{str(q.dtype).split('.')[1]}"
+        terms = _bsa_terms(q, k, v, lse_ref, tables, scale)
+        err = max(err, check_terms(f"bsa_fwd o {tag}", o[:, :, rows],
+                                   o_ref[:, :, rows], terms[:, :, rows]),
+                  check_sum(f"bsa_fwd lse {tag}", lse[:, rows],
+                            lse_ref[:, rows]))
+        if not bool(rows.all()):
+            empty = ~rows
+            if not bool((o[:, :, empty] == 0).all()) or not bool(
+                    torch.isfinite(lse[:, empty]).all()) or not torch.equal(
+                    lse[:, empty], lse_ref[:, empty]):
+                raise AssertionError(f"bsa_fwd {tag}: a row with no active "
+                                     f"block is not o = 0 with the plain "
+                                     f"version's finite lse")
+            print(f"[sparse kernels] bsa_fwd {tag}: {int(empty.sum())} rows "
+                  f"with no active block: o = 0, lse "
+                  f"{lse[0, empty][0].item():.6e}")
+        del q, k, v, o, lse, o_ref, lse_ref, terms
+    return err
+
+
+def _bsa_pairs(bm, block, sq, sk, bh):
+    """(q, k) pairs the mask's active blocks hold, ragged ends cut."""
+    nq, nk = bm.shape
+    rows = np.minimum(block, sq - np.arange(nq) * block)
+    cols = np.minimum(block, sk - np.arange(nk) * block)
+    return bh * int((rows[:, None] * cols[None, :] * bm).sum())
+
+
+def time_sparse_kernels(gen):
+    """rms_fwd at the path's rows (8192 x 2048) and a decode row block
+    (8), bf16 x and an f32 weight; bsa_fwd at (a) and (b). Kernel, plain
+    version, bound and library call, by CUDA events."""
+    from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops.cuda import norm
+    t = {}
+    for rows in (8192, 8):
+        copies = max(1, min(64, math.ceil(150e6 / (2 * rows * HIDDEN * 2))))
+        w = (1.0 + 0.1 * torch.randn(HIDDEN, device="cuda", generator=gen))
+        xs = [torch.randn(rows, HIDDEN, device="cuda", generator=gen).to(
+            torch.bfloat16) for _ in range(copies)]
+        args = [(x, w, RMS_EPS) for x in xs]
+        # F.rms_norm's fused path takes one dtype: bf16 weights
+        lib = [(x, (HIDDEN,), w.to(torch.bfloat16), RMS_EPS) for x in xs]
+        bound, by = _bound(2 * rows * HIDDEN * 2 + HIDDEN * 4,
+                           RMS_OPS_PER_ELEM * rows * HIDDEN, F32_OPS_PER_S)
+        t[("rms_fwd", rows)] = {
+            "ms": device_ms(norm.rms_fwd, args),
+            "plain_ms": device_ms(norm._rms_fwd_ref, args),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": device_ms(torch.nn.functional.rms_norm, lib),
+            "rows": rows, "hidden": HIDDEN, "dtype": "bfloat16",
+            "weight_dtype": "float32"}
+    few = dict(reps=10, per_rep=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name in "ab":
+        sets = [_bsa_case(name, gen) for _ in range(2)]
+        _q, _k, _v, bm, block = sets[0]
+        tables = bsa.prepare_block_mask(bm, block, block)
+        tb = tables.on("cuda")
+        b, h, sq, d = sets[0][0].shape
+        scale = 1.0 / math.sqrt(d)
+        # the token-level mask as SDPA's additive bias, made once (every
+        # row of (a) and (b) has an active block)
+        tok = torch.from_numpy(np.kron(bm, np.ones((block, block), bool))[
+            :sq, :sq]).cuda()
+        bias = torch.zeros(tok.shape, dtype=torch.bfloat16,
+                           device="cuda").masked_fill(~tok, float("-inf"))
+        elems = b * h * sq * d
+        bound, by = _bound(4 * elems * 2 + b * h * sq * 4,
+                           4 * _bsa_pairs(bm, block, sq, sq, b * h) * d,
+                           BF16_OPS_PER_S)
+        t[("bsa_fwd", name)] = {
+            "ms": device_ms(bsa.bsa_fwd, [(q, k, v, tables)
+                                          for q, k, v, _, _ in sets], **few),
+            "plain_ms": device_ms(bsa._bsa_fwd_ref, [
+                (q, k, v, tb["kt"], tb["cnt"], scale, block, block)
+                for q, k, v, _, _ in sets], **few),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": device_ms(
+                lambda q, k, v: sdpa(q, k, v, attn_mask=bias),
+                [(q, k, v) for q, k, v, _, _ in sets], **few),
+            "shape": [b, h, sq, d], "block": block,
+            "active_blocks": int(bm.sum()), "dtype": "bfloat16"}
+        del sets, tok, bias
+    for key, v in t.items():
+        print(f"[sparse kernels] {key[0]} {key[1]}: " + ", ".join(
+            f"{k} {x:.5f}" if isinstance(x, float) else f"{k} {x}"
+            for k, x in v.items()))
+    return t
+
+
+def phase_sparse_kernels():
+    """Kernels #5 (rms_fwd) and #10 (bsa_fwd) against their plain
+    versions, then their times."""
+    from paddle_tpu_torch.ops.cuda import norm
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    err = {"rms_fwd": 0.0}
+    cases = 0
+    for hidden in RMS_HIDDEN:
+        for rows in RMS_ROWS:
+            x32 = torch.randn(rows, hidden, device="cuda", generator=gen)
+            w32 = 1.0 + 0.1 * torch.randn(hidden, device="cuda",
+                                          generator=gen)
+            for xdt in (torch.float32, torch.bfloat16):
+                for w in (w32, w32.to(torch.bfloat16), None):
+                    x = x32.to(xdt)
+                    got = norm.rms_fwd(x, w, RMS_EPS)
+                    torch.cuda.synchronize()
+                    wname = "none" if w is None else str(w.dtype)[6:]
+                    err["rms_fwd"] = max(err["rms_fwd"], check_close(
+                        f"rms_fwd rows={rows} hidden={hidden} w={wname} "
+                        f"{str(xdt).split('.')[1]}", got,
+                        norm._rms_fwd_ref(x, w, RMS_EPS)))
+                    cases += 1
+    err["bsa_fwd"] = check_bsa(gen)
+    print(f"[sparse kernels] agree with their plain versions (rms_fwd "
+          f"{cases} cases, bsa_fwd 5 shapes); max abs err {err}")
+    print(f"[sparse kernels] largest error as a share of its limit: "
+          f"{shares(*err)}")
+    return err, time_sparse_kernels(gen)
+
+
+class SparseBlock(torch.nn.Module):
+    """The sparse block path's user code: ``x -> RMSNorm -> qkv ->
+    sparse_attention -> out -> + x`` at GPT-1.3B's widths."""
+
+    def __init__(self, gen):
+        from paddle_tpu_torch import nn
+        super().__init__()
+        self.norm = nn.RMSNorm(HIDDEN, device="cuda")
+        self.qkv = nn.Linear(HIDDEN, 3 * HIDDEN, device="cuda", generator=gen)
+        self.out = nn.Linear(HIDDEN, HIDDEN, device="cuda", generator=gen)
+
+    def forward(self, x, offs, cols):
+        from paddle_tpu_torch.nn import functional as F
+        b, s, _ = x.shape
+        qkv = self.qkv(self.norm(x)).reshape(b, s, 3, H, D)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        o = F.sparse_attention(q, k, v, offs, cols)
+        return self.out(o.transpose(1, 2).reshape(b, s, HIDDEN)) + x
+
+
+def phase_sparse_block():
+    """The sparse block path: 5 train steps through the port's public
+    layers, with exact launch counts."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn.functional import transformer
+    from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    gen = torch.Generator("cuda").manual_seed(4)
+    model = SparseBlock(gen)
+    opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                             parameters=model.parameters(), fused=True)
+    bm = bsa.make_global_plus_window_mask(SB_S // SB_BLOCK, SB_S // SB_BLOCK,
+                                          3, 2)
+    tok = np.kron(bm, np.ones((SB_BLOCK, SB_BLOCK), bool))
+    offs = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(tok.sum(1))]).astype(np.int32)).cuda()
+    cols = torch.from_numpy(np.nonzero(tok)[1].astype(np.int32)).cuda()
+    offs = offs.expand(SB_B, H, -1).contiguous()
+    cols = cols.expand(SB_B, H, -1).contiguous()
+    del tok
+    x = torch.randn(SB_B, SB_S, HIDDEN, device="cuda", generator=gen)
+    target = torch.randn(SB_B, SB_S, HIDDEN, device="cuda", generator=gen)
+
+    @pt.jit.to_static(amp_policy="bf16")
+    def train_step(x, target):
+        opt.clear_grad()
+        y = model(x, offs, cols)
+        loss = ((y.float() - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        return loss
+
+    transformer._block_mask_cache.clear()
+    transformer._pattern_identity_memo.clear()
+    stats = transformer.PATTERN_STATS
+    for k in stats:
+        stats[k] = type(stats[k])(0)
+    torch.cuda.synchronize()
+    print(f"[sparse block] RMSNorm({HIDDEN}) -> Linear({HIDDEN}, "
+          f"{3 * HIDDEN}) -> sparse_attention ({H} heads of {D}; CSR of "
+          f"global+window blocks of {SB_BLOCK}: {int(bm.sum())} of "
+          f"{bm.size} active, {cols.shape[-1]} entries a head) -> "
+          f"Linear({HIDDEN}, {HIDDEN}) -> + x; batch {SB_B} x {SB_S}, "
+          f"to_static(amp_policy='bf16'), AdamW(1e-3, fused=True)")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_s = [], []
+    for _ in range(SB_STEPS):
+        t0 = time.perf_counter()
+        losses.append(train_step(x, target).item())       # synchronises
+        step_s.append(time.perf_counter() - t0)
+        if len(losses) == 1:
+            first_analysis = stats["analysis_s"]
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    expect = {k: 0 for k in launches}
+    expect.update(rms_fwd=SB_STEPS, bsa_fwd=SB_STEPS, adam_update=2 * SB_STEPS)
+    print(f"[sparse block] losses {losses}")
+    print(f"[sparse block] launches {launches}; pattern cache "
+          f"{[(h[1], int(h[0].sum())) if h else None for h in transformer._block_mask_cache.values()]}, "
+          f"stats {stats}")
+    if launches != expect:
+        raise AssertionError(f"sparse block launches {launches} != {expect}")
+    hits = list(transformer._block_mask_cache.values())
+    if len(hits) != 1 or hits[0] is None or hits[0][1] != SB_BLOCK or \
+            not np.array_equal(hits[0][0], bm):
+        raise AssertionError(f"the CSR was not recognised as the block "
+                             f"pattern at {SB_BLOCK}")
+    if stats["analyses"] != 1 or stats["memo_hits"] != SB_STEPS - 1:
+        raise AssertionError(f"steps 2-{SB_STEPS} did not all hit the "
+                             f"identity memo: {stats}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if bad:
+        raise AssertionError(f"parameters without a finite gradient: {bad}")
+    steady = statistics.median(step_s[1:])
+    print(f"[sparse block] {card_line()}: step {steady * 1e3:.2f} ms "
+          f"(median of steps 2-{SB_STEPS}; first {step_s[0] * 1e3:.1f} ms, "
+          f"of which the host-side pattern analysis {first_analysis:.3f} s),"
+          f" {SB_B * SB_S / steady:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; every parameter has a finite gradient")
+    profile_train_step(train_step, x, target, steady, tag="sparse block")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1341,6 +1674,7 @@ def main(argv=None):
     max_err, timings = phase_kernels()
     train_err, train_timings = phase_train_kernels()
     adam_err, adam_timings, adam_per_step = phase_adam_kernels()
+    sparse_err, sparse_timings = phase_sparse_kernels()
     serving = phase_serving(args.profile)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1355,8 +1689,12 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     paths["rollback"] = phase_rollback()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["sparse_block"] = phase_sparse_block()
     max_err.update(train_err)
     max_err.update(adam_err)
+    max_err.update(sparse_err)
     embedding = (50304, 2048)
     timed = {"ln_fwd": timings[("ln_fwd", TIMED_ROWS)],
              "ln_res_fwd": timings[("ln_res_fwd", TIMED_ROWS)],
@@ -1368,7 +1706,9 @@ def main(argv=None):
              **{name: {**adam_timings[(name, embedding)],
                        "per_step_ms": adam_per_step[name]}
                 for name in ("adam_update", "adam_update_guard",
-                             "adam_guard_sumsq")}}
+                             "adam_guard_sumsq")},
+             "rms_fwd": sparse_timings[("rms_fwd", 8192)],
+             "bsa_fwd": sparse_timings[("bsa_fwd", "a")]}
     kernels = []
     for name, t in timed.items():
         shape = {k: v for k, v in t.items() if k not in (

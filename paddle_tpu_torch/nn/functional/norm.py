@@ -1,10 +1,11 @@
 """Normalization functionals (counterpart of
 ``paddle_tpu/nn/functional/norm.py``).
 
-The fused path runs the LayerNorm kernels of
+The fused path runs the LayerNorm and RMSNorm kernels of
 :mod:`paddle_tpu_torch.ops.cuda.norm` through their autograd Functions
-(forward kernel, and the backward kernel that recomputes the
-statistics); it is the default for a tensor on CUDA, as the Pallas path
+(forward kernel; LayerNorm's backward kernel recomputes the statistics,
+RMSNorm's backward is a composition, as the reference's is); it is the
+default for a tensor on CUDA, as the Pallas path
 is the default on a TPU. A kernel that fails raises: there is no
 fallback to the composition.
 """
@@ -14,7 +15,7 @@ import torch
 
 from paddle_tpu_torch.ops.cuda import norm as _kernels
 
-__all__ = ["fused_ln_residual", "layer_norm"]
+__all__ = ["fused_ln_residual", "layer_norm", "rms_norm"]
 
 
 def _use_fused(fused, x):
@@ -66,3 +67,18 @@ def fused_ln_residual(x, residual, weight=None, bias=None, epsilon=1e-5,
     if act == "gelu":
         out = torch.nn.functional.gelu(out, approximate="tanh")
     return h, out.to(h.dtype)
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, fused=None):
+    """RMSNorm over the last axis. The fused path (the kernel) computes in
+    f32 and returns x's type. The composition is the reference's: the
+    normalised x is rounded to x's type before the weight multiplies it,
+    so a bf16 x with an f32 weight gives f32 there."""
+    if _use_fused(fused, x):
+        return _kernels.rms_fwd(x.contiguous(), weight, epsilon)
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    out = (xf / torch.sqrt(ms + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    return out

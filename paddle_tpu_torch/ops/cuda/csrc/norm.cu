@@ -6,7 +6,9 @@
 // and fused_add_layer_norm). ln_bwd replaces both backward kernels,
 // :_ln_bwd_kernel_plain and :_ln_bwd_kernel_res, which share one body
 // (_ln_bwd_core, driven by _ln_bwd_pallas); a null gh selects the plain
-// variant.
+// variant. rms_fwd replaces :_rms_kernel (behind fused_rms_norm; the
+// reference's RMSNorm backward is jnp, so the port's is a PyTorch
+// composition).
 //
 // What bounds them on an H100: bytes. With e the element size, ln_fwd
 // reads R*H*e and writes R*H*e; ln_res_fwd reads 2*R*H*e (x and r) and
@@ -33,6 +35,14 @@
 // [n_blocks, H] partials that the caller sums (as _ln_bwd_pallas sums the
 // per-block partials): no atomics, so the result is the same every run.
 //
+// RMSNorm forward design: y = x * rsqrt(mean(x^2) + eps) * w reads R*H*e
+// and writes R*H*e (bytes bound it, as LayerNorm's). Its users run rows
+// wider than a warp's registers hold (LLaMA's 4096, 5120, 8192), so a
+// block of H/32 threads (rounded up to a warp; H <= 16384) owns a row,
+// each thread up to four 8-element chunks in registers, one row-sum
+// reduction through the warps' shuffles and one fixed-order shared-memory
+// pass. Each element crosses device memory once each way.
+//
 // At decode (R = max_num_seqs = 8 rows) a launch is two blocks, and its
 // time is launch latency, not bandwidth.
 //
@@ -48,6 +58,8 @@ namespace {
 constexpr int kWarpsPerBlock = 4;
 constexpr int kChunk = 8;         // elements a lane moves per step
 constexpr int kMaxHidden = 4096;  // 16 chunks per lane
+constexpr int kRmsChunks = 4;       // rms_fwd: chunks a thread holds
+constexpr int kRmsMaxThreads = 512; // rms_fwd: hidden <= 512 * 4 * 8 = 16384
 
 enum Dtype { kF32 = 0, kBF16 = 1 };
 
@@ -342,6 +354,46 @@ __global__ void __launch_bounds__(kMaxHidden / kChunk)
   }
 }
 
+// RMSNorm forward (_rms_kernel): ms = mean(x^2) in f32 over the row,
+// y = (x * rsqrt(ms + eps)) * w (w == nullptr: no weight), in x's type.
+// Thread i holds chunks i, i + blockDim, ... (at most kRmsChunks).
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kRmsMaxThreads)
+    rms_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restrict__ y,
+                   int hidden, float eps) {
+  __shared__ float red[64];
+  const int nchunks = hidden / kChunk;
+  const size_t base = static_cast<size_t>(blockIdx.x) * hidden;
+  float v[kRmsChunks][kChunk];
+  float sq = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kRmsChunks; ++j) {
+    const int c = threadIdx.x + j * blockDim.x;
+    if (c < nchunks) {
+      load_chunk(x + base + c * kChunk, v[j]);
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) sq += v[j][e] * v[j][e];
+    }
+  }
+  const float rstd = rsqrtf(block_sum2(sq, 0.0f, red).x / static_cast<float>(hidden) + eps);
+#pragma unroll
+  for (int j = 0; j < kRmsChunks; ++j) {
+    const int c = threadIdx.x + j * blockDim.x;
+    if (c < nchunks) {
+      float o[kChunk];
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) o[e] = v[j][e] * rstd;
+      if (w != nullptr) {
+        float wv[kChunk];
+        load_chunk(w + c * kChunk, wv);
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) o[e] *= wv[e];
+      }
+      store_chunk(y + base + c * kChunk, o);
+    }
+  }
+}
+
 // Chunks per lane, rounded up to the instantiated power of two (0: too wide).
 int chunks_per_lane(int hidden) {
   const int per_lane = (hidden / kChunk + 31) / 32;
@@ -499,5 +551,32 @@ extern "C" int ln_bwd(const void* h, const void* gy, const void* gh, const void*
     if (w_dtype == kBF16) LN_BWD_LAUNCH(float, bf16); else LN_BWD_LAUNCH(float, float);
   }
 #undef LN_BWD_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y = x * rsqrt(mean(x^2) + eps) * w over the last axis of a contiguous
+// [rows, hidden] x; w may be null (no weight). y has x's type. hidden is a
+// multiple of 8 up to 16384.
+extern "C" int rms_fwd(const void* x, const void* w, void* y, int rows, int hidden,
+                       int x_dtype, int w_dtype, float eps, int device, void* stream) {
+  const int nchunks = hidden / kChunk;
+  const int threads = ((nchunks + kRmsChunks - 1) / kRmsChunks + 31) / 32 * 32;
+  if (rows <= 0 || hidden <= 0 || hidden % kChunk || threads > kRmsMaxThreads ||
+      !valid_dtype(x_dtype) || !valid_dtype(w_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+#define RMS_LAUNCH(TX, TW)                                                                  \
+  rms_fwd_kernel<TX, TW><<<rows, threads, 0, s>>>(static_cast<const TX*>(x),               \
+                                                  static_cast<const TW*>(w),               \
+                                                  static_cast<TX*>(y), hidden, eps)
+  if (x_dtype == kBF16) {
+    if (w_dtype == kBF16) RMS_LAUNCH(bf16, bf16); else RMS_LAUNCH(bf16, float);
+  } else {
+    if (w_dtype == kBF16) RMS_LAUNCH(float, bf16); else RMS_LAUNCH(float, float);
+  }
+#undef RMS_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,17 +4,21 @@ versions and launch counts.
 - :func:`ln_fwd` replaces ``paddle_tpu/ops/pallas/norm.py:_ln_kernel``;
 - :func:`ln_res_fwd` replaces ``paddle_tpu/ops/pallas/norm.py:_ln_res_kernel``;
 - :func:`ln_bwd` replaces ``_ln_bwd_kernel_plain`` and ``_ln_bwd_kernel_res``
-  (one kernel; ``gh=None`` is the plain variant).
+  (one kernel; ``gh=None`` is the plain variant);
+- :func:`rms_fwd` replaces ``paddle_tpu/ops/pallas/norm.py:_rms_kernel``.
 
 :func:`ln_fwd` and :func:`ln_res_fwd` are differentiable: autograd
 Functions that save only the LayerNorm's input (``x``, or ``h`` for the
 residual form) and the weights, and whose backward recomputes the
 statistics in :func:`ln_bwd`, as the reference's custom VJPs do
 (``_ln_fwd_rule``/``_ln_bwd_rule``, ``_ln_res_fwd_rule``/``_ln_res_bwd_rule``).
+:func:`rms_fwd` is an autograd Function that saves x and the weight and
+whose backward is the plain composition :func:`_rms_bwd_ref`, as the
+reference's ``_rms_bwd_rule`` is jnp.
 
 A wrapper given CPU tensors computes its plain version
-(:func:`_ln_fwd_ref`, :func:`_ln_res_fwd_ref`, :func:`_ln_bwd_ref`: the
-same f32 arithmetic in PyTorch). Given CUDA tensors it launches the
+(:func:`_ln_fwd_ref`, :func:`_ln_res_fwd_ref`, :func:`_ln_bwd_ref`,
+:func:`_rms_fwd_ref`: the same f32 arithmetic in PyTorch). Given CUDA tensors it launches the
 kernel on the current stream, without synchronising, or raises.
 ``LAUNCHES`` counts the kernel launches (``ln_bwd`` and ``ln_bwd_res``
 count the plain and residual variants apart).
@@ -27,10 +31,13 @@ import torch
 
 from paddle_tpu_torch.ops.cuda import launch
 
-__all__ = ["LAUNCHES", "MAX_HIDDEN", "ln_bwd", "ln_fwd", "ln_res_fwd"]
+__all__ = ["LAUNCHES", "MAX_HIDDEN", "MAX_RMS_HIDDEN", "ln_bwd", "ln_fwd",
+           "ln_res_fwd", "rms_fwd"]
 
-LAUNCHES = {"ln_fwd": 0, "ln_res_fwd": 0, "ln_bwd": 0, "ln_bwd_res": 0}
+LAUNCHES = {"ln_fwd": 0, "ln_res_fwd": 0, "ln_bwd": 0, "ln_bwd_res": 0,
+            "rms_fwd": 0}
 MAX_HIDDEN = 4096        # forward: a warp holds a row; backward: H/8 threads
+MAX_RMS_HIDDEN = 16384   # rms_fwd: a block of <= 512 threads, 32 values each
 _CHUNK = 8               # hidden must be a multiple: 16-byte accesses
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GELU_K = 0.7978845608028654   # sqrt(2/pi)
@@ -45,6 +52,7 @@ _SIGNATURES = {
                    ctypes.c_float, _I, _P],
     "ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                ctypes.c_float, _I, _P],
+    "rms_fwd": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
 }
 
 
@@ -121,8 +129,33 @@ def _ln_bwd_ref(h, gy, weight, bias, eps, act=None, gh=None):
     return dx.to(h.dtype), dw, db
 
 
+def _rms_fwd_ref(x, weight, eps):
+    """Plain version of :func:`rms_fwd` (``_rms_kernel``): f32 math,
+    ``(x * rsqrt(mean(x^2) + eps)) * w``, output in x's type."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x.dtype)
+
+
+def _rms_bwd_ref(x, gy, weight, eps):
+    """RMSNorm backward, the reference's ``_rms_bwd_rule``: statistics
+    recomputed from x in f32; dx in x's type, dw summed in f32 over every
+    leading axis and cast to the weight's type (None without a weight)."""
+    xf = x.float()
+    g = gy.float()
+    rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    gw = g * weight.float() if weight is not None else g
+    dx = rstd * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    dw = None if weight is None else \
+        (g * xhat).sum(dim=tuple(range(x.dim() - 1))).to(weight.dtype)
+    return dx.to(x.dtype), dw
+
+
 # -------------------------------------------------------------- checks
-def _check_rows(name, t, hidden=None):
+def _check_rows(name, t, hidden=None, limit=MAX_HIDDEN):
     if t.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {t.dtype} not supported "
                         f"(float32 or bfloat16)")
@@ -133,9 +166,9 @@ def _check_rows(name, t, hidden=None):
     h = t.shape[-1]
     if hidden is not None and h != hidden:
         raise ValueError(f"{name}: last axis {h} != {hidden}")
-    if h % _CHUNK or h > MAX_HIDDEN:
+    if h % _CHUNK or h > limit:
         raise ValueError(f"{name}: hidden {h} must be a multiple of "
-                         f"{_CHUNK} and at most {MAX_HIDDEN}")
+                         f"{_CHUNK} and at most {limit}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
@@ -156,6 +189,9 @@ def _check_vector(name, t, hidden, device, dtype=None):
 def _route(*tensors):
     return launch.route("LayerNorm", *tensors)
 
+
+def _route_rms(*tensors):
+    return launch.route("RMSNorm", *tensors)
 
 
 # ----------------------------------------------------------- launchers
@@ -207,6 +243,25 @@ def _ln_res_fwd_launch(x, residual, weight, bias, eps, act):
     launch.raise_on(rc, "ln_res_fwd")
     LAUNCHES["ln_res_fwd"] += 1
     return h, y
+
+
+def _rms_fwd_launch(x, weight, eps):
+    if _route_rms(x, weight) == "cpu":
+        return _rms_fwd_ref(x, weight, eps)
+    _check_rows("rms_fwd x", x, limit=MAX_RMS_HIDDEN)
+    hidden = x.shape[-1]
+    _check_vector("rms_fwd weight", weight, hidden, x.device)
+    y = torch.empty_like(x)
+    rows = x.numel() // hidden
+    if rows == 0:
+        return y
+    rc = _lib().rms_fwd(
+        x.data_ptr(), launch.ptr(weight), y.data_ptr(), rows, hidden,
+        _DTYPES[x.dtype], _DTYPES[weight.dtype] if weight is not None else 0,
+        float(eps), x.device.index, launch.stream(x.device))
+    launch.raise_on(rc, "rms_fwd")
+    LAUNCHES["rms_fwd"] += 1
+    return y
 
 
 def ln_bwd(h, gy, weight, bias=None, eps=1e-5, act=None, gh=None):
@@ -304,6 +359,23 @@ class _LayerNormResidual(torch.autograd.Function):
         return dh.to(x_dtype), dh.to(r_dtype), dw, db, None, None
 
 
+class _RMSNorm(torch.autograd.Function):
+    """``_rms_fwd_rule``/``_rms_bwd_rule``: saves x and the weight."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms_fwd_launch(x, weight, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        dx, dw = _rms_bwd_ref(x, gy, weight, ctx.eps)
+        return dx, dw, None
+
+
 # ------------------------------------------------------------ wrappers
 def ln_fwd(x, weight=None, bias=None, eps=1e-5):
     """LayerNorm over the last axis of ``x`` (f32 math, output in x's
@@ -324,3 +396,12 @@ def ln_res_fwd(x, residual, weight, bias=None, eps=1e-5, act=None):
     if weight is None:
         raise ValueError("ln_res_fwd needs a weight")
     return _LayerNormResidual.apply(x, residual, weight, bias, eps, act)
+
+
+def rms_fwd(x, weight=None, eps=1e-6):
+    """RMSNorm over the last axis of ``x``: ``x * rsqrt(mean(x^2) + eps)
+    * weight`` with f32 math, output in x's type (f32 or bf16 x, f32 or
+    bf16 weight, which may be None). The kernel takes a hidden size that
+    is a multiple of 8 up to ``MAX_RMS_HIDDEN``. Differentiable in x and
+    weight."""
+    return _RMSNorm.apply(x, weight, eps)

@@ -167,7 +167,7 @@ def test_cuda_request_raises_without_toolkit(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         norm.ln_bwd(x, r, w, b, gh=r)
     assert norm.LAUNCHES == {"ln_fwd": 0, "ln_res_fwd": 0, "ln_bwd": 0,
-                             "ln_bwd_res": 0}
+                             "ln_bwd_res": 0, "rms_fwd": 0}
 
 
 def test_other_devices_and_bad_inputs_raise():

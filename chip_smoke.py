@@ -22,12 +22,15 @@ Phases, in order (any failure raises and exits non-zero):
    tokens;
 5. train kernels: the flash attention kernels (forward, dq, dk/dv) at the
    training path's shape (``[4, 1024, 16, 128]``, causal, q/k/v strided
-   views of a fused projection) plus a ragged non-causal one, and the
-   LayerNorm backward kernel (rows 4096 and 8, plain and residual,
-   ``act`` None and gelu), f32 and bf16, each against its plain version;
-   then the autograd Functions (kernel path) against autograd through
-   the plain versions, and each kernel's time beside its bound, its plain
-   version's and the library call's;
+   views of a fused projection) plus a ragged non-causal one, causal
+   ones with sq != sk both ways, a length of 1000 and a single (b, h),
+   and the LayerNorm backward kernel (rows 4096, 8 and 4097 at hidden
+   2048, 4096 rows at hidden 1024 and 4096; plain and residual, ``act``
+   None and gelu), f32 and bf16, each against its plain version; then
+   the autograd Functions (kernel path) against autograd through the
+   plain versions, and each kernel's time beside its bound, its plain
+   version's and the library call's (for the flash backward pair, SDPA's
+   backward alone; for the forward also without the causal mask);
 6. fused AdamW kernels: the update and the guard's sums of squares at
    the training path's weight shapes (and an odd-row single block, and
    ``cols % 8 != 0``), f32 and bf16 moments, decay on and off, guard off
@@ -287,12 +290,12 @@ def phase_build():
         raise AssertionError("kernels spill registers:\n" + "\n".join(spills))
 
 
-def _inputs(rows, dtype, gen, copies=1):
+def _inputs(rows, dtype, gen, copies=1, hidden=HIDDEN):
     def rnd(*shape):
         return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
-    w = (1.0 + 0.1 * torch.randn(HIDDEN, device="cuda", generator=gen)).to(dtype)
-    b = (0.1 * torch.randn(HIDDEN, device="cuda", generator=gen)).to(dtype)
-    return [(rnd(rows, HIDDEN), rnd(rows, HIDDEN), w, b)
+    w = (1.0 + 0.1 * torch.randn(hidden, device="cuda", generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(hidden, device="cuda", generator=gen)).to(dtype)
+    return [(rnd(rows, hidden), rnd(rows, hidden), w, b)
             for _ in range(copies)]
 
 
@@ -526,7 +529,14 @@ def check_flash(gen):
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     err = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     cases = [(True, dict()),
-             (False, dict(b=1, sq=200, sk=328, h=4, d=D))]    # ragged
+             (False, dict(b=1, sq=200, sk=328, h=4, d=D)),    # ragged
+             # the bf16 forward's 128-row tiles: causal and ragged with
+             # sq != sk both ways, a length that is not a multiple of 128,
+             # and a single (b, h)
+             (True, dict(b=1, sq=200, sk=328, h=4, d=D)),
+             (True, dict(b=1, sq=328, sk=200, h=4, d=D)),
+             (True, dict(b=2, sq=1000, sk=1000, h=4, d=D)),
+             (True, dict(b=1, sq=S, sk=S, h=1, d=D))]
     for dtype in (torch.float32, torch.bfloat16):
         for causal, shape in cases:
             q, k, v, do = _attention_inputs(dtype, gen, **shape)
@@ -589,20 +599,23 @@ def check_flash(gen):
 
 
 def check_ln_bwd(gen):
-    """ln_bwd against its plain version (rows 4096 and 8, plain and
-    residual, act None and gelu, f32 and bf16 rows with f32 weights, as
-    on the training path), then the LayerNorm autograd Functions (kernel
-    path) against autograd through the plain forwards."""
+    """ln_bwd against its plain version (rows 4096 and 8 at hidden 2048,
+    4097 rows, which the kernel's row split leaves ragged, and 4096 rows
+    at hidden 1024 and 4096; plain and residual, act None and gelu, f32
+    and bf16 rows with f32 weights, as on the training path), then the
+    LayerNorm autograd Functions (kernel path) against autograd through
+    the plain forwards."""
     from paddle_tpu_torch.ops.cuda import norm
     err = {"ln_bwd": 0.0, "ln_bwd_res": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for rows in (B * S, 8):
-            (h, gy, _w, _b), = _inputs(rows, dtype, gen)
-            (gh, _x, w, b), = _inputs(rows, torch.float32, gen)
+        for rows, hidden in ((B * S, HIDDEN), (8, HIDDEN), (B * S + 1, HIDDEN),
+                             (B * S, 1024), (B * S, 4096)):
+            (h, gy, _w, _b), = _inputs(rows, dtype, gen, hidden=hidden)
+            (gh, _x, w, b), = _inputs(rows, torch.float32, gen, hidden=hidden)
             gh = gh.to(dtype)
             for act, res in ((None, False), (None, True), ("gelu", True)):
                 name = "ln_bwd_res" if res else "ln_bwd"
-                tag = f"{name} rows={rows} act={act}"
+                tag = f"{name} rows={rows} hidden={hidden} act={act}"
                 kind = str(dtype).split('.')[1]
                 args = (h, gy, w, b, EPS, act, gh if res else None)
                 got, want = norm.ln_bwd(*args), norm._ln_bwd_ref(*args)
@@ -705,6 +718,31 @@ def time_train_kernels(gen):
     t["flash_fwd_bwd"] = {
         "ms": device_ms(kernel_fwd_bwd, [x for x in sets], **few),
         "library_ms": device_ms(lib_fwd_bwd, lib_sets, **few)}
+    # the backward pair against SDPA's backward alone (autograd.grad on a
+    # retained graph), the one library call that computes dq, dk and dv
+    graphs = []
+    for q, k, v, do in lib_sets:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        graphs.append((sdpa(*leaves, is_causal=True), leaves, do))
+    t["flash_bwd_pair"] = {
+        "ms": t["flash_bwd_dq"]["ms"] + t["flash_bwd_dkv"]["ms"],
+        "library_ms": device_ms(
+            lambda out, leaves, do: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), graphs, **few)}
+    del graphs
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        t[name]["pair_ms"] = t["flash_bwd_pair"]["ms"]
+        t[name]["pair_library_ms"] = t["flash_bwd_pair"]["library_ms"]
+    # the forward without the causal mask: every block runs all 8 key
+    # tiles, so the wave tail of the causal grid is out of the reading
+    bound, by = _bound(4 * elems * 2 + row_stats, 4 * S * S * B * H * D,
+                       BF16_OPS_PER_S)
+    t["flash_fwd_full"] = {
+        "ms": device_ms(fa.flash_fwd, [a[:3] + (False, scale)
+                                       for a in fwd_args], **few),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": device_ms(lambda q, k, v, do: sdpa(q, k, v), lib_sets,
+                                **few)}
 
     for rows_ in (B * S, 8):
         copies = max(1, min(64, math.ceil(150e6 / (4 * rows_ * HIDDEN * 2))))

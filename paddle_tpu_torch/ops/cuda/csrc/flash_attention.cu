@@ -8,30 +8,52 @@
 // h 16, d 128, causal, bf16) the forward moves q, k, v and o once (67 MB,
 // 20 us at 3.35 TB/s) and does 17 GFLOP of products (17 us at 989
 // TFLOP/s), so bytes and tensor-core operations are about level; dq
-// (3 products) and dk/dv (4 products) lean to operations. These kernels
-// do not reach either bound: they are the simple, right first version.
+// (3 products) and dk/dv (4 products) lean to operations.
 //
-// Design. The Pallas grid runs its innermost axis in order and carries
-// (acc, m, l) in VMEM scratch from one grid step to the next. On Hopper
-// blocks run in no order, so a block owns its whole output tile and
-// loops over the other axis itself:
-//   - flash_fwd and flash_bwd_dq: one block per (b*h, 64 query rows),
-//     looping over 64-key tiles; under `causal` the loop stops at the
-//     diagonal (the TPU kernel's `run` predicate);
-//   - flash_bwd_dkv: one block per (b*h, 64 keys), looping over 32-row
-//     query tiles from the diagonal on.
-// dq and dk/dv stay in separate kernels, as in the reference, so no
-// output is summed across blocks: there are no atomics, and a result is
-// the same on every run. Four warps split a block's 64 output rows, 16
-// each. Tiles are staged in shared memory (16-byte loads, rows padded by
-// 8 elements); the products are mma.sync m16n8k16 bf16 tiles with f32
-// accumulation for bf16 inputs, and f32 FMAs in the same register layout
-// for f32 inputs. q, k, v, o, do, dq, dk, dv are read and written in
-// place through their strides ([b, s, h, d] with a contiguous last axis),
-// so the q/k/v views that GPTAttention splits off its fused projection
-// need no transpose and no copy. The tile code and the forward's
-// online-softmax step live in attention_tiles.cuh, shared with
-// block_sparse_attention.cu.
+// The Pallas grid runs its innermost axis in order and carries (acc, m,
+// l) in VMEM scratch from one grid step to the next. On Hopper blocks run
+// in no order, so a block owns its whole output tile and loops over the
+// other axis itself; under `causal` the loop stops at the diagonal (the
+// TPU kernel's `run` predicate). No output is summed across blocks: there
+// are no atomics, and a result is the same on every run. q, k, v, o, do,
+// dq, dk, dv are read and written in place through their strides ([b, s,
+// h, d] with a contiguous last axis), so the q/k/v views that
+// GPTAttention splits off its fused projection need no transpose or copy.
+//
+// bf16 forward (flash_fwd_wgmma_kernel). Its first version (mma.sync from
+// operands built by scalar shared-memory reads, one K and one V buffer
+// filled by the compute threads between two barriers, p through shared
+// memory, 64 x 64 tiles) ran at 11 % of the bound. This one is built from
+// the Hopper blocks of hopper.cuh:
+//   - one block of two warpgroups per (b*h, 128 query rows), each
+//     warpgroup 64 rows (wgmma's M); 256 threads, so a thread may hold up
+//     to 255 registers (a third, producer warp would put three warps on one
+//     SM sub-partition and cap every thread at 168, where the accumulators
+//     spill);
+//   - q, k and v come by TMA as 4-D tensor maps (head_dim, heads, seq,
+//     batch) over their strides, 128-byte swizzled boxes of 64 x 128;
+//     K and V of 128 keys go through a 2-stage ring with full/empty
+//     mbarriers, refilled by one thread as soon as both warpgroups are
+//     done with a stage, so the next tiles load while this one computes;
+//   - S = q k^T and o += p v are wgmma.m64n128k16 (f32 accumulation); the
+//     online softmax runs in S's accumulator registers and p stays in
+//     registers as the A operand of p v (no shared-memory round trip);
+//     the mask is applied on the last key tile only;
+//   - blocks take the query tiles with the most key tiles first, so under
+//     `causal` the heaviest blocks run in the first wave.
+// Measured on the card, a 3-stage ring, a dedicated producer warp(group)
+// and issuing the next tile's q k^T before this tile's softmax (an
+// intra-warpgroup overlap) did not make it faster; see PERF.md.
+//
+// f32 forward, dq and dk/dv (attention_tiles.cuh): a block of four warps
+// owns 64 output rows (16 a warp); flash_fwd and flash_bwd_dq loop over
+// 64-key tiles, flash_bwd_dkv owns 64 keys and loops over 32-row query
+// tiles from the diagonal on. Tiles are staged in shared memory (16-byte
+// loads, rows padded by 8 elements); the products are mma.sync m16n8k16
+// bf16 tiles with f32 accumulation for bf16 inputs, f32 FMAs in the same
+// register layout for f32 inputs (the f32 forward keeps them: wgmma's tf32
+// would change f32 results, and f32 is the checking path). These are the
+// simple first versions; their redesign is the next work (ROADMAP queue B).
 //
 // Numerics follow the Pallas kernels: base-2 softmax with scale*log2(e)
 // folded into the scores, masked scores set to -1e30 (not -inf), the
@@ -44,7 +66,10 @@
 // Every entry point launches on the stream it is given, does not
 // synchronise, and returns cudaGetLastError().
 
+#include <type_traits>
+
 #include "attention_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -58,6 +83,221 @@ __device__ __forceinline__ int key_tiles(int q0, int seq_k, int causal) {
   return n;
 }
 
+// ------------------------------------------------ bf16 forward on wgmma
+constexpr int kWgRows = 128;                 // query rows a block owns
+constexpr int kWgKeys = 128;                 // keys a step
+constexpr int kWgStages = 2;                 // depth of the K/V ring
+constexpr int kBox = 64;                     // head_dim values a TMA box row holds (128 B)
+constexpr int kBoxBytes = kWgRows * kBox * 2;              // 16 KB
+constexpr int kTileBytes = kWgRows * kHeadDim * 2;         // 32 KB: two boxes
+constexpr int kWgThreads = 256;              // two warpgroups of 64 query rows
+constexpr int kWgSmem = (1 + 2 * kWgStages) * kTileBytes + 128 + 1024;  // + barriers, alignment
+
+struct WgBarriers {
+  uint64_t q;
+  uint64_t full_k[kWgStages], full_v[kWgStages], empty_k[kWgStages], empty_v[kWgStages];
+};
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Block (b*h, 128 query rows), heaviest causal tiles first
+// (flash_attention.py:fwd_tile_order). Two warpgroups each own 64 query
+// rows. Thread 0 loads the q tile once by TMA and keeps 128-key K and V
+// tiles coming through a kWgStages-deep ring: K and V of a stage each
+// have a "full" barrier (the TMA bytes landed) and an "empty" one (all 8
+// warps are done with it); thread 0 refills a stage with the tile
+// kWgStages ahead as soon as both warpgroups have released it, K right
+// after S is formed, V after p v. Per key tile a warpgroup forms
+// S = q k^T by wgmma from shared memory (q and k K-major), runs the online
+// softmax in the accumulator registers (a thread holds rows row_a and
+// row_a + 8, columns 8j + 2t + {0, 1}), rounds p to bf16 in registers and
+// adds p v by wgmma with p as the register A operand (v MN-major, read
+// through the transpose bit).
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           __nv_bfloat16* __restrict__ o, float* __restrict__ lse, Strides os,
+                           int heads, int bh_count, int q_tiles, int seq_q, int seq_k, float sl2,
+                           int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sk = sq + kTileBytes;
+  unsigned char* sv = sk + kWgStages * kTileBytes;
+  WgBarriers& bar = *reinterpret_cast<WgBarriers*>(sv + kWgStages * kTileBytes);
+
+  const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x) / bh_count;
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = qt * kWgRows;
+  int nk = (seq_k + kWgKeys - 1) / kWgKeys;  // flash_attention.py:fwd_key_tiles
+  if (causal) nk = min(nk, (q0 + kWgRows - 1) / kWgKeys + 1);
+
+  // key tile kt's K (or V) into stage kt % kWgStages
+  auto load_kv = [&](const CUtensorMap* map, unsigned char* ring, uint64_t* full, int kt) {
+    const int s = kt % kWgStages;
+    hopper::mbar_expect_tx(&full[s], kTileBytes);
+    for (int x = 0; x < kHeadDim / kBox; ++x)
+      hopper::tma_load_4d(ring + s * kTileBytes + x * kBoxBytes, map, &full[s], x * kBox, h,
+                          kt * kWgKeys, b);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar.q, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      hopper::mbar_init(&bar.full_k[s], 1);
+      hopper::mbar_init(&bar.full_v[s], 1);
+      hopper::mbar_init(&bar.empty_k[s], 8);
+      hopper::mbar_init(&bar.empty_v[s], 8);
+    }
+    hopper::fence_barrier_init();
+    hopper::mbar_expect_tx(&bar.q, kTileBytes);
+    for (int x = 0; x < kHeadDim / kBox; ++x)
+      hopper::tma_load_4d(sq + x * kBoxBytes, &qmap, &bar.q, x * kBox, h, q0, b);
+    for (int kt = 0; kt < min(nk, kWgStages); ++kt) {
+      load_kv(&kmap, sk, bar.full_k, kt);
+      load_kv(&vmap, sv, bar.full_v, kt);
+    }
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_a = q0 + wg * 64 + warp * 16 + g;  // and row_a + 8
+  const unsigned char* qw = sq + wg * 64 * 128;     // this warpgroup's 64 rows
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // this warp is done with key tile kt's K (or V): release it; thread 0
+  // waits for the other warps' release and loads tile kt + kWgStages
+  auto release = [&](const CUtensorMap* map, unsigned char* ring, uint64_t* full,
+                     uint64_t* empty, int kt) {
+    if (lane == 0) hopper::mbar_arrive(&empty[kt % kWgStages]);
+    if (threadIdx.x == 0 && kt + kWgStages < nk) {
+      hopper::mbar_wait(&empty[kt % kWgStages], (kt / kWgStages) & 1);
+      load_kv(map, ring, full, kt + kWgStages);
+    }
+    __syncwarp();  // warp 0 reconverges before its next wgmma
+  };
+  // scores into log2 units, the running maximum m, p = exp2(s - m) in sc
+  // and its row sums rs; `masked` (the last tile only) sets keys past
+  // seq_k and, under causal, above the diagonal (col > row) to -1e30.
+  // Returns in corr the factors that move acc and l to the new maximum.
+  auto softmax = [&](float (&sc)[64], int k0, auto masked, float (&corr)[2], float (&rs)[2]) {
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e] * sl2;
+        if constexpr (decltype(masked)::value) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = row_a + 8 * (e >> 1);
+          if (col >= seq_k || (causal && col > row)) x = kNegInf;
+        }
+        sc[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      corr[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+      rs[i] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * j + e] = exp2f(sc[4 * j + e] - m[e >> 1]);
+        rs[e >> 1] += sc[4 * j + e];
+      }
+    }
+  };
+
+  hopper::mbar_wait(&bar.q, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kWgStages;
+    const uint32_t parity = (kt / kWgStages) & 1;
+    float sc[64];
+    hopper::mbar_wait(&bar.full_k[s], parity);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      hopper::wgmma_m64n128k16_ss(sc, hopper::smem_desc(qw + off, 16, 1024),
+                                  hopper::smem_desc(sk + s * kTileBytes + off, 16, 1024),
+                                  kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    release(&kmap, sk, bar.full_k, bar.empty_k, kt);
+
+    float corr[2], rs[2];
+    if (kt == nk - 1 && (causal || (kt + 1) * kWgKeys > seq_k))
+      softmax(sc, kt * kWgKeys, std::true_type{}, corr, rs);
+    else
+      softmax(sc, kt * kWgKeys, std::false_type{}, corr, rs);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(rs[i]);
+    uint32_t p[32];  // p as the A operand: 2j and 2j + 1 are rows row_a and row_a + 8
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      acc[4 * j] *= corr[0];
+      acc[4 * j + 1] *= corr[0];
+      acc[4 * j + 2] *= corr[1];
+      acc[4 * j + 3] *= corr[1];
+      p[2 * j] = pack_bf16x2(sc[4 * j], sc[4 * j + 1]);
+      p[2 * j + 1] = pack_bf16x2(sc[4 * j + 2], sc[4 * j + 3]);
+    }
+
+    hopper::mbar_wait(&bar.full_v[s], parity);
+    hopper::fence_regs(acc);
+    hopper::fence_regs(p);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+      const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+      hopper::wgmma_m64n128k16_rs_mn(
+          acc, a, hopper::smem_desc(sv + s * kTileBytes + kk * 16 * 128, kBoxBytes, 1024));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(p);
+    release(&vmap, sv, bar.full_v, bar.empty_v, kt);
+  }
+
+  // o = acc / l (l == 0: divided by 1), lse = m*ln2 + log(l)
+  const float la = l[0] == 0.f ? 1.f : l[0];
+  const float lb = l[1] == 0.f ? 1.f : l[1];
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (row_a < seq_q)
+      *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(row_a) * os.s + col) =
+          pack_bf16x2(acc[4 * j] / la, acc[4 * j + 1] / la);
+    if (row_a + 8 < seq_q)
+      *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(row_a + 8) * os.s + col) =
+          pack_bf16x2(acc[4 * j + 2] / lb, acc[4 * j + 3] / lb);
+  }
+  if (t == 0) {
+    float* lrow = lse + static_cast<long long>(bh) * seq_q;
+    if (row_a < seq_q) lrow[row_a] = m[0] * kLn2 + logf(la);
+    if (row_a + 8 < seq_q) lrow[row_a + 8] = m[1] * kLn2 + logf(lb);
+  }
+}
+
+// The f32 forward: FMAs in the mma.sync register layout (attention_tiles.cuh).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -268,6 +508,35 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   return cudaGetLastError();
 }
 
+// q, k, v as 4-D tensor maps (head_dim, heads, seq, batch) through their
+// strides, boxes of 64 x 1 x 128 x 1 (flash_attention.py:tma_geometry),
+// encoded on every call; one block per (b*h, 128 query rows).
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
+                             const long long* st, int batch, int heads, int seq_q, int seq_k,
+                             float scale, int causal, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* base[3] = {q, k, v};
+  const int seq[3] = {seq_q, seq_k, seq_k};
+  for (int i = 0; i < 3; ++i) {
+    const Strides s = strides_at(st, i);
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(heads),
+                                static_cast<cuuint64_t>(seq[i]), static_cast<cuuint64_t>(batch)};
+    const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(s.h) * 2,
+                                 static_cast<cuuint64_t>(s.s) * 2,
+                                 static_cast<cuuint64_t>(s.b) * 2};
+    const cuuint32_t box[4] = {kBox, 1, kWgRows, 1};
+    if (!hopper::encode_bf16_4d(&maps[i], base[i], dims, bytes, box)) return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (seq_q + kWgRows - 1) / kWgRows;
+  flash_fwd_wgmma_kernel<<<q_tiles * batch * heads, kWgThreads, kWgSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      strides_at(st, 3), heads, batch * heads, q_tiles, seq_q, seq_k, scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, const long long* st,
@@ -317,6 +586,8 @@ bool valid_shape(int batch, int heads, int seq_q, int seq_k, int head_dim, int d
 // q, o: [batch, seq_q, heads, head_dim]; k, v: [batch, seq_k, heads,
 // head_dim]; strides: 12 values, (batch, seq, head) strides in elements of
 // q, k, v, o. lse: contiguous [batch*heads, seq_q] f32. head_dim 128.
+// bf16 runs flash_fwd_wgmma_kernel (q, k and v 16-byte aligned with
+// strides of whole 16-byte units), f32 flash_fwd_kernel.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          const long long* strides, int batch, int heads, int seq_q,
                          int seq_k, int head_dim, int dtype, float scale, int causal,
@@ -326,9 +597,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
   if (dtype == kBF16)
-    err = launch_fwd<bf16, kHeadDim>(q, k, v, o, lse, strides, batch, heads, seq_q, seq_k, scale, causal, s);
+    err = launch_fwd_wgmma(q, k, v, o, lse, strides, batch, heads, seq_q, seq_k, scale, causal, s);
   else
     err = launch_fwd<float, kHeadDim>(q, k, v, o, lse, strides, batch, heads, seq_q, seq_k, scale, causal, s);
   return static_cast<int>(err);

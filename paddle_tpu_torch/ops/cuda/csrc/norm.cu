@@ -25,15 +25,27 @@
 // shared memory, no block barrier. A ragged row count needs no padding: a
 // warp past the last row returns.
 //
-// Backward design: the backward keeps four row-length values live (h,
-// gy, xhat and the dw/db sums), too many for one warp's registers at
-// H = 4096, so a block of H/8 threads (H <= 8192) owns a row, each thread
-// 8 columns, and walks a run of consecutive rows. Its three row
-// reductions go through the warps' shuffles and one shared-memory pass in
-// a fixed order. Each thread keeps the dw/db sums of its columns over the
-// block's rows in registers and writes them once, as one row of f32
-// [n_blocks, H] partials that the caller sums (as _ln_bwd_pallas sums the
-// per-block partials): no atomics, so the result is the same every run.
+// Backward design (ln_bwd_kernel + ln_bwd_sum_kernel). What bounds it on
+// an H100 at the training path's shape (4096 x 2048 bf16, 25 + 24 calls
+// a GPT-1.3B step) is bytes in flight: each row is a chain of dependent
+// loads and block reductions, so the kernel runs at the rate its
+// outstanding loads allow, not at the memory's. The first design (one row
+// at a time per block, three reductions of two barriers each, 2 blocks an
+// SM, per-block partials summed by torch) ran at 27 % of the byte bound.
+// This one:
+//   - a block of `slots` rows x hidden/8 threads (512 at most), each
+//     thread 8 columns; two blocks an SM at 64 registers;
+//   - each thread copies its chunks of the next row into a ring in shared
+//     memory with cp.async while the block reduces this one (no register
+//     holds a prefetched row; a thread reads back only what it copied);
+//   - two reductions a row without gelu (sum(x), then sum((x-mean)^2),
+//     sum(gw) and sum(gw*(x-mean)) in one pass), each one barrier with
+//     double-buffered partials; three with gelu, whose gy needs xhat;
+//   - dw/db summed per thread in shared memory, the slots added in order,
+//     one f32 partial row per block; ln_bwd_sum_kernel adds the partial
+//     rows in a fixed order and casts to the weights' type: no atomics, so
+//     the result is the same on every run.
+// norm.py:ln_bwd_split picks the slots and the run of rows a block takes.
 //
 // RMSNorm forward design: y = x * rsqrt(mean(x^2) + eps) * w reads R*H*e
 // and writes R*H*e (bytes bound it, as LayerNorm's). Its users run rows
@@ -267,90 +279,274 @@ __device__ __forceinline__ float2 block_sum2(float a, float b, float* red) {
   return s;
 }
 
+// ------------------------------------------------------ LayerNorm backward
+constexpr int kBwdMaxThreads = 512;   // a block: `slots` rows of hidden/8 threads
+constexpr int kBwdMaxWarps = kBwdMaxThreads / 32;
+constexpr int kBwdStages = 2;         // the cp.async ring: this step and the next
+constexpr int kBwdBlocksPerSm = 2;    // bf16: 2 x 512 threads at <= 64 registers
+
+// An async 16-byte copy global -> shared, with its group commit and wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// NV sums over the threads of this thread's row slot (warps_per_slot
+// consecutive warps), the same on every thread of the slot, summed in a
+// fixed order. red: [4][kBwdMaxWarps] floats; callers alternate two
+// buffers, so one barrier a call suffices (a buffer is written again only
+// after the next call's barrier, when every read of it is done).
+template <int NV>
+__device__ __forceinline__ void slot_sum(float (&v)[NV], float* red, int warps_per_slot) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = warp_sum(v[i]);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) red[i * kBwdMaxWarps + warp] = v[i];
+  }
+  __syncthreads();
+  const int w0 = warp - warp % warps_per_slot;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float s = 0.0f;
+    for (int k = 0; k < warps_per_slot; ++k) s += red[i * kBwdMaxWarps + w0 + k];
+    v[i] = s;
+  }
+}
+
+// Dynamic shared memory of ln_bwd_kernel: the ring, [kBwdStages][tensors]
+// [threads] chunks of 8 elements (tensors: h, gy and, with gh, gh).
+template <typename TH>
+constexpr int bwd_smem(int threads, int tensors) {
+  return kBwdStages * tensors * threads * kChunk * static_cast<int>(sizeof(TH));
+}
+
 // LayerNorm backward from the saved pre-norm rows h (_ln_bwd_core):
 // recompute mean, rstd and xhat; with gelu, gy *= gelu'(xhat*w + b);
 // dx = rstd * (gy*w - mean(gy*w) - xhat * mean(gy*w*xhat)) (+ gh);
-// per-block partials dw = sum(gy * xhat), db = sum(gy).
+// dw = sum(gy * xhat), db = sum(gy) as one f32 partial row per block.
+//
+// A block holds `slots` rows at once, hidden/8 threads (rounded up to a
+// warp) a row, each thread 8 columns; it walks the rows
+// [blockIdx.x * rows_per_block, + rows_per_block), slot s taking every
+// slots-th row from s. Each thread copies its chunks of h, gy (and gh)
+// kBwdStages - 1 steps ahead into a ring in shared memory with cp.async,
+// so rows stay in flight through the block's reductions without holding
+// registers. A thread reads only the chunks it copied itself: the ring
+// needs no barrier. Without gelu a row needs two reductions: sum(x) for
+// the mean, then sum((x-mean)^2), sum(gw) and sum(gw*(x-mean)) together,
+// since sum(gw*xhat) = rstd * sum(gw*(x-mean)). With gelu, gy depends on
+// xhat, so sum((x-mean)^2) comes first and the two gw sums after it.
 template <typename TH, typename TW>
-__global__ void __launch_bounds__(kMaxHidden / kChunk)
+__global__ void __launch_bounds__(kBwdMaxThreads, sizeof(TH) == 2 ? kBwdBlocksPerSm : 1)
     ln_bwd_kernel(const TH* __restrict__ h, const TH* __restrict__ gy,
                   const TH* __restrict__ gh, const TW* __restrict__ w,
                   const TW* __restrict__ b, TH* __restrict__ dx, float* __restrict__ dw_part,
                   float* __restrict__ db_part, int rows, int hidden, int rows_per_block,
-                  float eps, int gelu) {
-  __shared__ float red[64];
-  const int col = threadIdx.x * kChunk;
+                  int slots, float eps, int gelu) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ float red[2][4 * kBwdMaxWarps];
+  // this thread's running dw and db sums, [2 * kChunk][blockDim.x]: kept in
+  // shared memory, not registers, so two blocks of 512 threads fit an SM
+  __shared__ float acc[2 * kChunk * kBwdMaxThreads];
+  constexpr int kCopies = kChunk * sizeof(TH) / 16;  // 16-byte copies a chunk
+  const int tensors = gh != nullptr ? 3 : 2;
+  const int per_slot = blockDim.x / slots;  // threads a row
+  const int slot = threadIdx.x / per_slot;
+  const int col = (threadIdx.x % per_slot) * kChunk;
   const bool active = col < hidden;
+  const int warps_per_slot = per_slot >> 5;
   const float n = static_cast<float>(hidden);
-  float wv[kChunk], bv[kChunk], dwa[kChunk], dba[kChunk];
-#pragma unroll
-  for (int e = 0; e < kChunk; ++e) {
-    wv[e] = 0.0f;
-    bv[e] = 0.0f;
-    dwa[e] = 0.0f;
-    dba[e] = 0.0f;
-  }
-  if (active) {
-    load_chunk(w + col, wv);
-    if (b != nullptr) load_chunk(b + col, bv);
-  }
   const int r0 = blockIdx.x * rows_per_block;
   const int r1 = min(rows, r0 + rows_per_block);
-  for (int row = r0; row < r1; ++row) {
-    const size_t at = static_cast<size_t>(row) * hidden + col;
+  const int steps = (r1 - r0 + slots - 1) / slots;
+  float* mine = acc + threadIdx.x;  // element e at mine[e * blockDim.x]
+#pragma unroll
+  for (int e = 0; e < 2 * kChunk; ++e) mine[e * blockDim.x] = 0.0f;
+  // this thread's chunk of tensor i in stage st
+  auto chunk = [&](int st, int i) {
+    return reinterpret_cast<TH*>(ring) + ((st * tensors + i) * blockDim.x + threadIdx.x) * kChunk;
+  };
+  // copy the chunks of step `step` (if its row exists) and close a group
+  auto fetch = [&](int step) {
+    const int row = r0 + step * slots + slot;
+    if (active && step < steps && row < r1) {
+      const size_t at = static_cast<size_t>(row) * hidden + col;
+      const int st = step % kBwdStages;
+#pragma unroll
+      for (int c = 0; c < kCopies; ++c) {
+        cp_async16(chunk(st, 0) + c * 16 / sizeof(TH), h + at + c * 16 / sizeof(TH));
+        cp_async16(chunk(st, 1) + c * 16 / sizeof(TH), gy + at + c * 16 / sizeof(TH));
+        if (gh != nullptr)
+          cp_async16(chunk(st, 2) + c * 16 / sizeof(TH), gh + at + c * 16 / sizeof(TH));
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < kBwdStages - 1; ++st) fetch(st);
+  int buf = 0;
+  for (int step = 0; step < steps; ++step) {
+    fetch(step + kBwdStages - 1);
+    cp_async_wait<kBwdStages - 1>();  // this step's group has landed
+    const int row = r0 + step * slots + slot;
+    const bool live = active && row < r1;
+    const int st = step % kBwdStages;
     float xv[kChunk], gv[kChunk];
-    float s = 0.0f;
+    if (live) {
+      load_chunk(chunk(st, 0), xv);
+      load_chunk(chunk(st, 1), gv);
+    } else {
 #pragma unroll
-    for (int e = 0; e < kChunk; ++e) {
-      xv[e] = 0.0f;
-      gv[e] = 0.0f;
+      for (int e = 0; e < kChunk; ++e) xv[e] = gv[e] = 0.0f;
     }
-    if (active) {
-      load_chunk(h + at, xv);
-      load_chunk(gy + at, gv);
+
+    float s1[1] = {0.0f};
 #pragma unroll
-      for (int e = 0; e < kChunk; ++e) s += xv[e];
-    }
-    const float mean = block_sum2(s, 0.0f, red).x / n;
-    float sq = 0.0f;
+    for (int e = 0; e < kChunk; ++e) s1[0] += xv[e];
+    slot_sum(s1, red[buf], warps_per_slot);
+    buf ^= 1;
+    const float mean = s1[0] / n;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) xv[e] = live ? xv[e] - mean : 0.0f;  // x - mean
+    float wv[kChunk];
     if (active) {
+      load_chunk(w + col, wv);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) wv[e] = 0.0f;
+    }
+    float rstd, m1, m2;
+    if (!gelu) {
+      float s3[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int e = 0; e < kChunk; ++e) {
-        xv[e] -= mean;
-        sq += xv[e] * xv[e];
+        const float gw = gv[e] * wv[e];
+        s3[0] += xv[e] * xv[e];
+        s3[1] += gw;
+        s3[2] += gw * xv[e];
       }
-    }
-    const float rstd = rsqrtf(block_sum2(sq, 0.0f, red).x / n + eps);
-    float s1 = 0.0f, s2 = 0.0f;
-    float gw[kChunk];
+      slot_sum(s3, red[buf], warps_per_slot);
+      buf ^= 1;
+      rstd = rsqrtf(s3[0] / n + eps);
+      m1 = s3[1] / n;
+      m2 = rstd * s3[2] / n;
 #pragma unroll
-    for (int e = 0; e < kChunk; ++e) {
-      xv[e] *= rstd;  // xhat
-      if (gelu) gv[e] *= gelu_tanh_grad(xv[e] * wv[e] + bv[e]);
-      gw[e] = gv[e] * wv[e];
-      s1 += gw[e];
-      s2 += gw[e] * xv[e];
-    }
-    if (!active) s1 = s2 = 0.0f;
-    const float2 m = block_sum2(s1, s2, red);
-    const float m1 = m.x / n, m2 = m.y / n;
-    if (active) {
-      float d[kChunk], ghv[kChunk];
-      if (gh != nullptr) load_chunk(gh + at, ghv);
+      for (int e = 0; e < kChunk; ++e) xv[e] *= rstd;  // xhat
+    } else {
+      float sq[1] = {0.0f};
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) sq[0] += xv[e] * xv[e];
+      slot_sum(sq, red[buf], warps_per_slot);
+      buf ^= 1;
+      rstd = rsqrtf(sq[0] / n + eps);
+      float bv[kChunk];
+      if (active && b != nullptr) {
+        load_chunk(b + col, bv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) bv[e] = 0.0f;
+      }
+      float s2[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int e = 0; e < kChunk; ++e) {
-        d[e] = rstd * (gw[e] - m1 - xv[e] * m2);
-        if (gh != nullptr) d[e] += ghv[e];
-        dwa[e] += gv[e] * xv[e];
-        dba[e] += gv[e];
+        xv[e] *= rstd;  // xhat
+        gv[e] *= gelu_tanh_grad(xv[e] * wv[e] + bv[e]);
+        const float gw = gv[e] * wv[e];
+        s2[0] += gw;
+        s2[1] += gw * xv[e];
       }
-      store_chunk(dx + at, d);
+      slot_sum(s2, red[buf], warps_per_slot);
+      buf ^= 1;
+      m1 = s2[0] / n;
+      m2 = s2[1] / n;
+    }
+    if (live) {
+      float d[kChunk];
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) {
+        d[e] = rstd * (gv[e] * wv[e] - m1 - xv[e] * m2);
+        mine[e * blockDim.x] += gv[e] * xv[e];
+        mine[(kChunk + e) * blockDim.x] += gv[e];
+      }
+      if (gh != nullptr) {
+        float ghv[kChunk];
+        load_chunk(chunk(st, 2), ghv);
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) d[e] += ghv[e];
+      }
+      store_chunk(dx + static_cast<size_t>(row) * hidden + col, d);
     }
   }
-  if (active && r0 < r1) {
+  cp_async_wait<0>();
+  // the slots' sums, added in slot order: one partial row per block
+  if (r0 >= r1) return;
+  __syncthreads();
+  if (slot == 0 && active) {
+    float dwa[kChunk], dba[kChunk];
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      dwa[e] = mine[e * blockDim.x];
+      dba[e] = mine[(kChunk + e) * blockDim.x];
+    }
+    for (int k = 1; k < slots; ++k) {
+      const float* other = mine + k * per_slot;
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) {
+        dwa[e] += other[e * blockDim.x];
+        dba[e] += other[(kChunk + e) * blockDim.x];
+      }
+    }
     const size_t at = static_cast<size_t>(blockIdx.x) * hidden + col;
     store_chunk(dw_part + at, dwa);
     store_chunk(db_part + at, dba);
+  }
+}
+
+// dw = sum of the n_parts partial rows (and db, when db != nullptr), in
+// the weights' type. A block of 32 columns x 32 row slices: slice y sums
+// parts y, y + 32, ... and slice 0 adds the 32 slices in order, so the
+// result is the same on every run.
+constexpr int kSumCols = 32, kSumSlices = 32;
+
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+template <typename TW>
+__global__ void __launch_bounds__(kSumCols * kSumSlices)
+    ln_bwd_sum_kernel(const float* __restrict__ dw_part, const float* __restrict__ db_part,
+                      TW* __restrict__ dw, TW* __restrict__ db, int n_parts, int hidden) {
+  __shared__ float part[2][kSumSlices][kSumCols + 1];
+  const int c = blockIdx.x * kSumCols + threadIdx.x;
+  float sw = 0.0f, sb = 0.0f;
+  if (c < hidden) {
+#pragma unroll 4
+    for (int i = threadIdx.y; i < n_parts; i += kSumSlices) {
+      sw += dw_part[static_cast<size_t>(i) * hidden + c];
+      if (db != nullptr) sb += db_part[static_cast<size_t>(i) * hidden + c];
+    }
+  }
+  part[0][threadIdx.y][threadIdx.x] = sw;
+  part[1][threadIdx.y][threadIdx.x] = sb;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < hidden) {
+    float tw = 0.0f, tb = 0.0f;
+    for (int y = 0; y < kSumSlices; ++y) {
+      tw += part[0][y][threadIdx.x];
+      tb += part[1][y][threadIdx.x];
+    }
+    store_one(dw + c, tw);
+    if (db != nullptr) store_one(db + c, tb);
   }
 }
 
@@ -523,32 +719,47 @@ extern "C" int ln_res_fwd(const void* x, const void* r, const void* w, const voi
 // LayerNorm backward (both Pallas variants): h, gy, gh and dx are
 // contiguous [rows, hidden] of one type; gh may be null (the plain
 // variant, h then being the LayerNorm's input x). w is required, b may be
-// null (zero). Block i handles rows [i*rows_per_block, (i+1)*rows_per_block)
-// and writes row i of the f32 partials dw_part and db_part, each
-// [ceil(rows / rows_per_block), hidden].
+// null (zero; db is then not written). Block i handles rows
+// [i*rows_per_block, (i+1)*rows_per_block), `slots` of them at once, and
+// writes row i of the f32 scratch dw_part and db_part, each
+// [ceil(rows / rows_per_block), hidden]; a second kernel sums them into
+// dw and db in w's type (norm.py:ln_bwd_split picks the split).
 extern "C" int ln_bwd(const void* h, const void* gy, const void* gh, const void* w,
-                      const void* b, void* dx, void* dw_part, void* db_part, int rows,
-                      int hidden, int rows_per_block, int h_dtype, int w_dtype, int gelu,
-                      float eps, int device, void* stream) {
+                      const void* b, void* dx, void* dw_part, void* db_part, void* dw, void* db,
+                      int rows, int hidden, int rows_per_block, int slots, int h_dtype,
+                      int w_dtype, int gelu, float eps, int device, void* stream) {
+  const int per_slot = ((hidden / kChunk + 31) / 32) * 32;
   if (rows <= 0 || hidden <= 0 || hidden % kChunk || hidden > kMaxHidden ||
-      rows_per_block <= 0 || w == nullptr || !valid_dtype(h_dtype) || !valid_dtype(w_dtype))
+      rows_per_block <= 0 || slots <= 0 || slots * per_slot > kBwdMaxThreads || w == nullptr ||
+      dw == nullptr || (b != nullptr) != (db != nullptr) || !valid_dtype(h_dtype) ||
+      !valid_dtype(w_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = ((hidden / kChunk + 31) / 32) * 32;
-  const dim3 grid((rows + rows_per_block - 1) / rows_per_block);
+  const int n_parts = (rows + rows_per_block - 1) / rows_per_block;
+  const dim3 sum_grid((hidden + kSumCols - 1) / kSumCols), sum_block(kSumCols, kSumSlices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int smem = 0;
   using bf16 = __nv_bfloat16;
 #define LN_BWD_LAUNCH(TH, TW)                                                              \
-  ln_bwd_kernel<TH, TW><<<grid, threads, 0, s>>>(                                          \
+  smem = bwd_smem<TH>(slots * per_slot, gh != nullptr ? 3 : 2);                           \
+  err = cudaFuncSetAttribute(ln_bwd_kernel<TH, TW>,                                       \
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);           \
+  if (err != cudaSuccess) return static_cast<int>(err);                                    \
+  ln_bwd_kernel<TH, TW><<<n_parts, slots * per_slot, smem, s>>>(                           \
       static_cast<const TH*>(h), static_cast<const TH*>(gy), static_cast<const TH*>(gh),   \
       static_cast<const TW*>(w), static_cast<const TW*>(b), static_cast<TH*>(dx),          \
       static_cast<float*>(dw_part), static_cast<float*>(db_part), rows, hidden,            \
-      rows_per_block, eps, gelu)
+      rows_per_block, slots, eps, gelu);                                                   \
+  err = cudaGetLastError();                                                                \
+  if (err != cudaSuccess) return static_cast<int>(err);                                    \
+  ln_bwd_sum_kernel<TW><<<sum_grid, sum_block, 0, s>>>(                                    \
+      static_cast<const float*>(dw_part), static_cast<const float*>(db_part),              \
+      static_cast<TW*>(dw), static_cast<TW*>(db), n_parts, hidden)
   if (h_dtype == kBF16) {
-    if (w_dtype == kBF16) LN_BWD_LAUNCH(bf16, bf16); else LN_BWD_LAUNCH(bf16, float);
+    if (w_dtype == kBF16) { LN_BWD_LAUNCH(bf16, bf16); } else { LN_BWD_LAUNCH(bf16, float); }
   } else {
-    if (w_dtype == kBF16) LN_BWD_LAUNCH(float, bf16); else LN_BWD_LAUNCH(float, float);
+    if (w_dtype == kBF16) { LN_BWD_LAUNCH(float, bf16); } else { LN_BWD_LAUNCH(float, float); }
   }
 #undef LN_BWD_LAUNCH
   return static_cast<int>(cudaGetLastError());

@@ -17,6 +17,15 @@ counterpart of the reference's ``flash_attention_bshd`` and its custom
 VJP (``_flash_bhsd``): the backward computes ``delta = rowsum(do * o)``
 in f32 and hands it to both backward kernels.
 
+The bf16 forward runs on wgmma with q, k and v fed by TMA. What its
+launcher and blocks compute on the way is written out here as plain
+Python, held by the CPU tests: :func:`tma_geometry` (the 4-D tensor map
+of a strided operand; ``_check_kernel_operand`` requires what it
+needs), :func:`fwd_tile_order` and :func:`fwd_key_tiles` (which block
+takes which query tile, heaviest first); ``csrc/flash_attention.cu``
+computes the same. The f32 forward and the backward kernels keep the
+mma.sync tiles of ``csrc/attention_tiles.cuh``.
+
 A wrapper given CPU tensors computes its plain version
 (:func:`_flash_fwd_ref`, :func:`_flash_bwd_dq_ref`,
 :func:`_flash_bwd_dkv_ref`: the whole softmax at once, in f32, rounding p
@@ -33,11 +42,14 @@ import torch
 
 from paddle_tpu_torch.ops.cuda import launch
 
-__all__ = ["HEAD_DIM", "LAUNCHES", "flash_attention_bshd", "flash_bwd_dkv",
-           "flash_bwd_dq", "flash_fwd"]
+__all__ = ["FWD_TILE", "HEAD_DIM", "LAUNCHES", "TMA_BOX", "flash_attention_bshd",
+           "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "fwd_key_tiles",
+           "fwd_tile_order", "tma_geometry"]
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 HEAD_DIM = 128                 # the instantiated kernels' (GPT-1.3B's)
+FWD_TILE = 128                 # bf16 forward: query rows a block, keys a step
+TMA_BOX = 64                   # head_dim values a TMA box row (128 B swizzle)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
@@ -116,6 +128,42 @@ def _flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale):
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
                       q.float().transpose(1, 2))
     return _bshd(dk, k), _bshd(dv, v)
+
+
+# ------------------------------------------- the bf16 forward's host side
+def tma_geometry(t):
+    """The 4-D tensor map the bf16 forward encodes for a ``[b, s, h, d]``
+    operand read in place: ``dims`` (d, h, s, b), innermost first; the
+    byte ``strides`` of h, s and b; the ``box`` (64, 1, 128, 1), 64 head
+    values (128 bytes, the swizzle width) by 128 rows of one head, so a
+    128-wide head is two boxes. Raises ValueError where TMA cannot take
+    the tensor: a last axis that is not contiguous, a base address or a
+    byte stride that is not a multiple of 16."""
+    b, s, h, d = t.shape
+    sb, ss, sh, sd = t.stride()
+    e = t.element_size()
+    strides = (sh * e, ss * e, sb * e)
+    if sd != 1 or t.data_ptr() % 16 or any(x % 16 or x < 0 for x in strides):
+        raise ValueError(f"flash attention: TMA needs a contiguous last axis "
+                         f"and 16-byte aligned rows (strides {t.stride()}, "
+                         f"{e}-byte elements)")
+    return {"dims": (d, h, s, b), "strides": strides,
+            "box": (TMA_BOX, 1, FWD_TILE, 1)}
+
+
+def fwd_key_tiles(q0, seq_k, causal):
+    """Key tiles of ``FWD_TILE`` the query tile starting at row ``q0``
+    visits: all of them, or under ``causal`` those up to the diagonal."""
+    n = -(-seq_k // FWD_TILE)
+    return min(n, (q0 + FWD_TILE - 1) // FWD_TILE + 1) if causal else n
+
+
+def fwd_tile_order(q_tiles, bh_count):
+    """``(bh, q_tile)`` of each block of the bf16 forward, by block index:
+    the last query tiles (the most key tiles under ``causal``) first, each
+    across every (b, h), so the longest blocks start in the first wave."""
+    return [(i % bh_count, q_tiles - 1 - i // bh_count)
+            for i in range(q_tiles * bh_count)]
 
 
 # -------------------------------------------------------------- checks

@@ -26,13 +26,14 @@ count the plain and residual variants apart).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from paddle_tpu_torch.ops.cuda import launch
 
-__all__ = ["LAUNCHES", "MAX_HIDDEN", "MAX_RMS_HIDDEN", "ln_bwd", "ln_fwd",
-           "ln_res_fwd", "rms_fwd"]
+__all__ = ["LAUNCHES", "MAX_HIDDEN", "MAX_RMS_HIDDEN", "ln_bwd", "ln_bwd_split",
+           "ln_fwd", "ln_res_fwd", "rms_fwd"]
 
 LAUNCHES = {"ln_fwd": 0, "ln_res_fwd": 0, "ln_bwd": 0, "ln_bwd_res": 0,
             "rms_fwd": 0}
@@ -42,7 +43,8 @@ _CHUNK = 8               # hidden must be a multiple: 16-byte accesses
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GELU_K = 0.7978845608028654   # sqrt(2/pi)
 _GELU_C = 0.044715
-_BWD_BLOCKS = 256         # ln_bwd: blocks a launch aims for (>= 1 row each)
+_BWD_THREADS = 512        # ln_bwd: at most a block's threads (`slots` rows)
+_BWD_BLOCKS_PER_SM = 2    # ln_bwd: blocks a launch aims for, per SM
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,8 +52,8 @@ _SIGNATURES = {
     "ln_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "ln_res_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    ctypes.c_float, _I, _P],
-    "ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-               ctypes.c_float, _I, _P],
+    "ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+               _I, _I, ctypes.c_float, _I, _P],
     "rms_fwd": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
 }
 
@@ -186,6 +188,25 @@ def _check_vector(name, t, hidden, device, dtype=None):
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
+def ln_bwd_split(rows, hidden, sm_count):
+    """How :func:`ln_bwd`'s kernel splits ``rows``: ``(slots,
+    rows_per_block, n_blocks)``. A block holds ``slots`` rows at once,
+    hidden/8 threads each (rounded up to a warp), at most 512 threads;
+    the launch aims for two blocks an SM, each a run of ``rows_per_block``
+    consecutive rows (a multiple of ``slots``), the last one ragged.
+    ``n_blocks`` is also the count of f32 dw/db partial rows."""
+    per_slot = -(-hidden // _CHUNK // 32) * 32
+    slots = max(1, _BWD_THREADS // per_slot)
+    per_block = -(-rows // (sm_count * _BWD_BLOCKS_PER_SM))
+    per_block = -(-per_block // slots) * slots
+    return slots, per_block, -(-rows // per_block)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _route(*tensors):
     return launch.route("LayerNorm", *tensors)
 
@@ -292,19 +313,22 @@ def ln_bwd(h, gy, weight, bias=None, eps=1e-5, act=None, gh=None):
     if rows == 0:
         return (dx, torch.zeros_like(weight),
                 None if bias is None else torch.zeros_like(bias))
-    per_block = -(-rows // _BWD_BLOCKS)
-    parts = torch.empty((2, -(-rows // per_block), hidden),
-                        dtype=torch.float32, device=h.device)
-    rc = _lib().ln_bwd(
+    lib = _lib()
+    slots, per_block, n_blocks = ln_bwd_split(rows, hidden,
+                                              _sm_count(h.device.index))
+    parts = torch.empty((2, n_blocks, hidden), dtype=torch.float32,
+                        device=h.device)
+    dw = torch.empty_like(weight)
+    db = None if bias is None else torch.empty_like(bias)
+    rc = lib.ln_bwd(
         h.data_ptr(), gy.data_ptr(), launch.ptr(gh), weight.data_ptr(),
-        launch.ptr(bias),
-        dx.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows, hidden,
-        per_block, _DTYPES[h.dtype], _DTYPES[weight.dtype], int(act == "gelu"),
-        float(eps), h.device.index, launch.stream(h.device))
+        launch.ptr(bias), dx.data_ptr(), parts[0].data_ptr(),
+        parts[1].data_ptr(), dw.data_ptr(), launch.ptr(db), rows, hidden,
+        per_block, slots, _DTYPES[h.dtype], _DTYPES[weight.dtype],
+        int(act == "gelu"), float(eps), h.device.index,
+        launch.stream(h.device))
     launch.raise_on(rc, "ln_bwd")
     LAUNCHES["ln_bwd" if gh is None else "ln_bwd_res"] += 1
-    dw = parts[0].sum(dim=0).to(weight.dtype)
-    db = None if bias is None else parts[1].sum(dim=0).to(bias.dtype)
     return dx, dw, db
 
 

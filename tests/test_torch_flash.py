@@ -190,3 +190,64 @@ def test_bad_inputs_raise():
             "q", torch.zeros(1, 8, 128, 2).transpose(2, 3), torch.float32)
     with pytest.raises(ValueError, match="no flash attention kernel"):
         flash.flash_fwd(*(torch.empty(1, 8, 2, 64, device="meta"),) * 3)
+
+
+# ------------------------------------ the bf16 forward's host-side logic
+def test_tma_geometry_of_a_fused_projection_view():
+    """q, k and v split off a fused [b, s, h, 3d] projection are read in
+    place: the map walks (d, h, s, b) with the projection's strides."""
+    qkv = torch.zeros(2, 40, 4, 3 * 128, dtype=torch.bfloat16)
+    for part in qkv.split(128, dim=-1):
+        geo = flash.tma_geometry(part)
+        assert geo["dims"] == (128, 4, 40, 2)
+        assert geo["strides"] == (384 * 2, 4 * 384 * 2, 40 * 4 * 384 * 2)
+        assert geo["box"] == (flash.TMA_BOX, 1, flash.FWD_TILE, 1)
+
+
+def test_tma_geometry_of_a_contiguous_tensor():
+    geo = flash.tma_geometry(torch.zeros(3, 200, 2, 128, dtype=torch.bfloat16))
+    assert geo["dims"] == (128, 2, 200, 3)
+    assert geo["strides"] == (256, 2 * 256, 200 * 2 * 256)
+    # two boxes of 64 head values (128 bytes) cover the head
+    assert geo["box"][0] * 2 == 128 and 2 * geo["box"][0] == 128
+
+
+@pytest.mark.parametrize("view", [
+    lambda t: t[..., :128],                # rows of 132 values: 264 bytes
+    lambda t: t[..., 4:132],               # base 8 bytes past alignment
+    # aligned heads, but sequence rows 520 bytes apart
+    lambda t: t.flatten().as_strided((1, 8, 2, 128), (2112, 260, 128, 1)),
+])
+def test_tma_geometry_raises_on_misaligned_strides(view):
+    t = view(torch.zeros(1, 8, 2, 132, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="16-byte"):
+        flash.tma_geometry(t)
+
+
+@pytest.mark.parametrize("seq_q,seq_k,bh,causal", [
+    (1024, 1024, 64, True),        # the training path: 8 tiles x 64 (b, h)
+    (1000, 1000, 8, True),         # a ragged last tile
+    (200, 328, 4, True),           # sq != sk both ways
+    (328, 200, 4, True),
+    (1024, 1024, 1, True),         # one (b, h)
+    (300, 300, 3, False),
+])
+def test_fwd_tile_order_covers_each_tile_once_heaviest_first(
+        seq_q, seq_k, bh, causal):
+    q_tiles = -(-seq_q // flash.FWD_TILE)
+    order = flash.fwd_tile_order(q_tiles, bh)
+    assert sorted(order) == [(i, t) for i in range(bh)
+                             for t in range(q_tiles)]
+    work = [flash.fwd_key_tiles(t * flash.FWD_TILE, seq_k, causal)
+            for _, t in order]
+    assert work == sorted(work, reverse=True)
+    assert work[0] == max(work) and work[-1] == min(work)
+
+
+def test_fwd_key_tiles_stop_at_the_diagonal():
+    tile = flash.FWD_TILE
+    assert [flash.fwd_key_tiles(t * tile, 1024, True) for t in range(8)] \
+        == list(range(1, 9))
+    assert flash.fwd_key_tiles(0, 1024, False) == 8
+    assert flash.fwd_key_tiles(tile, 200, True) == 2      # past seq_k: 2 tiles
+    assert flash.fwd_key_tiles(0, 328, True) == 1

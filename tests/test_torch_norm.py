@@ -282,3 +282,32 @@ def test_ln_residual_grads_take_the_input_dtypes():
     (y.sum() + h.sum()).backward()
     assert tx.grad.dtype == torch.bfloat16
     assert tr.grad.dtype == tw.grad.dtype == torch.float32
+
+
+# ------------------------------------------- ln_bwd's host-side row split
+@pytest.mark.parametrize("rows,hidden,sms", [
+    (4096, 2048, 132),      # the training path on an H100
+    (4097, 2048, 132),      # one row past it: a ragged last block
+    (8, 2048, 132),
+    (4096, 1024, 132),      # 4 rows a block at once
+    (4096, 4096, 132),      # one row a block, 512 threads
+    (1, 8, 132),
+    (12345, 136, 114),
+])
+def test_ln_bwd_split_covers_every_row_once(rows, hidden, sms):
+    slots, per_block, n_blocks = norm.ln_bwd_split(rows, hidden, sms)
+    per_slot = -(-hidden // 8 // 32) * 32
+    assert 1 <= slots and slots * per_slot <= 512
+    assert per_block % slots == 0
+    assert n_blocks <= max(2 * sms, 1) or per_block == slots
+    seen = []
+    for blk in range(n_blocks):             # the kernel's walk of its rows
+        r0, r1 = blk * per_block, min(rows, (blk + 1) * per_block)
+        assert r0 < r1
+        steps = -(-(r1 - r0) // slots)
+        for step in range(steps):
+            for slot in range(slots):
+                row = r0 + step * slots + slot
+                if row < r1:
+                    seen.append(row)
+    assert sorted(seen) == list(range(rows))

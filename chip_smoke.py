@@ -19,7 +19,9 @@ Phases, in order (any failure raises and exits non-zero):
    every request finishes with 64 tokens, every logit is finite, the
    kernels' launch counts match the forward passes exactly, and serving
    the same requests one at a time on a fresh engine gives the same
-   tokens;
+   tokens; then one run with every request sampled (temperature 0.8,
+   top_k 50, top_p 0.9: threefry noise drawn on the card), whose first
+   request alone draws the same tokens;
 5. train kernels: the flash attention kernels (forward, dq, dk/dv) at the
    training path's shape (``[4, 1024, 16, 128]``, causal, q/k/v strided
    views of a fused projection) plus a ragged non-causal one, causal
@@ -74,12 +76,24 @@ Phases, in order (any failure raises and exits non-zero):
    pattern, ``nn.Linear(2048, 2048)``, the residual) takes 5 steps of
    ``to_static(amp_policy="bf16")`` + ``AdamW(1e-3, fused=True)`` on 2 x
    4096 tokens: losses finite and falling, every gradient finite, the
-   pattern analysed once and memoised after, launches exact per step.
+   pattern analysed once and memoised after, launches exact per step;
+13. (run after phase 11) shapes no kernel takes: ``gpt3_tiny`` (head_dim
+   16) trains 3 f32 steps (dropout 0, ``to_static``, ``AdamW(fused=
+   False)``) on the card and on the CPU from the same weights and batch,
+   losses within 1e-4 relative, every attention call routed to the
+   composition (``flash_attention.ROUTED``) and the LayerNorms on their
+   kernels; ``nn.LayerNorm(5120)`` forward and backward on the card
+   (routed, no launch) against the CPU, f32 and bf16 rows;
+14. the sampler: 64 rows of seeded f32 logits at vocab 50304, the
+   threefry uniforms on the card equal the CPU's bit for bit, the Gumbel
+   noise within 2 ulp of each log, the tokens sampled at temperature
+   0.8, top_k 50, top_p 0.9 identical.
 
 Each main path (serving, the training runs) runs with every launch count
-set to 0 just before it and read just after. The last line is ``{"ok":
-true, "device": {...}}``; the line before it holds the kernels' numbers
-as JSON.
+and every count of calls routed to a composition by shape set to 0 just
+before it and read just after; a GPT-1.3B or sparse block path that
+routed any call fails. The last line is ``{"ok": true, "device":
+{...}}``; the line before it holds the kernels' numbers as JSON.
 """
 from __future__ import annotations
 
@@ -150,6 +164,10 @@ RMS_OPS_PER_ELEM = 4                 # square, sum, scale, weight
 # the sparse block path: batch, sequence, mask block, steps (hidden 2048,
 # 16 heads of 128: GPT-1.3B's widths)
 SB_B, SB_S, SB_BLOCK, SB_STEPS = 2, 4096, 64, 5
+TINY_STEPS = 3                       # gpt3_tiny on the card against the CPU
+TINY_REL = 1e-4                      # their f32 losses, relative
+LN_WIDE = 5120                       # past MAX_HIDDEN: the LN composition
+SAMPLER_ROWS = 64                    # rows of logits for the sampler check
 
 
 def card_line():
@@ -371,13 +389,37 @@ def _launch_counts():
             block_sparse_attention.LAUNCHES)
 
 
+def _routed_counts():
+    from paddle_tpu_torch.ops.cuda import flash_attention, norm
+    return flash_attention.ROUTED, norm.ROUTED
+
+
 def reset_launches():
-    for counts in _launch_counts():
+    """Every launch count, and every count of calls routed to a
+    composition by shape, to 0."""
+    for counts in _launch_counts() + _routed_counts():
         for k in counts:
             counts[k] = 0
 
 
-def read_launches():
+def read_routed():
+    return {k: v for counts in _routed_counts() for k, v in counts.items()}
+
+
+def read_launches(path):
+    """The launch counts since :func:`reset_launches`. Prints the routed
+    counts of ``path`` and raises if any call was routed to a
+    composition: every shape of the GPT-1.3B and sparse block paths is
+    one the kernels take."""
+    routed = read_routed()
+    print(f"[routed] {path}: {routed}")
+    if any(routed.values()):
+        raise AssertionError(f"{path}: calls routed to a composition by "
+                             f"shape: {routed}")
+    return _launches()
+
+
+def _launches():
     return {k: v for counts in _launch_counts() for k, v in counts.items()}
 
 
@@ -420,7 +462,7 @@ def phase_serving(profile):
     results = eng.generate(prompts, sps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches("serving")
     hook.remove()
     peak = torch.cuda.max_memory_allocated()
     m = eng.metrics
@@ -449,6 +491,31 @@ def phase_serving(profile):
                                  f"differs from sequential")
     seq.shutdown()
     print("[serving] continuous == sequential for all 8 requests")
+
+    # one run with every request sampled: the threefry noise of (seed,
+    # position) is drawn on the card, and request 0 alone on a fresh
+    # engine draws the same tokens as in the batch
+    sampled = [SamplingParams(max_new_tokens=64, temperature=0.8, top_k=50,
+                              top_p=0.9, seed=200 + i)
+               for i in range(len(prompts))]
+    eng_s = engine()
+    t0 = time.perf_counter()
+    res_s = eng_s.generate(prompts, sampled)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    gen_s = eng_s.metrics.generated_tokens
+    eng_s.shutdown()
+    if any(len(r.output_token_ids) != 64 for r in res_s):
+        raise AssertionError("sampled run: a request without 64 tokens")
+    alone = engine()
+    (one,) = alone.generate([prompts[0]], [sampled[0]])
+    alone.shutdown()
+    if one.output_token_ids != res_s[0].output_token_ids:
+        raise AssertionError("sampled run: request 0 alone draws other "
+                             "tokens than in the batch")
+    print(f"[serving] sampled run (temperature 0.8, top_k 50, top_p 0.9, "
+          f"all 8 requests): {gen_s / wall_s:.1f} tokens/s ({gen_s} tokens "
+          f"in {wall_s:.2f} s); request 0 alone draws the same tokens")
 
     snap = m.snapshot()
     card = card_line()
@@ -793,6 +860,155 @@ def phase_train_kernels():
     return err, time_train_kernels(gen)
 
 
+# ------------------------------------------- shapes no kernel takes (C.1)
+def phase_tiny():
+    """gpt3_tiny (head_dim 16) and ``nn.LayerNorm(LN_WIDE)`` on the card:
+    shapes no kernel takes go to the compositions before any launch, as
+    the reference falls back. The tiny GPT trains ``TINY_STEPS`` f32
+    steps (dropout 0, ``to_static``, ``AdamW(fused=False)``) on the card
+    and on the CPU from the same weights and batch: losses within
+    ``TINY_REL``, every attention call routed, the LayerNorms (hidden 64)
+    on their kernels. The wide LayerNorm's output and gradients on the
+    card against the CPU's, f32 and bf16 rows."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    from paddle_tpu_torch.nn import functional as F
+    cfg = gpt3_tiny(fused_ln=True)
+    vocab = cfg.vocab_size
+    base = GPTForCausalLM(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    ids, labels = (torch.tensor(rng.integers(0, vocab, (2, 64)))
+                   for _ in range(2))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(dev)
+        model.train()
+        opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters(), fused=False)
+
+        @pt.jit.to_static
+        def step(ids, labels):
+            opt.clear_grad()
+            logits = model(ids)
+            loss = F.cross_entropy(logits.reshape([-1, vocab]),
+                                   labels.reshape([-1]))
+            loss.backward()
+            opt.step()
+            return loss
+
+        reset_launches()
+        losses[dev] = [step(ids.to(dev), labels.to(dev)).item()
+                       for _ in range(TINY_STEPS)]
+        routed, launches = read_routed(), _launches()
+    print(f"[tiny] gpt3_tiny(fused_ln=True) head_dim "
+          f"{cfg.hidden_size // cfg.num_heads}, f32: losses on the card "
+          f"{losses['cuda']}, on the CPU {losses['cpu']}")
+    print(f"[tiny] routed {routed}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    for c, g in zip(losses["cpu"], losses["cuda"]):
+        if not (math.isfinite(g) and abs(g - c) <= TINY_REL * abs(c)):
+            raise AssertionError(f"tiny GPT losses differ beyond {TINY_REL}"
+                                 f": {losses}")
+    expect = step_launches(cfg, TINY_STEPS, fused=False, guard=False)
+    expect.update(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0)
+    if launches != expect or routed["flash_attention"] != \
+            cfg.num_layers * TINY_STEPS or routed["layer_norm"] or \
+            routed["fused_ln_residual"]:
+        raise AssertionError(f"tiny GPT: launches {launches} (expected "
+                             f"{expect}), routed {routed}")
+
+    from paddle_tpu_torch.ops.cuda import norm
+    gen = torch.Generator().manual_seed(2)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        layer = pt.nn.LayerNorm(LN_WIDE)
+        with torch.no_grad():
+            layer.weight.copy_(1 + 0.1 * torch.randn(LN_WIDE, generator=gen))
+            layer.bias.copy_(0.1 * torch.randn(LN_WIDE, generator=gen))
+        x = torch.randn(8, LN_WIDE, generator=gen).to(dtype)
+        gy = torch.randn(8, LN_WIDE, generator=gen)   # y is f32 (f32 w)
+        got = {}
+        for dev in ("cpu", "cuda"):
+            ln = copy.deepcopy(layer).to(dev)
+            leaf = x.detach().to(dev).requires_grad_()
+            reset_launches()
+            y = ln(leaf)
+            y.backward(gy.to(dev))
+            # on the CPU fused=None asks for the composition itself
+            if norm.ROUTED["layer_norm"] != (dev == "cuda") or \
+                    any(_launches().values()):
+                raise AssertionError(f"LayerNorm({LN_WIDE}) on {dev}: "
+                                     f"routed {read_routed()}, launches "
+                                     f"{_launches()}")
+            got[dev] = [t.detach().cpu() for t in (y, leaf.grad,
+                                                   ln.weight.grad, ln.bias.grad)]
+        kind = str(dtype).split('.')[1]
+        for name, g, c in zip(("y", "dx", "dw", "db"), got["cuda"], got["cpu"]):
+            # the composition rounds each step to x's type and the two
+            # devices reduce in another order: bf16 rows within 2^-7 of
+            # the largest magnitude (two bf16 ulps there)
+            if dtype == torch.bfloat16:
+                err = max(err, check_sum(f"ln_wide {name} {kind}", g, c,
+                                         rel=2.0 ** -7))
+            else:
+                err = max(err, check_sum(f"ln_wide {name} {kind}", g, c))
+    print(f"[tiny] nn.LayerNorm({LN_WIDE}) forward and backward on the card "
+          f"(routed to the composition, no launch) against the CPU: max abs "
+          f"err {err:.3g}, shares {shares('ln_wide')['ln_wide']}")
+    return {"losses": losses, "routed": routed}
+
+
+# ------------------------------------------------- the sampler's noise (C.2)
+def phase_sampler():
+    """The sampler's threefry Gumbel noise drawn on the card against the
+    CPU's, on ``SAMPLER_ROWS`` rows of seeded f32 logits at GPT-1.3B's
+    vocab: the uniforms bit for bit, the noise within 2 ulp of each log
+    (``|dg| <= 2 ulp(g) + 2^-22``: both devices take the correctly
+    rounded log, so it is as a rule exact), and the tokens sampled at
+    temperature 0.8, top_k 50, top_p 0.9 identical."""
+    from paddle_tpu_torch.serving import sampler
+    rows, vocab = SAMPLER_ROWS, 50304
+    rng = np.random.default_rng(5)
+    logits = torch.tensor(3 * rng.standard_normal((rows, vocab)),
+                          dtype=torch.float32)
+    seeds = rng.integers(0, 2 ** 31 - 1, rows).tolist()
+    positions = rng.integers(0, 2048, rows).tolist()
+    knobs = ([0.8] * rows, [50] * rows, [0.9] * rows)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        key = sampler.fold_in(sampler.prng_key(seeds, dev), positions)
+        tokens = sampler.sample_tokens(logits.to(dev), seeds, positions,
+                                       *knobs)
+        got[dev] = [t.cpu() for t in (sampler.uniform(key, vocab),
+                                      sampler.gumbel(key, vocab), tokens)]
+    torch.cuda.synchronize()
+    (u_c, g_c, t_c), (u_g, g_g, t_g) = got["cpu"], got["cuda"]
+    if not torch.equal(u_c.view(torch.int32), u_g.view(torch.int32)):
+        raise AssertionError("sampler: uniforms on the card differ from the "
+                             "CPU's")
+    ulp = torch.exp2(torch.floor(torch.log2(
+        g_c.abs().clamp(min=torch.finfo(torch.float32).tiny))) - 23)
+    err = _held("sampler gumbel float32", g_g, (g_g - g_c).abs(),
+                2 * ulp + 2.0 ** -22)
+    if not torch.equal(t_c, t_g):
+        raise AssertionError(f"sampler: tokens differ on "
+                             f"{int((t_c != t_g).sum())} of {rows} rows")
+    dev_logits = logits.cuda()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sampler.sample_tokens(dev_logits, seeds, positions, *knobs)
+    torch.cuda.synchronize()
+    print(f"[sampler] {rows} rows x {vocab}: uniforms equal the CPU's bit "
+          f"for bit, Gumbel noise max abs err {err:.3g} ("
+          f"{int((g_g == g_c).sum())} of {g_c.numel()} exact), sampled "
+          f"tokens identical; sample_tokens on the card "
+          f"{(time.perf_counter() - t0) / 5 * 1e3:.2f} ms a call (host clock)")
+    return err
+
+
 # ------------------------------------------------------- fused AdamW
 def _adam_inputs(shape, gen, m_dtype, g_dtype=torch.float32):
     def rnd(scale=1.0):
@@ -1015,7 +1231,7 @@ def phase_train():
         loss = train_step(ids, labels).item()         # synchronises
         step_s.append(time.perf_counter() - t0)
         losses.append(loss)
-    launches = read_launches()
+    launches = read_launches("train")
     peak = torch.cuda.max_memory_allocated()
     expect = step_launches(cfg, TRAIN_STEPS, fused=False, guard=False)
     print(f"[train] losses {losses}")
@@ -1230,7 +1446,7 @@ def phase_train_guarded(unfused_losses):
                                              before)
         finally:
             sentinel.uninstall(sent)
-    launches = read_launches()
+    launches = read_launches("guarded train")
     peak = torch.cuda.max_memory_allocated()
     clean = losses[:TRAIN_STEPS]
     print(f"[guarded train] losses {losses}")
@@ -1294,7 +1510,7 @@ def phase_fused_unguarded():
         ids, labels = _batch(cfg.vocab_size, 1)
         reset_launches()
         runs[fused] = [step(ids, labels).item() for _ in range(3)]
-        launches = read_launches()
+        launches = read_launches(f"fused={fused} train")
         del model, opt, step
     expect = step_launches(cfg, 3, fused=True, guard=False)
     delta = max(abs(a - b) for a, b in zip(runs[True], runs[False]))
@@ -1366,7 +1582,7 @@ def phase_rollback():
         _, model, faulted, sent, n_fault, io_fault = _chaos_run(
             str(Path(tmp) / "faulted"), plan)
         ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*.pkl"))
-    launches = read_launches()
+    launches = read_launches("rollback")
     print(f"[rollback] depth 2, {n_clean} + {n_fault} steps in "
           f"{time.perf_counter() - t0:.1f} s (checkpoint saves "
           f"{io_clean + io_fault:.1f} s, {ckpt_bytes / 2**30:.2f} GiB on disk "
@@ -1665,7 +1881,7 @@ def phase_sparse_block():
         step_s.append(time.perf_counter() - t0)
         if len(losses) == 1:
             first_analysis = stats["analysis_s"]
-    launches = read_launches()
+    launches = read_launches("sparse block")
     peak = torch.cuda.max_memory_allocated()
     expect = {k: 0 for k in launches}
     expect.update(rms_fwd=SB_STEPS, bsa_fwd=SB_STEPS, adam_update=2 * SB_STEPS)
@@ -1713,6 +1929,8 @@ def main(argv=None):
     train_err, train_timings = phase_train_kernels()
     adam_err, adam_timings, adam_per_step = phase_adam_kernels()
     sparse_err, sparse_timings = phase_sparse_kernels()
+    phase_tiny()
+    phase_sampler()
     serving = phase_serving(args.profile)
     gc.collect()
     torch.cuda.empty_cache()

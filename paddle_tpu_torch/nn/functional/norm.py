@@ -6,8 +6,12 @@ The fused path runs the LayerNorm and RMSNorm kernels of
 (forward kernel; LayerNorm's backward kernel recomputes the statistics,
 RMSNorm's backward is a composition, as the reference's is); it is the
 default for a tensor on CUDA, as the Pallas path
-is the default on a TPU. A kernel that fails raises: there is no
-fallback to the composition.
+is the default on a TPU. A shape or type the kernels do not take
+(``ln_kernel_takes``, ``rms_kernel_takes``: a hidden size past their
+limit or not a multiple of 8, fp16) goes to the composition before any
+launch, whatever ``fused`` says, as the reference's fused path falls back
+to its composition; such calls are counted in ``norm.ROUTED``. A kernel
+that fails raises: there is no fallback after a launch.
 """
 from __future__ import annotations
 
@@ -33,7 +37,10 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
         normalized_shape = (normalized_shape,)
     nd = len(tuple(normalized_shape))
     if nd == 1 and _use_fused(fused, x):
-        return _kernels.ln_fwd(x.contiguous(), weight, bias, epsilon)
+        xc = x.contiguous()
+        if _kernels.ln_kernel_takes(xc, weight, bias):
+            return _kernels.ln_fwd(xc, weight, bias, epsilon)
+        _kernels.ROUTED["layer_norm"] += 1
     axes = tuple(range(x.dim() - nd, x.dim()))
     mean = x.mean(dim=axes, keepdim=True)
     var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
@@ -53,8 +60,10 @@ def fused_ln_residual(x, residual, weight=None, bias=None, epsilon=1e-5,
     takes its statistics from h in h's type, as the reference's does.
     ``act`` is None or ``"gelu"`` (tanh form)."""
     if _use_fused(fused, x) and weight is not None:
-        return _kernels.ln_res_fwd(x.contiguous(), residual.contiguous(),
-                                   weight, bias, epsilon, act)
+        xc, rc = x.contiguous(), residual.contiguous()
+        if _kernels.ln_kernel_takes(xc, weight, bias, rc):
+            return _kernels.ln_res_fwd(xc, rc, weight, bias, epsilon, act)
+        _kernels.ROUTED["fused_ln_residual"] += 1
     h = x + residual
     hf = h.float()
     mean = hf.mean(dim=-1, keepdim=True)
@@ -75,7 +84,10 @@ def rms_norm(x, weight=None, epsilon=1e-6, fused=None):
     normalised x is rounded to x's type before the weight multiplies it,
     so a bf16 x with an f32 weight gives f32 there."""
     if _use_fused(fused, x):
-        return _kernels.rms_fwd(x.contiguous(), weight, epsilon)
+        xc = x.contiguous()
+        if _kernels.rms_kernel_takes(xc, weight):
+            return _kernels.rms_fwd(xc, weight, epsilon)
+        _kernels.ROUTED["rms_norm"] += 1
     xf = x.float()
     ms = (xf * xf).mean(dim=-1, keepdim=True)
     out = (xf / torch.sqrt(ms + epsilon)).to(x.dtype)

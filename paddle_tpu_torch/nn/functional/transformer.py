@@ -2,11 +2,16 @@
 ``paddle_tpu/nn/functional/transformer.py``).
 
 Without a mask and without dropout in training, attention runs the flash
-kernels (:mod:`paddle_tpu_torch.ops.cuda.flash_attention`): on a CUDA
-tensor they launch or raise, with no fallback; on a CPU tensor they
-compute their plain version. With a mask it is the plain composition of
-the reference's ``_sdpa_ref``. Serving does not run this function (its
-attention goes through the engine's KV context).
+kernels (:mod:`paddle_tpu_torch.ops.cuda.flash_attention`) when
+``kernel_takes`` says they take the operands (head_dim 128, f32 or bf16):
+on a CUDA tensor they launch or raise, with no fallback; on a CPU tensor
+they compute their plain version. Other shapes and types go, before any
+launch, to autograd through flash's plain forward (counted in
+``flash_attention.ROUTED``), so every head_dim returns what the
+reference's Pallas kernel returns, causal mask top-left aligned. With a
+mask it is the plain composition of the reference's ``_sdpa_ref``.
+Serving does not run this function (its attention goes through the
+engine's KV context).
 
 ``sparse_attention`` is Paddle's CSR-pattern attention. A pattern that
 every (batch, head) shares and that is exactly block-aligned (at 512,
@@ -31,7 +36,7 @@ import torch
 
 from paddle_tpu_torch.ops.cuda.block_sparse_attention import (
     block_sparse_flash_attention, prepare_block_mask)
-from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention_bshd
+from paddle_tpu_torch.ops.cuda import flash_attention as _flash
 
 __all__ = ["scaled_dot_product_attention", "sparse_attention"]
 
@@ -42,16 +47,29 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """query/key/value ``[batch, seq, heads, head_dim]``, scaled by
     ``scale`` (default 1/sqrt(head_dim)). ``attn_mask``: bool (True
     keeps) or additive, broadcast to ``[batch, heads, seq_q, seq_k]``.
-    The flash path's causal mask is top-left aligned, the composition's
-    bottom-right (as in the reference): they agree when the sequences
-    have one length."""
+    Without a mask the causal mask is top-left aligned (the flash
+    kernels' and their plain forward's), with one bottom-right (the
+    reference's ``_sdpa_ref``): they agree when the sequences have one
+    length."""
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
             "attention dropout in training is not ported yet")
     if attn_mask is None:
-        return flash_attention_bshd(query, key, value, causal=is_causal,
-                                    scale=scale)
+        if _flash.kernel_takes(query, key, value):
+            return _flash.flash_attention_bshd(query, key, value,
+                                               causal=is_causal, scale=scale)
+        _flash.ROUTED["flash_attention"] += 1
+        return _flash_composition(query, key, value, is_causal, scale)
     return _sdpa_ref(query, key, value, attn_mask, is_causal, scale)
+
+
+def _flash_composition(query, key, value, is_causal, scale):
+    """Flash attention at a shape or type the kernels do not take:
+    autograd through their plain forward (f32 softmax, p rounded to v's
+    type), as the reference's Pallas kernel computes at any head_dim."""
+    _flash._check_shapes(query, key, value)
+    return _flash._flash_fwd_ref(query, key, value, bool(is_causal),
+                                 _flash._scale_of(query, scale))[0]
 
 
 def _sdpa_ref(query, key, value, attn_mask, is_causal, scale):

@@ -1,7 +1,7 @@
 // Tile code shared by the attention kernels for Hopper (sm_90a) that run
 // on mma.sync: flash_attention.cu's f32 flash_fwd, flash_bwd_dq and
-// flash_bwd_dkv (f32 and bf16), and block_sparse_attention.cu's bsa_fwd.
-// The bf16 flash_fwd runs on wgmma and TMA instead (hopper.cuh).
+// flash_bwd_dkv, and block_sparse_attention.cu's bsa_fwd (bf16). The bf16
+// flash kernels run on wgmma and TMA instead (hopper.cuh).
 //
 // A block of four warps owns 64 query rows (16 a warp). Tiles are staged
 // in shared memory with 16-byte loads, rows padded by 8 elements; the

@@ -45,15 +45,38 @@
 // and issuing the next tile's q k^T before this tile's softmax (an
 // intra-warpgroup overlap) did not make it faster; see PERF.md.
 //
+// bf16 dq and dk/dv (flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel).
+// Their first version (the mma.sync tiles below) ran at 9-10 % of the
+// bound. At the training path's shape dq does 3 products of the causal
+// pairs (26 us at 989 TFLOP/s) and dk/dv 4 (35 us), against ~11 us of
+// bytes each, so both are bound by tensor-core operations. They are built
+// from the same Hopper blocks as the forward:
+//   - a block of two warpgroups owns 128 rows (dq: query rows, taken
+//     heaviest first; dk/dv: keys, the first key tiles first, which under
+//     causal see the most query rows), loaded once by TMA, and walks the
+//     other sequence in 64-row steps through a 2-stage ring of TMA loads,
+//     refilled by thread 0 (128 KB of shared memory, one block an SM);
+//   - dq: S = q k^T and dP = do v^T by SS wgmma (m64n64k16), ds formed in
+//     S's accumulator registers, rounded to bf16 and paired into the A
+//     fragment of dq += ds k (RS wgmma, k read MN-major);
+//   - dk/dv: S^T = k q^T and dP^T = v do^T directly, so p^T and ds^T come
+//     out in the accumulator layout and pair into A fragments with no
+//     shared-memory round trip; dv += p^T do and dk += ds^T q by RS wgmma.
+//     lse and delta are per column there: each warpgroup stages a step's
+//     64 values of each in shared memory. The two 64 x 128 accumulators,
+//     S^T, dP^T and the fragments fit 255 registers without spills;
+//   - the mask runs only on the steps that hold the causal diagonal or the
+//     ragged edge (TMA fills rows past the end with zeros: keys past seq_k
+//     in dq and queries past seq_q in dk/dv are set to -1e30 there).
+//
 // f32 forward, dq and dk/dv (attention_tiles.cuh): a block of four warps
 // owns 64 output rows (16 a warp); flash_fwd and flash_bwd_dq loop over
 // 64-key tiles, flash_bwd_dkv owns 64 keys and loops over 32-row query
 // tiles from the diagonal on. Tiles are staged in shared memory (16-byte
-// loads, rows padded by 8 elements); the products are mma.sync m16n8k16
-// bf16 tiles with f32 accumulation for bf16 inputs, f32 FMAs in the same
-// register layout for f32 inputs (the f32 forward keeps them: wgmma's tf32
-// would change f32 results, and f32 is the checking path). These are the
-// simple first versions; their redesign is the next work (ROADMAP queue B).
+// loads, rows padded by 8 elements); the products are f32 FMAs in the
+// mma.sync register layout (wgmma's tf32 would change f32 results, and
+// f32 is the checking path). bsa_fwd keeps these tiles' bf16 mma.sync
+// form (block_sparse_attention.cu).
 //
 // Numerics follow the Pallas kernels: base-2 softmax with scale*log2(e)
 // folded into the scores, masked scores set to -1e30 (not -inf), the
@@ -297,6 +320,376 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ------------------------------------------- bf16 backward on wgmma
+// Both kernels: a block of two warpgroups owns a 128-row tile (dq: query
+// rows; dk/dv: keys), 64 rows a warpgroup, loaded once by TMA, and walks
+// the other sequence in 64-row steps that come through a kBwStages-deep
+// ring (one full and one empty barrier a stage, refilled by thread 0 once
+// all 8 warps released it). Every TMA box is 64 head values (128 bytes,
+// the swizzle width) by 64 rows (flash_attention.py:tma_geometry, rows
+// 64); a 64-row tile is two boxes side by side, a 128-row one two such
+// tiles, warpgroup 0's rows first.
+constexpr int kBwOwn = 128;                               // rows a block owns
+constexpr int kBwStep = 64;                               // rows a step
+constexpr int kBwStages = 2;
+constexpr int kBwBoxBytes = kBwStep * kBox * 2;           // 8 KB
+constexpr int kBwStepBytes = kBwStep * kHeadDim * 2;      // 16 KB: a 64-row tile
+constexpr int kBwOwnBytes = kBwOwn * kHeadDim * 2;        // 32 KB
+constexpr int kBwSmem = 4 * kBwOwnBytes + 2 * 2 * 2 * kBwStep * 4 + 128 + 1024;
+
+struct BwBarriers {
+  uint64_t own;                                   // the block's own two tiles
+  uint64_t full[kBwStages], empty[kBwStages];     // the ring
+};
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+// Rows [row0, row0 + 64) of head h, batch b: two boxes into dst (16 KB).
+__device__ __forceinline__ void tma_rows64(unsigned char* dst, const CUtensorMap* map,
+                                           uint64_t* bar, int h, int row0, int b) {
+  for (int x = 0; x < kHeadDim / kBox; ++x)
+    hopper::tma_load_4d(dst + x * kBwBoxBytes, map, bar, x * kBox, h, row0, b);
+}
+
+// acc (+)= A B^T over head_dim for two 64-row tiles, both K-major (rows of
+// head values): A this warpgroup's rows, B a step's 64 rows.
+__device__ __forceinline__ void wgmma_rows_dot(float (&acc)[32], const unsigned char* a,
+                                               const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+    const int off = (kk / 4) * kBwBoxBytes + (kk % 4) * 32;
+    hopper::wgmma_m64n64k16_ss(acc, hopper::smem_desc(a + off, 16, 1024),
+                               hopper::smem_desc(b + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc += A B with A 64 x 64 in registers (pairs of the accumulator layout)
+// and B a step's 64 rows of 128 head values, read MN-major.
+__device__ __forceinline__ void wgmma_frag_rows(float (&acc)[64], const uint32_t (&a)[16],
+                                                const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < kBwStep / 16; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+    hopper::wgmma_m64n128k16_rs_mn(acc, ak, hopper::smem_desc(b + kk * 16 * 128, kBwBoxBytes, 1024));
+  }
+}
+
+// A 64 x 128 accumulator (rows row_a and row_a + 8 of this thread) to
+// global rows below seq through the row stride.
+__device__ __forceinline__ void store_acc_rows(__nv_bfloat16* base, long long stride, int row_a,
+                                               int seq, const float (&acc)[64]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (row_a < seq)
+      *reinterpret_cast<uint32_t*>(base + static_cast<long long>(row_a) * stride + col) =
+          pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+    if (row_a + 8 < seq)
+      *reinterpret_cast<uint32_t*>(base + static_cast<long long>(row_a + 8) * stride + col) =
+          pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// dq. Block (b*h, 128 query rows), heaviest causal tiles first
+// (flash_attention.py:fwd_tile_order); its q and do tiles come once, K and
+// V of 64 keys a step through the ring (flash_attention.py:dq_key_tiles).
+// Per step a warpgroup forms S = q k^T and dP = do v^T by wgmma from
+// shared memory, then in S's accumulator layout p = exp2(S*scale*log2e -
+// lse*log2e) (keys past seq_k and, under causal, col > row set to -1e30 on
+// the tiles that hold any) and ds = p (dP - delta) scale, rounds ds to
+// bf16 in registers and adds ds k by wgmma (k read MN-major). lse and
+// delta of the thread's two rows stay in registers.
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const __grid_constant__ CUtensorMap domap,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, Strides dqs, int heads,
+                              int bh_count, int q_tiles, int seq_q, int seq_k, float scale,
+                              int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = align_1024(smem_raw);
+  unsigned char* sdo = sq + kBwOwnBytes;
+  unsigned char* sk = sdo + kBwOwnBytes;
+  unsigned char* sv = sk + kBwStages * kBwStepBytes;
+  BwBarriers& bar = *reinterpret_cast<BwBarriers*>(sv + kBwStages * kBwStepBytes);
+
+  const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x) / bh_count;
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = qt * kBwOwn;
+  int nk = (seq_k + kBwStep - 1) / kBwStep;  // flash_attention.py:dq_key_tiles
+  if (causal) nk = min(nk, (q0 + kBwOwn - 1) / kBwStep + 1);
+
+  auto load_kv = [&](int kt) {
+    const int s = kt % kBwStages;
+    hopper::mbar_expect_tx(&bar.full[s], 2 * kBwStepBytes);
+    tma_rows64(sk + s * kBwStepBytes, &kmap, &bar.full[s], h, kt * kBwStep, b);
+    tma_rows64(sv + s * kBwStepBytes, &vmap, &bar.full[s], h, kt * kBwStep, b);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar.own, 1);
+    for (int s = 0; s < kBwStages; ++s) {
+      hopper::mbar_init(&bar.full[s], 1);
+      hopper::mbar_init(&bar.empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+    hopper::mbar_expect_tx(&bar.own, 2 * kBwOwnBytes);
+    for (int half = 0; half < 2; ++half) {
+      tma_rows64(sq + half * kBwStepBytes, &qmap, &bar.own, h, q0 + half * kBwStep, b);
+      tma_rows64(sdo + half * kBwStepBytes, &domap, &bar.own, h, q0 + half * kBwStep, b);
+    }
+    for (int kt = 0; kt < min(nk, kBwStages); ++kt) load_kv(kt);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0w = q0 + wg * kBwStep;                // this warpgroup's first row
+  const int row_a = q0w + warp * 16 + g;            // and row_a + 8
+  const unsigned char* qw = sq + wg * kBwStepBytes;
+  const unsigned char* dow = sdo + wg * kBwStepBytes;
+  const float sl2 = scale * kLog2e;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    const long long at = static_cast<long long>(bh) * seq_q + row;
+    lse2[i] = row < seq_q ? lse[at] * kLog2e : 0.f;
+    dl[i] = row < seq_q ? delta[at] : 0.f;
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  // ds of one key step in S's layout, rounded to bf16 pairs (the A
+  // fragment of ds k); `masked` sets keys past seq_k and, under causal,
+  // above the diagonal to -1e30
+  auto form_ds = [&](float (&sc)[32], const float (&dp)[32], int k0, auto masked,
+                     uint32_t (&da)[16]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e] * sl2;
+        if constexpr (decltype(masked)::value) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = row_a + 8 * (e >> 1);
+          if (col >= seq_k || (causal && col > row)) x = kNegInf;
+        }
+        const float p = exp2f(x - lse2[e >> 1]);
+        sc[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]) * scale;
+      }
+      da[2 * j] = pack_bf16x2(sc[4 * j], sc[4 * j + 1]);
+      da[2 * j + 1] = pack_bf16x2(sc[4 * j + 2], sc[4 * j + 3]);
+    }
+  };
+
+  hopper::mbar_wait(&bar.own, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kBwStages;
+    const unsigned char* kst = sk + s * kBwStepBytes;
+    float sc[32], dp[32];
+    hopper::mbar_wait(&bar.full[s], (kt / kBwStages) & 1);
+    hopper::wgmma_fence();
+    wgmma_rows_dot(sc, qw, kst);
+    wgmma_rows_dot(dp, dow, sv + s * kBwStepBytes);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    const int k0 = kt * kBwStep;
+    uint32_t da[16];
+    if (k0 + kBwStep > seq_k || (causal && k0 + kBwStep - 1 > q0w))
+      form_ds(sc, dp, k0, std::true_type{}, da);
+    else
+      form_ds(sc, dp, k0, std::false_type{}, da);
+
+    hopper::fence_regs(acc);
+    hopper::fence_regs(da);
+    hopper::wgmma_fence();
+    wgmma_frag_rows(acc, da, kst);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(da);
+
+    // this warp is done with step kt: release it; thread 0 waits for the
+    // other warps' release and loads step kt + kBwStages
+    if (lane == 0) hopper::mbar_arrive(&bar.empty[s]);
+    if (threadIdx.x == 0 && kt + kBwStages < nk) {
+      hopper::mbar_wait(&bar.empty[s], (kt / kBwStages) & 1);
+      load_kv(kt + kBwStages);
+    }
+    __syncwarp();
+  }
+  store_acc_rows(dq + b * dqs.b + h * dqs.h, dqs.s, row_a, seq_q, acc);
+}
+
+// dk and dv. Block (b*h, 128 keys), the first key tiles first (under
+// causal they see the most query tiles: flash_attention.py:dkv_tile_order);
+// its K and V come once, q and do of 64 query rows a step through the
+// ring, from the step that holds query row k0 under causal (rows before
+// it see none of these keys: flash_attention.py:dkv_query_start). Per step
+// a warpgroup forms S^T = k q^T and dP^T = v do^T by wgmma (keys are the
+// rows, queries the columns), so p^T and ds^T come out in the accumulator
+// layout and pair into A fragments with no shared-memory round trip:
+// dv += p^T do and dk += ds^T q by wgmma (do and q read MN-major). lse and
+// delta are per column here: each warpgroup stages the step's 64 of each
+// in shared memory (double-buffered, one named barrier a step), and a
+// thread reads those of its columns 8j + 2t + {0, 1}. Queries past seq_q
+// and, under causal, key > query are set to -1e30 on the steps that hold
+// any.
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __grid_constant__ CUtensorMap domap,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               Strides dks, Strides dvs, int heads, int bh_count, int seq_q,
+                               int seq_k, float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sk = align_1024(smem_raw);
+  unsigned char* sv = sk + kBwOwnBytes;
+  unsigned char* sq = sv + kBwOwnBytes;
+  unsigned char* sdo = sq + kBwStages * kBwStepBytes;
+  float* stats_all = reinterpret_cast<float*>(sdo + kBwStages * kBwStepBytes);
+  BwBarriers& bar = *reinterpret_cast<BwBarriers*>(stats_all + 2 * 2 * 2 * kBwStep);
+
+  const int kt = static_cast<int>(blockIdx.x) / bh_count;
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
+  const int b = bh / heads, h = bh % heads;
+  const int k0 = kt * kBwOwn;
+  const int first = causal ? k0 / kBwStep : 0;      // flash_attention.py:dkv_query_start
+  const int steps = max((seq_q + kBwStep - 1) / kBwStep - first, 0);
+
+  auto load_qdo = [&](int i) {
+    const int s = i % kBwStages;
+    hopper::mbar_expect_tx(&bar.full[s], 2 * kBwStepBytes);
+    tma_rows64(sq + s * kBwStepBytes, &qmap, &bar.full[s], h, (first + i) * kBwStep, b);
+    tma_rows64(sdo + s * kBwStepBytes, &domap, &bar.full[s], h, (first + i) * kBwStep, b);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar.own, 1);
+    for (int s = 0; s < kBwStages; ++s) {
+      hopper::mbar_init(&bar.full[s], 1);
+      hopper::mbar_init(&bar.empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+    hopper::mbar_expect_tx(&bar.own, 2 * kBwOwnBytes);
+    for (int half = 0; half < 2; ++half) {
+      tma_rows64(sk + half * kBwStepBytes, &kmap, &bar.own, h, k0 + half * kBwStep, b);
+      tma_rows64(sv + half * kBwStepBytes, &vmap, &bar.own, h, k0 + half * kBwStep, b);
+    }
+    for (int i = 0; i < min(steps, kBwStages); ++i) load_qdo(i);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0w = k0 + wg * kBwStep;                // this warpgroup's first key
+  const int key_a = k0w + warp * 16 + g;            // and key_a + 8
+  const unsigned char* kw = sk + wg * kBwStepBytes;
+  const unsigned char* vw = sv + wg * kBwStepBytes;
+  float* stats = stats_all + wg * 2 * 2 * kBwStep;  // [buffer][lse | delta][64]
+  const float* lrow = lse + static_cast<long long>(bh) * seq_q;
+  const float* drow = delta + static_cast<long long>(bh) * seq_q;
+  const float sl2 = scale * kLog2e;
+  float dka[64], dva[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+
+  // p^T and ds^T of one query step in S^T's layout, rounded to bf16 pairs
+  // (the A fragments of p^T do and ds^T q); st holds the stats of the
+  // step's 64 columns (lse * log2e, then delta)
+  auto form_pds = [&](const float (&sc)[32], const float (&dp)[32], const float* st, int q0,
+                      auto masked, uint32_t (&pa)[16], uint32_t (&da)[16]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        float x = sc[4 * j + e] * sl2;
+        if constexpr (decltype(masked)::value) {
+          const int key = key_a + 8 * (e >> 1);
+          if (q0 + c >= seq_q || (causal && key > q0 + c)) x = kNegInf;
+        }
+        p[e] = exp2f(x - st[c]);
+        ds[e] = p[e] * (dp[4 * j + e] - st[kBwStep + c]) * scale;
+      }
+      pa[2 * j] = pack_bf16x2(p[0], p[1]);
+      pa[2 * j + 1] = pack_bf16x2(p[2], p[3]);
+      da[2 * j] = pack_bf16x2(ds[0], ds[1]);
+      da[2 * j + 1] = pack_bf16x2(ds[2], ds[3]);
+    }
+  };
+
+  hopper::mbar_wait(&bar.own, 0);
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % kBwStages;
+    const int q0 = (first + i) * kBwStep;
+    const unsigned char* qst = sq + s * kBwStepBytes;
+    const unsigned char* dost = sdo + s * kBwStepBytes;
+    // this step's lse (threads 0-63 of the warpgroup) or delta (64-127),
+    // loaded before the wait so the read overlaps it
+    const int row = q0 + (tid & 63);
+    float stat = 0.f;
+    if (row < seq_q) stat = tid < kBwStep ? lrow[row] * kLog2e : drow[row];
+
+    float sc[32], dp[32];
+    hopper::mbar_wait(&bar.full[s], (i / kBwStages) & 1);
+    hopper::wgmma_fence();
+    wgmma_rows_dot(sc, kw, qst);
+    wgmma_rows_dot(dp, vw, dost);
+    hopper::wgmma_commit();
+    float* st = stats + (i & 1) * 2 * kBwStep;
+    st[tid] = stat;
+    hopper::named_barrier_sync(1 + wg, 128);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    uint32_t pa[16], da[16];
+    if (q0 + kBwStep > seq_q || (causal && q0 < k0w + kBwStep - 1))
+      form_pds(sc, dp, st, q0, std::true_type{}, pa, da);
+    else
+      form_pds(sc, dp, st, q0, std::false_type{}, pa, da);
+
+    hopper::fence_regs(dva);
+    hopper::fence_regs(dka);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    hopper::wgmma_fence();
+    wgmma_frag_rows(dva, pa, dost);
+    wgmma_frag_rows(dka, da, qst);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dva);
+    hopper::fence_regs(dka);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+
+    if (lane == 0) hopper::mbar_arrive(&bar.empty[s]);
+    if (threadIdx.x == 0 && i + kBwStages < steps) {
+      hopper::mbar_wait(&bar.empty[s], (i / kBwStages) & 1);
+      load_qdo(i + kBwStages);
+    }
+    __syncwarp();
+  }
+  store_acc_rows(dk + b * dks.b + h * dks.h, dks.s, key_a, seq_k, dka);
+  store_acc_rows(dv + b * dvs.b + h * dvs.h, dvs.s, key_a, seq_k, dva);
+}
+
 // The f32 forward: FMAs in the mma.sync register layout (attention_tiles.cuh).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -508,25 +901,30 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   return cudaGetLastError();
 }
 
-// q, k, v as 4-D tensor maps (head_dim, heads, seq, batch) through their
-// strides, boxes of 64 x 1 x 128 x 1 (flash_attention.py:tma_geometry),
-// encoded on every call; one block per (b*h, 128 query rows).
+// A [batch, seq, heads, 128] bf16 operand as a 4-D tensor map (head_dim,
+// heads, seq, batch) through its strides, boxes of 64 x 1 x rows x 1
+// (flash_attention.py:tma_geometry).
+bool encode_operand(CUtensorMap* map, const void* base, Strides s, int batch, int heads, int seq,
+                    int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(s.h) * 2, static_cast<cuuint64_t>(s.s) * 2,
+                               static_cast<cuuint64_t>(s.b) * 2};
+  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
+  return hopper::encode_bf16_4d(map, base, dims, bytes, box);
+}
+
+// q, k, v in boxes of 128 rows, encoded on every call; one block per
+// (b*h, 128 query rows).
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
                              const long long* st, int batch, int heads, int seq_q, int seq_k,
                              float scale, int causal, cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* base[3] = {q, k, v};
   const int seq[3] = {seq_q, seq_k, seq_k};
-  for (int i = 0; i < 3; ++i) {
-    const Strides s = strides_at(st, i);
-    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(heads),
-                                static_cast<cuuint64_t>(seq[i]), static_cast<cuuint64_t>(batch)};
-    const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(s.h) * 2,
-                                 static_cast<cuuint64_t>(s.s) * 2,
-                                 static_cast<cuuint64_t>(s.b) * 2};
-    const cuuint32_t box[4] = {kBox, 1, kWgRows, 1};
-    if (!hopper::encode_bf16_4d(&maps[i], base[i], dims, bytes, box)) return cudaErrorInvalidValue;
-  }
+  for (int i = 0; i < 3; ++i)
+    if (!encode_operand(&maps[i], base[i], strides_at(st, i), batch, heads, seq[i], kWgRows))
+      return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
   if (err != cudaSuccess) return err;
@@ -534,6 +932,57 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   flash_fwd_wgmma_kernel<<<q_tiles * batch * heads, kWgThreads, kWgSmem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       strides_at(st, 3), heads, batch * heads, q_tiles, seq_q, seq_k, scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
+// q, k, v, do (strides 0..3) in boxes of 64 rows, for both backward kernels.
+bool encode_bwd_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+                     const void* dout, const long long* st, int batch, int heads, int seq_q,
+                     int seq_k) {
+  const void* base[4] = {q, k, v, dout};
+  const int seq[4] = {seq_q, seq_k, seq_k, seq_q};
+  for (int i = 0; i < 4; ++i)
+    if (!encode_operand(&maps[i], base[i], strides_at(st, i), batch, heads, seq[i], kBwStep))
+      return false;
+  return true;
+}
+
+// one block per (b*h, 128 query rows); dq's strides are st[4]
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dq, const long long* st,
+                            int batch, int heads, int seq_q, int seq_k, float scale, int causal,
+                            cudaStream_t stream) {
+  CUtensorMap maps[4];
+  if (!encode_bwd_maps(maps, q, k, v, dout, st, batch, heads, seq_q, seq_k))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kBwSmem);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (seq_q + kBwOwn - 1) / kBwOwn;
+  flash_bwd_dq_wgmma_kernel<<<q_tiles * batch * heads, kWgThreads, kBwSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), strides_at(st, 4), heads,
+      batch * heads, q_tiles, seq_q, seq_k, scale, causal);
+  return cudaGetLastError();
+}
+
+// one block per (b*h, 128 keys); dk's and dv's strides are st[4], st[5]
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dk, void* dv,
+                             const long long* st, int batch, int heads, int seq_q, int seq_k,
+                             float scale, int causal, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  if (!encode_bwd_maps(maps, q, k, v, dout, st, batch, heads, seq_q, seq_k))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kBwSmem);
+  if (err != cudaSuccess) return err;
+  const int k_tiles = (seq_k + kBwOwn - 1) / kBwOwn;
+  flash_bwd_dkv_wgmma_kernel<<<k_tiles * batch * heads, kWgThreads, kBwSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), strides_at(st, 4), strides_at(st, 5), heads, batch * heads,
+      seq_q, seq_k, scale, causal);
   return cudaGetLastError();
 }
 
@@ -616,9 +1065,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
   if (dtype == kBF16)
-    err = launch_dq<bf16, kHeadDim>(q, k, v, dout, lse, delta, dq, strides, batch, heads, seq_q, seq_k, scale, causal, s);
+    err = launch_dq_wgmma(q, k, v, dout, lse, delta, dq, strides, batch, heads, seq_q, seq_k, scale, causal, s);
   else
     err = launch_dq<float, kHeadDim>(q, k, v, dout, lse, delta, dq, strides, batch, heads, seq_q, seq_k, scale, causal, s);
   return static_cast<int>(err);
@@ -635,9 +1083,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
   if (dtype == kBF16)
-    err = launch_dkv<bf16, kHeadDim>(q, k, v, dout, lse, delta, dk, dv, strides, batch, heads, seq_q, seq_k, scale, causal, s);
+    err = launch_dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, strides, batch, heads, seq_q, seq_k, scale, causal, s);
   else
     err = launch_dkv<float, kHeadDim>(q, k, v, dout, lse, delta, dk, dv, strides, batch, heads, seq_q, seq_k, scale, causal, s);
   return static_cast<int>(err);

@@ -2,8 +2,8 @@
 // multiplies (wgmma) from shared memory filled by the Tensor Memory
 // Accelerator (TMA): mbarriers, 4-D TMA tile loads, wgmma descriptors and
 // instructions for 128-byte-swizzled bf16 tiles, and the host-side
-// tensor-map encoding. Used by flash_fwd's bf16 kernel (flash_attention.cu);
-// written to be reused by the backward kernels.
+// tensor-map encoding. Used by the bf16 kernels of flash_attention.cu
+// (flash_fwd, flash_bwd_dq and flash_bwd_dkv).
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: a box of R rows of 64 bf16 (128 bytes) each, the 16-byte chunks
@@ -148,6 +148,26 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (+)= A B, A = 64 x 16 and B = 16 x 64 (as [N, K], K-major) from shared
+// memory; scale_d == 0 overwrites d. d is 64 x 64 in the accumulator
+// layout: thread (warp w, lane 4g + t) holds rows 16w + g and 16w + g + 8,
+// columns 8j + 2t + {0, 1}, at d[4j + {0, 1}] and d[4j + {2, 3}].
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d += A B, A = 64 x 16 bf16 from registers (the mma.sync A-fragment layout
 // per warp, rows 16 * warp + {g, g + 8}) and B = 16 x 128 from shared
 // memory stored [K, N] (N contiguous: MN-major, the transpose bit set).
@@ -171,6 +191,12 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_mn(float (&d)[64], const uin
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads') over `threads` threads, a
+// multiple of 32: one warpgroup syncs without holding up the other.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --------------------------------------------------- host: tensor maps

@@ -17,14 +17,24 @@ counterpart of the reference's ``flash_attention_bshd`` and its custom
 VJP (``_flash_bhsd``): the backward computes ``delta = rowsum(do * o)``
 in f32 and hands it to both backward kernels.
 
-The bf16 forward runs on wgmma with q, k and v fed by TMA. What its
-launcher and blocks compute on the way is written out here as plain
-Python, held by the CPU tests: :func:`tma_geometry` (the 4-D tensor map
-of a strided operand; ``_check_kernel_operand`` requires what it
-needs), :func:`fwd_tile_order` and :func:`fwd_key_tiles` (which block
-takes which query tile, heaviest first); ``csrc/flash_attention.cu``
-computes the same. The f32 forward and the backward kernels keep the
-mma.sync tiles of ``csrc/attention_tiles.cuh``.
+The bf16 kernels run on wgmma with their operands fed by TMA. What
+their launchers and blocks compute on the way is written out here as
+plain Python, held by the CPU tests: :func:`tma_geometry` (the 4-D
+tensor map of a strided operand, in boxes of 128 rows for the forward
+and 64 for the backward; ``_check_kernel_operand`` requires what it
+needs), :func:`fwd_tile_order` and :func:`fwd_key_tiles` (which block of
+the forward and of dq takes which query tile, heaviest first, and how
+many key steps it walks: :func:`dq_key_tiles` for dq's 64-key steps),
+:func:`dkv_tile_order` and :func:`dkv_query_start` (the same for dk/dv's
+key tiles and its query steps); ``csrc/flash_attention.cu`` computes the
+same. The f32 kernels keep the mma.sync tiles of
+``csrc/attention_tiles.cuh``.
+
+:func:`kernel_takes` says whether the kernels take a call's q, k and v
+(head_dim 128, f32 or bf16 alike, TMA-aligned strides). The attention
+functional asks it before the call and sends what it refuses to a
+composition, counting those calls in ``ROUTED``; the wrappers themselves
+still raise on what they do not take.
 
 A wrapper given CPU tensors computes its plain version
 (:func:`_flash_fwd_ref`, :func:`_flash_bwd_dq_ref`,
@@ -42,13 +52,19 @@ import torch
 
 from paddle_tpu_torch.ops.cuda import launch
 
-__all__ = ["FWD_TILE", "HEAD_DIM", "LAUNCHES", "TMA_BOX", "flash_attention_bshd",
-           "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "fwd_key_tiles",
-           "fwd_tile_order", "tma_geometry"]
+__all__ = ["BWD_STEP", "BWD_TILE", "FWD_TILE", "HEAD_DIM", "LAUNCHES", "ROUTED",
+           "TMA_BOX", "dkv_query_start", "dkv_tile_order", "dq_key_tiles",
+           "flash_attention_bshd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
+           "fwd_key_tiles", "fwd_tile_order", "kernel_takes", "tma_geometry"]
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# calls the attention functional sent to a composition because the
+# kernels do not take their shape or type (kernel_takes)
+ROUTED = {"flash_attention": 0}
 HEAD_DIM = 128                 # the instantiated kernels' (GPT-1.3B's)
 FWD_TILE = 128                 # bf16 forward: query rows a block, keys a step
+BWD_TILE = 128                 # bf16 dq / dk,dv: query rows / keys a block owns
+BWD_STEP = 64                  # bf16 dq / dk,dv: keys / query rows a step
 TMA_BOX = 64                   # head_dim values a TMA box row (128 B swizzle)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
@@ -130,15 +146,16 @@ def _flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale):
     return _bshd(dk, k), _bshd(dv, v)
 
 
-# ------------------------------------------- the bf16 forward's host side
-def tma_geometry(t):
-    """The 4-D tensor map the bf16 forward encodes for a ``[b, s, h, d]``
+# ------------------------------------------- the bf16 kernels' host side
+def tma_geometry(t, rows=FWD_TILE):
+    """The 4-D tensor map a bf16 kernel encodes for a ``[b, s, h, d]``
     operand read in place: ``dims`` (d, h, s, b), innermost first; the
-    byte ``strides`` of h, s and b; the ``box`` (64, 1, 128, 1), 64 head
-    values (128 bytes, the swizzle width) by 128 rows of one head, so a
-    128-wide head is two boxes. Raises ValueError where TMA cannot take
-    the tensor: a last axis that is not contiguous, a base address or a
-    byte stride that is not a multiple of 16."""
+    byte ``strides`` of h, s and b; the ``box`` (64, 1, rows, 1), 64 head
+    values (128 bytes, the swizzle width) by ``rows`` rows of one head
+    (the forward's 128, the backward's ``BWD_STEP``), so a 128-wide head
+    is two boxes. Raises ValueError where TMA cannot take the tensor: a
+    last axis that is not contiguous, a base address or a byte stride
+    that is not a multiple of 16."""
     b, s, h, d = t.shape
     sb, ss, sh, sd = t.stride()
     e = t.element_size()
@@ -148,7 +165,7 @@ def tma_geometry(t):
                          f"and 16-byte aligned rows (strides {t.stride()}, "
                          f"{e}-byte elements)")
     return {"dims": (d, h, s, b), "strides": strides,
-            "box": (TMA_BOX, 1, FWD_TILE, 1)}
+            "box": (TMA_BOX, 1, rows, 1)}
 
 
 def fwd_key_tiles(q0, seq_k, causal):
@@ -159,39 +176,91 @@ def fwd_key_tiles(q0, seq_k, causal):
 
 
 def fwd_tile_order(q_tiles, bh_count):
-    """``(bh, q_tile)`` of each block of the bf16 forward, by block index:
-    the last query tiles (the most key tiles under ``causal``) first, each
-    across every (b, h), so the longest blocks start in the first wave."""
+    """``(bh, q_tile)`` of each block of the bf16 forward and of bf16 dq
+    (both own 128 query rows), by block index: the last query tiles (the
+    most key tiles under ``causal``) first, each across every (b, h), so
+    the longest blocks start in the first wave."""
     return [(i % bh_count, q_tiles - 1 - i // bh_count)
             for i in range(q_tiles * bh_count)]
 
 
+def dq_key_tiles(q0, seq_k, causal):
+    """Key steps of ``BWD_STEP`` that bf16 dq's block of ``BWD_TILE``
+    query rows from ``q0`` walks: all of them, or under ``causal`` those
+    up to the diagonal of its last row."""
+    n = -(-seq_k // BWD_STEP)
+    return min(n, (q0 + BWD_TILE - 1) // BWD_STEP + 1) if causal else n
+
+
+def dkv_tile_order(k_tiles, bh_count):
+    """``(bh, k_tile)`` of each block of bf16 dk/dv (``BWD_TILE`` keys
+    each), by block index: the first key tiles first, each across every
+    (b, h). Under ``causal`` those see the most query steps, so the
+    longest blocks start in the first wave (``fwd_tile_order`` turned
+    round)."""
+    return [(i % bh_count, i // bh_count) for i in range(k_tiles * bh_count)]
+
+
+def dkv_query_start(k0, causal):
+    """The first query step (of ``BWD_STEP`` rows) that bf16 dk/dv's
+    block of keys from ``k0`` walks: under ``causal`` the one that holds
+    row k0, since rows before it see none of these keys; else 0. The
+    block walks from there to the last step of seq_q."""
+    return k0 // BWD_STEP if causal else 0
+
+
 # -------------------------------------------------------------- checks
-def _check_shapes(q, k, v):
+# Each *_fault returns the exception a check raises, or None: the checks
+# raise it, and kernel_takes asks whether there is one.
+def _shapes_fault(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash attention takes [batch, seq, heads, "
-                         "head_dim] tensors")
+        return ValueError("flash attention takes [batch, seq, heads, "
+                          "head_dim] tensors")
     b, _, h, d = q.shape
     if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
-        raise ValueError(f"flash attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
+        return ValueError(f"flash attention: q {tuple(q.shape)}, k "
+                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if q.shape[1] == 0 or k.shape[1] == 0:
-        raise ValueError("flash attention: empty sequence")
+        return ValueError("flash attention: empty sequence")
+    return None
 
 
-def _check_kernel_operand(name, t, dtype):
+def _operand_fault(name, t, dtype):
     if t.dtype != dtype or t.dtype not in _DTYPES:
-        raise TypeError(f"flash attention {name}: dtype {t.dtype} (float32 "
-                        f"or bfloat16, all operands alike)")
+        return TypeError(f"flash attention {name}: dtype {t.dtype} (float32 "
+                         f"or bfloat16, all operands alike)")
     if t.shape[-1] != HEAD_DIM:
-        raise ValueError(f"flash attention {name}: head_dim {t.shape[-1]} "
-                         f"is not {HEAD_DIM}")
+        return ValueError(f"flash attention {name}: head_dim {t.shape[-1]} "
+                          f"is not {HEAD_DIM}")
     e = t.element_size()
     if t.stride(-1) != 1 or t.data_ptr() % 16 or \
             any(s * e % 16 for s in t.stride()[:3]):
-        raise ValueError(f"flash attention {name}: the last axis must be "
-                         f"contiguous and rows 16-byte aligned (strides "
-                         f"{t.stride()})")
+        return ValueError(f"flash attention {name}: the last axis must be "
+                          f"contiguous and rows 16-byte aligned (strides "
+                          f"{t.stride()})")
+    return None
+
+
+def _check_shapes(q, k, v):
+    fault = _shapes_fault(q, k, v)
+    if fault is not None:
+        raise fault
+
+
+def _check_kernel_operand(name, t, dtype):
+    fault = _operand_fault(name, t, dtype)
+    if fault is not None:
+        raise fault
+
+
+def kernel_takes(q, k, v):
+    """True exactly when the kernels take these operands (the checks of
+    :func:`flash_fwd` pass): ``[b, s, h, 128]`` q, k and v of one type,
+    f32 or bf16, with a contiguous last axis and 16-byte aligned rows and
+    base. It asks nothing of the device."""
+    return _shapes_fault(q, k, v) is None and all(
+        _operand_fault(name, t, q.dtype) is None
+        for name, t in (("q", q), ("k", k), ("v", v)))
 
 
 def _check_rowstats(name, t, rows, cols, device):

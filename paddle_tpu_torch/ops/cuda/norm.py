@@ -22,6 +22,13 @@ A wrapper given CPU tensors computes its plain version
 kernel on the current stream, without synchronising, or raises.
 ``LAUNCHES`` counts the kernel launches (``ln_bwd`` and ``ln_bwd_res``
 count the plain and residual variants apart).
+
+:func:`ln_kernel_takes` and :func:`rms_kernel_takes` say whether the
+kernels take a call's tensors (f32/bf16, hidden a multiple of 8 up to
+``MAX_HIDDEN`` or ``MAX_RMS_HIDDEN``, 16-byte aligned). The normalization
+functionals ask them before the call and send what they refuse to the
+composition, counting those calls in ``ROUTED``; the wrappers themselves
+still raise on what they do not take.
 """
 from __future__ import annotations
 
@@ -32,11 +39,15 @@ import torch
 
 from paddle_tpu_torch.ops.cuda import launch
 
-__all__ = ["LAUNCHES", "MAX_HIDDEN", "MAX_RMS_HIDDEN", "ln_bwd", "ln_bwd_split",
-           "ln_fwd", "ln_res_fwd", "rms_fwd"]
+__all__ = ["LAUNCHES", "MAX_HIDDEN", "MAX_RMS_HIDDEN", "ROUTED", "ln_bwd",
+           "ln_bwd_split", "ln_fwd", "ln_kernel_takes", "ln_res_fwd",
+           "rms_fwd", "rms_kernel_takes"]
 
 LAUNCHES = {"ln_fwd": 0, "ln_res_fwd": 0, "ln_bwd": 0, "ln_bwd_res": 0,
             "rms_fwd": 0}
+# calls the normalization functionals sent to their composition because
+# the kernels do not take the tensors (ln_kernel_takes, rms_kernel_takes)
+ROUTED = {"layer_norm": 0, "fused_ln_residual": 0, "rms_norm": 0}
 MAX_HIDDEN = 4096        # forward: a warp holds a row; backward: H/8 threads
 MAX_RMS_HIDDEN = 16384   # rms_fwd: a block of <= 512 threads, 32 values each
 _CHUNK = 8               # hidden must be a multiple: 16-byte accesses
@@ -157,35 +168,78 @@ def _rms_bwd_ref(x, gy, weight, eps):
 
 
 # -------------------------------------------------------------- checks
-def _check_rows(name, t, hidden=None, limit=MAX_HIDDEN):
+# Each *_fault returns the exception a check raises, or None: the checks
+# raise it, and the *_kernel_takes predicates ask whether there is one.
+def _rows_fault(name, t, hidden=None, limit=MAX_HIDDEN):
     if t.dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtype {t.dtype} not supported "
-                        f"(float32 or bfloat16)")
+        return TypeError(f"{name}: dtype {t.dtype} not supported "
+                         f"(float32 or bfloat16)")
     if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
+        return ValueError(f"{name}: tensor must be contiguous")
     if t.dim() < 1 or t.shape[-1] == 0:
-        raise ValueError(f"{name}: shape {tuple(t.shape)} has no last axis")
+        return ValueError(f"{name}: shape {tuple(t.shape)} has no last axis")
     h = t.shape[-1]
     if hidden is not None and h != hidden:
-        raise ValueError(f"{name}: last axis {h} != {hidden}")
+        return ValueError(f"{name}: last axis {h} != {hidden}")
     if h % _CHUNK or h > limit:
-        raise ValueError(f"{name}: hidden {h} must be a multiple of "
-                         f"{_CHUNK} and at most {limit}")
+        return ValueError(f"{name}: hidden {h} must be a multiple of "
+                          f"{_CHUNK} and at most {limit}")
     if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data must be 16-byte aligned")
+        return ValueError(f"{name}: data must be 16-byte aligned")
+    return None
+
+
+def _vector_fault(name, t, hidden, device, dtype=None):
+    if t is None:
+        return None
+    if t.device != device:
+        return ValueError(f"{name}: on {t.device}, input on {device}")
+    if t.dtype not in _DTYPES or (dtype is not None and t.dtype != dtype):
+        return TypeError(f"{name}: dtype {t.dtype} not supported")
+    if tuple(t.shape) != (hidden,) or not t.is_contiguous():
+        return ValueError(f"{name}: must be a contiguous [{hidden}] vector")
+    if t.data_ptr() % 16:
+        return ValueError(f"{name}: data must be 16-byte aligned")
+    return None
+
+
+def _check_rows(name, t, hidden=None, limit=MAX_HIDDEN):
+    fault = _rows_fault(name, t, hidden, limit)
+    if fault is not None:
+        raise fault
 
 
 def _check_vector(name, t, hidden, device, dtype=None):
-    if t is None:
-        return
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, input on {device}")
-    if t.dtype not in _DTYPES or (dtype is not None and t.dtype != dtype):
-        raise TypeError(f"{name}: dtype {t.dtype} not supported")
-    if tuple(t.shape) != (hidden,) or not t.is_contiguous():
-        raise ValueError(f"{name}: must be a contiguous [{hidden}] vector")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data must be 16-byte aligned")
+    fault = _vector_fault(name, t, hidden, device, dtype)
+    if fault is not None:
+        raise fault
+
+
+def ln_kernel_takes(x, weight=None, bias=None, residual=None):
+    """True exactly when the LayerNorm kernels take these tensors (the
+    checks of :func:`ln_fwd`, or with ``residual`` of
+    :func:`ln_res_fwd`, pass): contiguous f32/bf16 rows of a hidden size
+    that is a multiple of 8 and at most ``MAX_HIDDEN``, 16-byte aligned,
+    and matching weight/bias vectors (a bias without a weight is ignored,
+    as in :func:`ln_fwd`). It asks nothing of the device type."""
+    if _rows_fault("x", x) is not None:
+        return False
+    hidden = x.shape[-1]
+    if residual is not None and (
+            residual.shape != x.shape
+            or _rows_fault("residual", residual, hidden) is not None):
+        return False
+    if weight is None:
+        return residual is None
+    return _vector_fault("weight", weight, hidden, x.device) is None and \
+        _vector_fault("bias", bias, hidden, x.device, weight.dtype) is None
+
+
+def rms_kernel_takes(x, weight=None):
+    """True exactly when :func:`rms_fwd`'s kernel takes these tensors:
+    as :func:`ln_kernel_takes`, with hidden at most ``MAX_RMS_HIDDEN``."""
+    return _rows_fault("x", x, limit=MAX_RMS_HIDDEN) is None and \
+        _vector_fault("weight", weight, x.shape[-1], x.device) is None
 
 
 def ln_bwd_split(rows, hidden, sm_count):

@@ -1,43 +1,143 @@
 """Token sampling: greedy / temperature / top-k / top-p (counterpart of
 ``paddle_tpu/serving/sampler.py``).
 
-Determinism contract: the Gumbel noise of a draw comes from a
-``torch.Generator`` seeded from ``(seed, position)``, where `position`
-is the ABSOLUTE index of the token being sampled. Batch composition,
-slot assignment and eviction/replay history cannot change a request's
-tokens. The bits are not the reference's threefry bits, so sampled
-tokens match the reference only when both are fed the same noise
-(``noise=``); greedy tokens match it exactly.
+Determinism contract: the Gumbel noise of a draw is
+``jax.random.gumbel(fold_in(PRNGKey(seed), position), (V,), float32)``,
+where `position` is the ABSOLUTE index of the token being sampled. Batch
+composition, slot assignment and eviction/replay history cannot change a
+request's tokens. The noise is the reference's (its bits exactly, its
+values within the bound below) and one function on every device, so
+sampled tokens equal the reference's on the same logits.
+
+The port carries its own copy of jax's threefry-2x32 path (the jax
+release the reference is tested with, 0.9.0), in torch integer ops on
+the logits' device:
+
+- :func:`threefry2x32` is ``jax._src.prng._threefry2x32_lowering`` (20
+  rounds, key schedule ``k1 ^ k2 ^ 0x1BD11BDA``);
+- :func:`prng_key` is ``threefry_seed`` of a 32-bit seed: the seed is
+  padded with a zero high word, ``(0, seed)``;
+- :func:`fold_in` is ``threefry_fold_in``: the hash of the counter pair
+  ``(0, data)`` under the key;
+- :func:`random_bits` follows ``jax_threefry_partitionable``, which is
+  True in that release: ``_threefry_random_bits_partitionable``, counter
+  words ``iota_2x32_shape`` (high, low) of the flat index and 32-bit bits
+  ``bits1 ^ bits2``;
+- :func:`uniform` is ``random._uniform`` for f32: the top 23 bits as the
+  mantissa of a float in [1, 2), minus 1, scaled to [tiny, 1);
+- :func:`gumbel` is ``random._gumbel`` in its default mode ``"low"``
+  (``jax_high_dynamic_range_gumbel`` is False): ``-log(-log(u))``.
+
+The keys, bits and uniforms are jax's bit for bit. The two logs are not:
+each platform's f32 ``log`` rounds its own way (XLA's CPU log differs
+from the correctly rounded one in about one value in nine), and near
+``u = 1/e`` the outer log turns one ulp of the inner into many of the
+result. The port takes the correctly rounded log (computed in f64), so
+its noise is one function on every device, within 2 ulp of each log of
+any faithful implementation: ``|dg| <= 2 ulp(g) + 2^-22``.
+
+Every word is a uint32 value held in ``torch.int64`` (torch's uint32
+lacks the ops), masked with ``0xFFFFFFFF`` after each add and shift.
+:func:`sample_tokens` draws the ``[B, V]`` noise of all rows in one
+vectorised pass on the logits' device from ``[B]`` keys, folded from the
+seed and position tensors where those live, with no host generator, so
+the draw can live inside a captured graph. Seeds and
+positions are cast to int32 first, as the reference casts them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["gumbel_noise", "sample_tokens"]
+__all__ = ["fold_in", "gumbel", "gumbel_noise", "prng_key", "random_bits",
+           "sample_tokens", "threefry2x32", "uniform"]
 
 _NEG_INF = torch.finfo(torch.float32).min
-_M64 = (1 << 64) - 1
+_TINY = torch.finfo(torch.float32).tiny
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
 
 
-def _mix(seed, position):
-    """splitmix64 of (seed, position): one generator seed per draw."""
-    z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(position) & 0xFFFFFFFF))
-    z = (z + 0x9E3779B97F4A7C15) & _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return z ^ (z >> 31)
+# ------------------------------------------------------------ threefry
+def _u32(x, device=None):
+    """Integers (or an integer tensor) as int64 uint32 words: the low 32
+    bits, as an int32 cast followed by a bit cast to uint32 gives them."""
+    return torch.as_tensor(x, dtype=torch.int64, device=device) & _M32
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """Threefry-2x32 of the counter words ``(x1, x2)`` under the key
+    ``(k1, k2)``: int64 tensors of uint32 values that broadcast together.
+    Returns the two output words.
+
+    Only the word that is rotated must hold 32 clean bits; the other
+    carries its sums' high bits (below 2^38 after all 20 rounds, far from
+    overflow) until the end, which saves a mask a round."""
+    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+    a, b = x1 + ks[0], (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = a + b
+            b = (((b << r) | (b >> (32 - r))) ^ a) & _M32
+        a = a + ks[(i + 1) % 3]
+        b = (b + (ks[(i + 2) % 3] + (i + 1))) & _M32
+    return a & _M32, b
+
+
+def prng_key(seed, device=None):
+    """``PRNGKey(seed)`` of a 32-bit seed (an int or an integer tensor of
+    any shape, cast to int32): the key words ``(0, seed)``."""
+    k2 = _u32(seed, device)
+    return torch.zeros_like(k2), k2
+
+
+def fold_in(key, data):
+    """``jax.random.fold_in(key, data)``: a new key from a key and 32-bit
+    data (broadcast together)."""
+    k1, k2 = key
+    d = _u32(data, k1.device)
+    return threefry2x32(k1, k2, torch.zeros_like(d), d)
+
+
+def random_bits(key, n):
+    """``jax.random.bits(key, (n,), uint32)``: ``[..., n]`` uint32 words
+    (int64) for keys of shape ``[...]``."""
+    k1, k2 = (k[..., None] for k in key)
+    lo = torch.arange(n, dtype=torch.int64, device=k1.device)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return b1 ^ b2
+
+
+def uniform(key, n):
+    """``jax.random.uniform(key, (n,), float32, minval=tiny)``: f32 in
+    [tiny, 1), ``[..., n]``."""
+    mant = (random_bits(key, n) >> 9) | 0x3F800000          # < 2^31
+    f = mant.to(torch.int32).view(torch.float32) - 1.0
+    # (maxval - minval) is 1.0 in f32, so the scale is exact
+    return torch.clamp_min(f * 1.0 + _TINY, _TINY)
+
+
+def _log(x):
+    """The correctly rounded f32 log (computed in f64), the same on every
+    device."""
+    return torch.log(x.double()).float()
+
+
+def gumbel(key, n):
+    """``jax.random.gumbel(key, (n,), float32)`` (mode "low"): standard
+    Gumbel draws ``[..., n]``, ``-log(-log(u))`` with both logs correctly
+    rounded."""
+    return -_log(-_log(uniform(key, n)))
 
 
 def gumbel_noise(seed, position, vocab, device):
-    """``[vocab]`` standard Gumbel draws determined by (seed, position)."""
-    g = torch.Generator(device=device)
-    g.manual_seed(_mix(seed, position))
-    u = torch.rand(vocab, generator=g, device=device, dtype=torch.float32)
-    u = u.clamp(min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+    """``[vocab]`` standard Gumbel draws of ``fold_in(PRNGKey(seed),
+    position)``, the reference's noise for one row."""
+    return gumbel(fold_in(prng_key(seed, device), position), vocab)
 
 
+# ------------------------------------------------------------ sampling
 def _sample_rows(logits, temperatures, top_ks, top_ps, noise):
     """logits ``[B, V]``; per-row knobs ``[B]`` tensors; noise ``[B, V]``
     -> token ids ``[B]`` int32."""
@@ -91,18 +191,21 @@ def sample_tokens(logits, seeds, positions, temperatures, top_ks, top_ps,
 
     logits ``[B, V]`` (a tensor on the sampling device); the per-row
     seeds/positions/top_ks (ints) and temperatures/top_ps (floats) are
-    host sequences -> token ids ``[B]`` int32 on logits' device.
-    ``noise`` (``[B, V]``) replaces the Gumbel draws; otherwise greedy
-    rows draw none.
+    sequences or tensors -> token ids ``[B]`` int32 on logits' device.
+    ``noise`` (``[B, V]``) replaces the Gumbel draws, which otherwise
+    come from (seed, position) for every row in one pass (none when
+    every row is greedy; greedy rows ignore theirs).
     """
     dev = logits.device
-    B, V = logits.shape
+    V = logits.shape[-1]
     temps = np.asarray(temperatures, np.float32)
     if noise is None:
-        noise = torch.zeros(B, V, dtype=torch.float32, device=dev)
-        for i in range(B):
-            if temps[i] > 0.0:
-                noise[i] = gumbel_noise(seeds[i], positions[i], V, dev)
+        noise = 0.0
+        if (temps > 0.0).any():
+            # the [B] keys are folded where the seeds live (the host for
+            # the engine's lists), the [B, V] noise on the logits' device
+            key = fold_in(prng_key(seeds), positions)
+            noise = gumbel(tuple(k.to(dev) for k in key), V)
     return _sample_rows(
         logits, torch.as_tensor(temps, device=dev),
         torch.as_tensor(np.asarray(top_ks, np.int32), device=dev),

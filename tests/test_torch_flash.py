@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu as P
@@ -251,3 +252,160 @@ def test_fwd_key_tiles_stop_at_the_diagonal():
     assert flash.fwd_key_tiles(0, 1024, False) == 8
     assert flash.fwd_key_tiles(tile, 200, True) == 2      # past seq_k: 2 tiles
     assert flash.fwd_key_tiles(0, 328, True) == 1
+
+
+# ------------------------------------------- routing by shape (C.1)
+def _fused_views(dtype, b=4, s=1024, h=16, d=128):
+    """q, k, v as GPTAttention splits them off its fused projection."""
+    return torch.empty(b, s, h, 3 * d, dtype=dtype).split(d, dim=-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_takes_the_gpt_1p3b_shapes(dtype):
+    q, k, v = _fused_views(dtype)                   # [4, 1024, 16, 128]
+    assert flash.kernel_takes(q, k, v)
+    flash._check_shapes(q, k, v)                    # the checks pass too
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        flash._check_kernel_operand(name, t, dtype)
+    assert flash.kernel_takes(*(t.contiguous() for t in (q, k, v)))
+    assert flash.kernel_takes(q[:, :200], k, v)                 # sq < sk
+    assert flash.kernel_takes(q, k[:, :200], v[:, :200])        # sq > sk
+
+
+@pytest.mark.parametrize("case", ["head_dim 16", "head_dim 64", "float16",
+                                  "mixed types", "rows", "base", "shapes"])
+def test_kernel_takes_refuses_what_the_kernels_raise_on(case):
+    views = {
+        "head_dim 16": lambda: _fused_views(torch.bfloat16, 2, 40, 4, 16),
+        "head_dim 64": lambda: _fused_views(torch.float32, 2, 40, 4, 64),
+        "float16": lambda: _fused_views(torch.float16, 2, 40, 4),
+        "mixed types": lambda: (torch.zeros(1, 8, 2, 128),) + tuple(
+            _fused_views(torch.bfloat16, 1, 8, 2)[1:]),
+        # sequence rows 520 bytes apart
+        "rows": lambda: (torch.zeros(1, 8, 2, 132, dtype=torch.bfloat16)
+                         .flatten().as_strided((1, 8, 2, 128),
+                                               (2112, 260, 128, 1)),) * 3,
+        # base 8 bytes past alignment
+        "base": lambda: (torch.zeros(1, 8, 2, 136, dtype=torch.bfloat16)
+                         [..., 4:132],) * 3,
+        "shapes": lambda: (torch.zeros(1, 8, 2, 128),
+                           torch.zeros(1, 8, 3, 128),
+                           torch.zeros(1, 8, 3, 128)),
+    }
+    q, k, v = views[case]()
+    assert not flash.kernel_takes(q, k, v)
+    with pytest.raises((ValueError, TypeError)):
+        flash._check_shapes(q, k, v)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            flash._check_kernel_operand(name, t, q.dtype)
+
+
+@pytest.mark.parametrize("sq,sk", [(24, 40), (40, 24)])
+def test_functional_at_a_refused_head_dim_matches_the_reference_kernel(
+        sq, sk):
+    """head_dim 16, causal, sq != sk both ways: the kernels do not take
+    it, so the functional runs autograd through flash's plain forward
+    (counted in ROUTED, no launch); output and gradients equal the
+    reference's Pallas kernel at that head_dim (interpret mode, causal
+    mask top-left), f32 at 1e-5."""
+    b, h, d = 1, 2, 16
+    q, k, v, do = _data(b, sq, sk, h, d, seed=sq * 3 + sk)
+
+    def ref(q_, k_, v_):
+        return pallas_flash.flash_attention_bshd(
+            q_, k_, v_, causal=True, block_q=BLOCK, block_k=BLOCK,
+            interpret=True)
+
+    want, vjp = jax.vjp(ref, *(jnp.asarray(a) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(do))
+    before = flash.ROUTED["flash_attention"]
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    out.backward(torch.tensor(do))
+    assert flash.ROUTED["flash_attention"] == before + 1
+    assert not any(flash.LAUNCHES.values())
+    _close(out.detach().numpy(), np.asarray(want), "float32")
+    for t, g in zip(leaves, want_grads):
+        _close(t.grad.numpy(), np.asarray(g), "float32")
+
+
+# ------------------------------------- the bf16 backward's host-side logic
+def test_tma_geometry_of_the_backward_boxes():
+    """The backward reads q, k, v and do in boxes of 64 rows: the same
+    dims and strides as the forward's map, in place."""
+    qkv = torch.zeros(2, 40, 4, 3 * 128, dtype=torch.bfloat16)
+    for part in qkv.split(128, dim=-1):
+        geo = flash.tma_geometry(part, rows=flash.BWD_STEP)
+        assert geo["dims"] == (128, 4, 40, 2)
+        assert geo["strides"] == (384 * 2, 4 * 384 * 2, 40 * 4 * 384 * 2)
+        assert geo["box"] == (flash.TMA_BOX, 1, 64, 1)
+    do = torch.zeros(3, 200, 2, 128, dtype=torch.bfloat16)
+    geo = flash.tma_geometry(do, rows=flash.BWD_STEP)
+    assert geo["dims"] == (128, 2, 200, 3)
+    assert geo["strides"] == (256, 2 * 256, 200 * 2 * 256)
+    assert geo["box"] == (64, 1, 64, 1)
+    # 64 rows of 64 values: two boxes make a step's 16 KB tile
+    assert 2 * geo["box"][0] * geo["box"][2] * do.element_size() == 16384
+    with pytest.raises(ValueError, match="16-byte"):
+        flash.tma_geometry(torch.zeros(1, 8, 2, 132, dtype=torch.bfloat16)
+                           [..., :128], rows=flash.BWD_STEP)
+
+
+ORDER_CASES = [  # seq_q, seq_k, bh, causal
+    (1024, 1024, 64, True),        # the training path
+    (1000, 1000, 8, True),         # ragged last tiles
+    (200, 328, 4, True),           # sq != sk both ways
+    (328, 200, 4, True),
+    (1024, 1024, 1, True),
+    (300, 300, 3, False),
+]
+
+
+@pytest.mark.parametrize("seq_q,seq_k,bh,causal", ORDER_CASES)
+def test_dq_tile_order_covers_each_tile_once_heaviest_first(
+        seq_q, seq_k, bh, causal):
+    q_tiles = -(-seq_q // flash.BWD_TILE)
+    order = flash.fwd_tile_order(q_tiles, bh)
+    assert sorted(order) == [(i, t) for i in range(bh)
+                             for t in range(q_tiles)]
+    work = [flash.dq_key_tiles(t * flash.BWD_TILE, seq_k, causal)
+            for _, t in order]
+    assert work == sorted(work, reverse=True)
+
+
+@pytest.mark.parametrize("seq_q,seq_k,bh,causal", ORDER_CASES)
+def test_dkv_tile_order_covers_each_tile_once_heaviest_first(
+        seq_q, seq_k, bh, causal):
+    k_tiles = -(-seq_k // flash.BWD_TILE)
+    order = flash.dkv_tile_order(k_tiles, bh)
+    assert sorted(order) == [(i, t) for i in range(bh)
+                             for t in range(k_tiles)]
+    q_steps = -(-seq_q // flash.BWD_STEP)
+    work = [max(q_steps - flash.dkv_query_start(t * flash.BWD_TILE, causal),
+                0) for _, t in order]
+    assert work == sorted(work, reverse=True)
+
+
+@pytest.mark.parametrize("seq_q,seq_k", [(1024, 1024), (200, 328),
+                                         (328, 200), (1000, 1000), (64, 300)])
+def test_backward_steps_cover_exactly_the_causal_pairs(seq_q, seq_k):
+    """Top-left causal (col <= row): dq's key steps reach every key a
+    query tile's rows see, and stop at the diagonal; dk/dv's query steps
+    start at the step holding row k0 and skip only rows that see none of
+    the block's keys, also when the block lies past seq_q."""
+    step, tile = flash.BWD_STEP, flash.BWD_TILE
+    for q0 in range(0, seq_q, tile):
+        last_row = min(q0 + tile, seq_q) - 1
+        need = -(-min(last_row + 1, seq_k) // step)
+        walked = flash.dq_key_tiles(q0, seq_k, True)
+        assert walked >= need and walked <= need + 1
+        assert walked == min(-(-seq_k // step), (q0 + tile - 1) // step + 1)
+    q_steps = -(-seq_q // step)
+    for k0 in range(0, seq_k, tile):
+        first = flash.dkv_query_start(k0, True)
+        assert first * step <= k0 < (first + 1) * step
+        # rows before the first step see no key >= k0
+        assert all(row < k0 for row in range(min(first * step, seq_q)))
+        if k0 >= seq_q:
+            assert max(q_steps - first, 0) == 0
+        assert flash.dkv_query_start(k0, False) == 0

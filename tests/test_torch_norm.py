@@ -311,3 +311,91 @@ def test_ln_bwd_split_covers_every_row_once(rows, hidden, sms):
                 if row < r1:
                     seen.append(row)
     assert sorted(seen) == list(range(rows))
+
+
+# ------------------------------------------- routing by shape (C.1)
+def _vectors(hidden, dtype=torch.float32):
+    return torch.ones(hidden, dtype=dtype), torch.zeros(hidden, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_take_the_gpt_1p3b_rows(dtype):
+    """GPT-1.3B's rows (hidden 2048, f32 or bf16, f32 weights) and a
+    row slice of them are what the kernels take."""
+    x = torch.zeros(4, 1024, 2048, dtype=dtype)
+    w, b = _vectors(2048)
+    for rows in (x, x[1:3]):
+        assert norm.ln_kernel_takes(rows, w, b)
+        assert norm.ln_kernel_takes(rows, w, b, residual=rows)
+        assert norm.ln_kernel_takes(rows)
+        assert norm.rms_kernel_takes(rows, w)
+        norm._check_rows("x", rows)                 # the checks pass too
+        norm._check_vector("w", w, 2048, rows.device)
+
+
+@pytest.mark.parametrize("case", ["hidden 5120", "hidden 4100", "float16",
+                                  "misaligned", "bias type", "residual"])
+def test_ln_kernel_takes_refuses_what_the_kernels_raise_on(case):
+    w, b = _vectors(2048)
+    x = torch.zeros(3, 2048)
+    residual = None
+    if case == "hidden 5120":
+        x, (w, b) = torch.zeros(3, 5120), _vectors(5120)
+    elif case == "hidden 4100":
+        x, (w, b) = torch.zeros(3, 4100), _vectors(4100)
+    elif case == "float16":
+        x = x.half()
+    elif case == "misaligned":                      # base 8 bytes past 16
+        x = torch.zeros(3 * 2048 + 4, dtype=torch.bfloat16)[4:].view(3, 2048)
+    elif case == "bias type":
+        b = b.to(torch.bfloat16)
+    else:
+        residual = torch.zeros(3, 1024)
+    assert not norm.ln_kernel_takes(x, w, b, residual)
+    with pytest.raises((ValueError, TypeError)):
+        if residual is None:
+            norm._check_rows("x", x)
+            norm._check_vector("weight", w, x.shape[-1], x.device)
+            norm._check_vector("bias", b, x.shape[-1], x.device, w.dtype)
+        else:
+            norm._check_rows("residual", residual, x.shape[-1])
+
+
+def test_rms_kernel_takes_its_own_limit():
+    w, _ = _vectors(5120)
+    assert norm.rms_kernel_takes(torch.zeros(3, 5120), w)
+    assert norm.rms_kernel_takes(torch.zeros(2, norm.MAX_RMS_HIDDEN))
+    assert not norm.rms_kernel_takes(torch.zeros(2, norm.MAX_RMS_HIDDEN + 8))
+    assert not norm.rms_kernel_takes(torch.zeros(2, 5124))
+    assert not norm.rms_kernel_takes(torch.zeros(2, 5120).half(), w)
+
+
+@pytest.mark.parametrize("fused", [None, True])
+def test_layer_norm_at_a_refused_hidden_matches_reference(fused):
+    """hidden 5120, past MAX_HIDDEN: with the fused path asked for, the
+    functional takes the composition before any launch (counted in
+    ROUTED) and equals the reference's result, f32 at 1e-5; so does the
+    residual form. On a CPU tensor fused=None asks for the composition
+    itself, so nothing is routed."""
+    rng = np.random.default_rng(9)
+    x, r, w, b = (rng.standard_normal(s).astype(np.float32)
+                  for s in ((3, 5120), (3, 5120), 5120, 5120))
+    before = dict(norm.ROUTED)
+    want = PF.layer_norm(P.to_tensor(x), 5120, P.to_tensor(w),
+                         P.to_tensor(b), EPS, fused=fused)
+    got = F.layer_norm(torch.tensor(x), 5120, torch.tensor(w),
+                       torch.tensor(b), EPS, fused=fused)
+    _assert_close(got, want._value, "float32")
+    want_h, want_y = PF.fused_ln_residual(
+        P.to_tensor(x), P.to_tensor(r), P.to_tensor(w), P.to_tensor(b), EPS,
+        fused=fused)
+    h, y = F.fused_ln_residual(torch.tensor(x), torch.tensor(r),
+                               torch.tensor(w), torch.tensor(b), EPS,
+                               fused=fused)
+    _assert_close(h, want_h._value, "float32")
+    _assert_close(y, want_y._value, "float32")
+    routed = int(fused is True)
+    assert norm.ROUTED["layer_norm"] == before["layer_norm"] + routed
+    assert norm.ROUTED["fused_ln_residual"] == \
+        before["fused_ln_residual"] + routed
+    assert not any(norm.LAUNCHES.values())

@@ -180,3 +180,19 @@ def test_cuda_request_raises_without_toolkit(monkeypatch, tmp_path):
     monkeypatch.undo()
     with pytest.raises(ValueError, match="no RMSNorm kernel"):
         norm.rms_fwd(torch.empty(2, 64, device="meta"))
+
+
+def test_rms_norm_past_the_kernel_limit_matches_reference():
+    """A hidden size the kernel does not take (past MAX_RMS_HIDDEN) goes
+    to the composition before any launch, counted in ROUTED, even with
+    fused=True; it equals the reference's fused result, f32 at 1e-5."""
+    hidden = norm.MAX_RMS_HIDDEN + 8
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, hidden)).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(hidden)).astype(np.float32)
+    before = norm.ROUTED["rms_norm"]
+    want = PF.rms_norm(P.to_tensor(x), P.to_tensor(w), EPS, fused=True)
+    got = F.rms_norm(torch.tensor(x), torch.tensor(w), EPS, fused=True)
+    assert norm.ROUTED["rms_norm"] == before + 1
+    assert norm.LAUNCHES["rms_fwd"] == 0
+    _assert_close(got, want._value, "float32")

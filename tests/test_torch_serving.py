@@ -3,8 +3,10 @@ against the reference package on the same inputs, and the port's own
 continuous == sequential contract.
 
 Paged attention and engine logits are f32 (atol 1e-5); tokens compare
-exactly. Sampled tokens compare exactly when both packages draw the same
-Gumbel noise (the reference's threefry bits are not reproduced).
+exactly, greedy and sampled: the port draws the reference's threefry
+Gumbel noise from (seed, position) (``test_torch_sampler.py`` holds the
+noise itself against jax), and the shared-noise tests feed both packages
+one noise.
 """
 import numpy as np
 import pytest
@@ -216,10 +218,14 @@ def test_metrics_snapshot_schema():
 
 
 # --------------------------------------------------------------- engine
+SAMPLED = dict(temperature=0.7, top_k=20, top_p=0.9)
+
+
 @pytest.fixture(scope="module")
 def shared_models():
     """A reference and a port tiny GPT (fused_ln=True) on one set of
-    weights, and the reference engine's greedy tokens, built once."""
+    weights, and the reference engine's greedy tokens and its tokens
+    sampled at ``SAMPLED`` (seed i for request i), built once."""
     P.seed(0)
     ref = RefGPT(ref_tiny(fused_ln=True))
     sd = {k: np.asarray(t._value) for k, t in ref.state_dict().items()}
@@ -233,13 +239,17 @@ def shared_models():
         ref_tokens = [r.output_token_ids for r in eng.generate(
             prompts, [ref_serving.SamplingParams(max_new_tokens=6)
                       for _ in prompts])]
+        ref_sampled = [r.output_token_ids for r in eng.generate(
+            prompts, [ref_serving.SamplingParams(max_new_tokens=6, seed=i,
+                                                 **SAMPLED)
+                      for i in range(len(prompts))])]
     finally:
         eng.shutdown()
-    return port, prompts, ref_tokens
+    return port, prompts, ref_tokens, ref_sampled
 
 
 def test_greedy_tokens_match_reference_engine(shared_models):
-    port, prompts, ref_tokens = shared_models
+    port, prompts, ref_tokens, _ = shared_models
     eng = serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
                             device="cpu")
     got = eng.generate(prompts, [serving.SamplingParams(max_new_tokens=6)
@@ -251,8 +261,18 @@ def test_greedy_tokens_match_reference_engine(shared_models):
     assert all(r.finish_reason == "length" for r in got)
 
 
+def test_sampled_tokens_match_reference_engine(shared_models):
+    port, prompts, ref_tokens, ref_sampled = shared_models
+    assert ref_sampled != ref_tokens            # the knobs do sample
+    eng = serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
+                            device="cpu")
+    got = eng.generate(prompts, [serving.SamplingParams(
+        max_new_tokens=6, seed=i, **SAMPLED) for i in range(len(prompts))])
+    assert [r.output_token_ids for r in got] == ref_sampled
+
+
 def test_continuous_equals_sequential_with_sampling(shared_models):
-    port, prompts, _ = shared_models
+    port, prompts, _, _ = shared_models
     sps = [serving.SamplingParams(
         max_new_tokens=6, temperature=0.7 if i % 2 else 0.0,
         top_k=20 if i % 3 else 0, top_p=0.9 if i % 2 else 1.0, seed=i)
@@ -268,7 +288,7 @@ def test_continuous_equals_sequential_with_sampling(shared_models):
 
 
 def test_preemption_replays_token_identically(shared_models):
-    port, _, _ = shared_models
+    port, _, _, _ = shared_models
     cfg = dict(max_num_seqs=4, page_size=4, max_model_len=16, num_pages=11,
                prefill_buckets=(8, 16))
     rng = np.random.default_rng(3)
@@ -286,7 +306,7 @@ def test_preemption_replays_token_identically(shared_models):
 
 
 def test_engine_contract_errors(shared_models, monkeypatch):
-    port, prompts, _ = shared_models
+    port, prompts, _, _ = shared_models
     for kw in ({"mesh": {"tp": 2}}, {"kv_cache_dtype": "int8"},
                {"guard": True}):
         with pytest.raises(NotImplementedError):

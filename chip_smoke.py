@@ -10,10 +10,16 @@ Phases, in order (any failure raises and exits non-zero):
    TF32 off for matmuls and convolutions;
 2. build: compile the port's CUDA kernels from ``paddle_tpu_torch/ops/
    cuda/csrc`` with nvcc for sm_90a;
-3. kernels: each kernel against its plain PyTorch version at the serving
-   path's shapes (hidden 2048; rows 8, 16, 512, 1000; f32 and bf16;
-   ``act="gelu"`` too for ln_res_fwd), then its time (CUDA events) beside
-   its bound, the plain version's time and the library call's;
+3. kernels: the LayerNorm forwards against their plain PyTorch versions
+   at the main path's shapes (hidden 2048; rows 8, 16, 512, 1000, 4096
+   and the ragged 1001, 4097; f32, bf16 and the mixes bf16 x + f32 r,
+   bf16 x + f32 weights; ``act="gelu"`` too for ln_res_fwd), the same
+   bits from a second run and from a launch of the first rows alone;
+   the dtypes the train path hands them (one forward of GPT-1.3B cut to
+   a layer, watched); then their times (CUDA events) at rows 8, 16, 512,
+   1000 and 4096 in bf16, and in the train path's mix at 4096, beside
+   the bound, the plain version's time, the library call's and the
+   launch floor (an empty kernel's time);
 4. serving: GPT-1.3B (``gpt3_1p3b(fused_ln=True)``, random bf16 weights
    from a seeded generator) serves 8 requests through ``LLMEngine``;
    every request finishes with 64 tokens, every logit is finite, the
@@ -113,7 +119,9 @@ import numpy as np
 import torch
 
 HIDDEN = 2048
-ROWS = (8, 16, 512, 1000)            # decode width, and prefill-sized rows
+ROWS = (8, 16, 512, 1000, 4096)      # decode, prefill-sized, the train step
+LN_CHECK_ROWS = ROWS + (1001, 4097)  # and ragged counts past the split's edges
+TRAIN_LN_ROWS = 4096                 # B * S: the train step's LayerNorm rows
 EPS = 1e-5
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12                # non-tensor-core f32, data sheet
@@ -168,6 +176,7 @@ TINY_STEPS = 3                       # gpt3_tiny on the card against the CPU
 TINY_REL = 1e-4                      # their f32 losses, relative
 LN_WIDE = 5120                       # past MAX_HIDDEN: the LN composition
 SAMPLER_ROWS = 64                    # rows of logits for the sampler check
+LN_FWD_KERNEL = "ln_fwd_kernel"       # both LayerNorm forwards, by name
 
 
 def card_line():
@@ -306,25 +315,112 @@ def phase_build():
           f", spilling: {len(spills)}")
     if spills:
         raise AssertionError("kernels spill registers:\n" + "\n".join(spills))
+    check_loads_first(path)
 
 
-def _inputs(rows, dtype, gen, copies=1, hidden=HIDDEN):
-    def rnd(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
-    w = (1.0 + 0.1 * torch.randn(hidden, device="cuda", generator=gen)).to(dtype)
-    b = (0.1 * torch.randn(hidden, device="cuda", generator=gen)).to(dtype)
-    return [(rnd(rows, hidden), rnd(rows, hidden), w, b)
+def check_loads_first(lib_path):
+    """In the compiled code of every LayerNorm forward instance, every
+    global load (LDG) sits ahead of the first shuffle (SHFL), the first
+    reduction: x, w and b (and r) load together, and the next row's x (and
+    r) before this row's statistics. ``cuobjdump -sass`` from the
+    toolkit that built the library."""
+    from paddle_tpu_torch.ops.cuda import build
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    late, ahead = {}, []
+    for section in sass.split("Function : ")[1:]:
+        name, body = section.split("\n", 1)
+        if LN_FWD_KERNEL not in name:
+            continue
+        lines = body.splitlines()
+        first = next(i for i, line in enumerate(lines) if "SHFL" in line)
+        ahead.append(sum("LDG" in line for line in lines[:first]))
+        after = sum("LDG" in line for line in lines[first:])
+        if after:
+            late[name.strip()] = after
+    print(f"[build] LayerNorm forwards: {len(ahead)} instances, "
+          f"{min(ahead, default=0)}..{max(ahead, default=0)} global loads "
+          f"ahead of the first shuffle, {sum(late.values())} after it")
+    if not ahead or late:
+        raise AssertionError(f"loads after the first reduction: {late}")
+
+
+def _inputs(rows, dtype, gen, copies=1, hidden=HIDDEN, r_dtype=None,
+            w_dtype=None):
+    """``copies`` sets of (x, r, w, b); r and the weights in ``dtype``
+    unless ``r_dtype`` / ``w_dtype`` say otherwise."""
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dt)
+    wd = w_dtype or dtype
+    w = (1.0 + 0.1 * torch.randn(hidden, device="cuda", generator=gen)).to(wd)
+    b = (0.1 * torch.randn(hidden, device="cuda", generator=gen)).to(wd)
+    return [(rnd(rows, hidden), rnd(rows, hidden, dt=r_dtype or dtype), w, b)
             for _ in range(copies)]
 
 
-def phase_kernels():
+def _dt(dtype):
+    return str(dtype).split(".")[1]
+
+
+def train_ln_mix():
+    """The dtypes (x, weight; x, residual, weight) the train path hands
+    the LayerNorm forwards: one forward of GPT-1.3B cut to one layer under
+    ``to_static(amp_policy="bf16")``, with f32 masters, its launchers
+    watched."""
+    import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops.cuda import norm
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    _cfg, model = _gpt(num_layers=1)
+    seen = {}
+    saved = {n: getattr(norm, n) for n in ("_ln_fwd_launch",
+                                           "_ln_res_fwd_launch")}
+
+    def watch(name):
+        def launch_(*args):
+            seen.setdefault(name, set()).add(tuple(
+                _dt(a.dtype) for a in args[:3 if name == "ln_res_fwd" else 2]))
+            return saved[f"_{name}_launch"](*args)
+        return launch_
+
+    try:
+        for name in ("ln_fwd", "ln_res_fwd"):
+            setattr(norm, f"_{name}_launch", watch(name))
+        ids = torch.zeros((1, 16), dtype=torch.long, device="cuda")
+        with torch.no_grad():
+            pt.jit.to_static(amp_policy="bf16")(model)(ids)
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(norm, n, fn)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mix = {name: sorted(s) for name, s in seen.items()}
+    print(f"[kernels] the train path hands the LayerNorm forwards (x, "
+          f"weight) / (x, residual, weight): {mix}")
+    if len(mix.get("ln_fwd", ())) != 1 or len(mix.get("ln_res_fwd", ())) != 1:
+        raise AssertionError(f"expected one dtype mix a kernel: {mix}")
+    (x_dt, w_dt), = mix["ln_fwd"]
+    (rx_dt, r_dt, rw_dt), = mix["ln_res_fwd"]
+    if (x_dt, w_dt) != (rx_dt, rw_dt):
+        raise AssertionError(f"the two kernels see other mixes: {mix}")
+    return getattr(torch, x_dt), getattr(torch, r_dt), getattr(torch, w_dt)
+
+
+def check_ln_forwards(norm, gen):
+    """Both forwards against their plain versions at every checked row
+    count, uniform and mixed dtypes, act None and gelu; then the same
+    bits from a second run and from a launch of the first rows alone.
+    Returns the max abs errors."""
+    f32, bf16 = torch.float32, torch.bfloat16
     max_err = {"ln_fwd": 0.0, "ln_res_fwd": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows in ROWS:
-            (x, r, w, b), = _inputs(rows, dtype, gen)
-            tag = f"rows={rows} {str(dtype).split('.')[1]}"
+    # (x, residual, weights): uniform, then the mixes the kernels take
+    mixes = ((f32, f32, f32), (bf16, bf16, bf16), (bf16, bf16, f32),
+             (bf16, f32, bf16), (f32, bf16, f32))
+    for xd, rd, wd in mixes:
+        for rows in LN_CHECK_ROWS:
+            (x, r, w, b), = _inputs(rows, xd, gen, r_dtype=rd, w_dtype=wd)
+            tag = f"rows={rows} w={_dt(wd)} r={_dt(rd)} {_dt(xd)}"
             got = norm.ln_fwd(x, w, b, EPS)
             torch.cuda.synchronize()
             max_err["ln_fwd"] = max(max_err["ln_fwd"], check_close(
@@ -333,30 +429,80 @@ def phase_kernels():
                 h, y = norm.ln_res_fwd(x, r, w, b, EPS, act)
                 torch.cuda.synchronize()
                 h_ref, y_ref = norm._ln_res_fwd_ref(x, r, w, b, EPS, act)
+                out = _dt(h_ref.dtype)
                 max_err["ln_res_fwd"] = max(
                     max_err["ln_res_fwd"],
-                    check_close(f"ln_res_fwd h act={act} {tag}", h, h_ref),
-                    check_close(f"ln_res_fwd y act={act} {tag}", y, y_ref))
-    print(f"[kernels] agree with their plain versions on all "
-          f"{2 * len(ROWS)} shapes; max abs err {max_err}")
+                    check_close(f"ln_res_fwd h act={act} {tag} out {out}",
+                                h, h_ref),
+                    check_close(f"ln_res_fwd y act={act} {tag} out {out}",
+                                y, y_ref))
+    print(f"[kernels] agree with their plain versions on "
+          f"{len(mixes) * len(LN_CHECK_ROWS)} shapes and dtype mixes; "
+          f"max abs err {max_err}")
+    for xd in (f32, bf16):
+        (x, r, w, b), = _inputs(TRAIN_LN_ROWS, xd, gen)
+        y = norm.ln_fwd(x, w, b, EPS)
+        h, yr = norm.ln_res_fwd(x, r, w, b, EPS, "gelu")
+        for rows in (TIMED_ROWS, 1000):
+            y_few = norm.ln_fwd(x[:rows], w, b, EPS)
+            h_few, yr_few = norm.ln_res_fwd(x[:rows], r[:rows], w, b, EPS,
+                                            "gelu")
+            same = torch.equal(y_few, y[:rows]) and torch.equal(
+                h_few, h[:rows]) and torch.equal(yr_few, yr[:rows])
+            if not same:
+                raise AssertionError(f"{_dt(xd)}: the first {rows} rows of a "
+                                     f"{TRAIN_LN_ROWS}-row launch differ from "
+                                     f"a launch of them alone")
+        again = norm.ln_fwd(x, w, b, EPS)
+        h2, yr2 = norm.ln_res_fwd(x, r, w, b, EPS, "gelu")
+        if not (torch.equal(again, y) and torch.equal(h2, h)
+                and torch.equal(yr2, yr)):
+            raise AssertionError(f"{_dt(xd)}: a second run gave other bits")
+    print(f"[kernels] the same bits from a second run and from launches of "
+          f"the first {TIMED_ROWS} and 1000 rows alone (f32, bf16)")
+    return max_err
+
+
+def phase_kernels():
+    from paddle_tpu_torch.ops.cuda import norm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    max_err = check_ln_forwards(norm, gen)
     print(f"[kernels] largest error as a share of its limit: "
           f"{shares('ln_fwd', 'ln_res_fwd')}")
+    mix = train_ln_mix()
 
+    floor = device_ms(torch.cuda._sleep, [(0,)])
+    print(f"[kernels] launch floor (an empty kernel, torch.cuda._sleep(0)):"
+          f" {floor:.5f} ms")
     timings = {}
-    for rows in ROWS:
-        e = 2                                               # bf16 bytes
+    bf16 = torch.bfloat16
+    cases = [(rows, (bf16, bf16, bf16)) for rows in ROWS] \
+        + [(TRAIN_LN_ROWS, mix)]
+    for rows, (xd, rd, wd) in cases:
+        e = xd.itemsize
         copies = max(1, min(64, math.ceil(150e6 / (4 * rows * HIDDEN * e))))
-        sets = _inputs(rows, torch.bfloat16, gen, copies)
+        sets = _inputs(rows, xd, gen, copies, r_dtype=rd, w_dtype=wd)
         ln_args = [(x, w, b, EPS) for x, _r, w, b in sets]
         res_args = [(x, r, w, b, EPS) for x, r, w, b in sets]
-        lib_args = [(x, (HIDDEN,), w, b, EPS) for x, _r, w, b in sets]
-        vec_bytes = 2 * HIDDEN * e
-        for name, fn, ref, args, io_rows, ops, lib in (
-                ("ln_fwd", norm.ln_fwd, norm._ln_fwd_ref, ln_args, 2,
+        lib_args, lib_note = [(x, (HIDDEN,), w, b, EPS)
+                              for x, _r, w, b in sets], ""
+        try:
+            torch.nn.functional.layer_norm(*lib_args[0])
+        except RuntimeError:
+            lib_args = [(x, (HIDDEN,), w.to(xd), b.to(xd), EPS)
+                        for x, _r, w, b in sets]
+            lib_note = f" (F.layer_norm refuses the mix: weights cast to " \
+                f"{_dt(xd)})"
+        vec_bytes = 2 * HIDDEN * wd.itemsize
+        out_e = torch.promote_types(xd, rd).itemsize
+        key = "" if (xd, rd, wd) == (bf16,) * 3 else " mix"
+        for name, fn, ref, args, io_bytes, ops, lib in (
+                ("ln_fwd", norm.ln_fwd, norm._ln_fwd_ref, ln_args, 2 * e,
                  LN_OPS_PER_ELEM, torch.nn.functional.layer_norm),
                 ("ln_res_fwd", norm.ln_res_fwd, norm._ln_res_fwd_ref,
-                 res_args, 4, LN_OPS_PER_ELEM + 1, None)):
-            bytes_ms = (io_rows * rows * HIDDEN * e + vec_bytes) \
+                 res_args, e + rd.itemsize + 2 * out_e,
+                 LN_OPS_PER_ELEM + 1, None)):
+            bytes_ms = (io_bytes * rows * HIDDEN + vec_bytes) \
                 / HBM_BYTES_PER_S * 1e3
             ops_ms = ops * rows * HIDDEN / F32_OPS_PER_S * 1e3
             t = {
@@ -365,14 +511,18 @@ def phase_kernels():
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": device_ms(lib, lib_args) if lib else None,
+                "launch_floor_ms": floor,
             }
-            timings[(name, rows)] = t
+            timings[(name, rows) if not key else (name, rows, "mix")] = t
             lib_txt = (f"{t['library_ms']:.5f}" if t["library_ms"]
                        is not None else "null")
-            print(f"[kernels] {name} rows={rows} hidden={HIDDEN} bf16: "
+            dts = f"x {_dt(xd)}, weights {_dt(wd)}" + (
+                f", r {_dt(rd)}" if name == "ln_res_fwd" else "")
+            print(f"[kernels] {name} rows={rows} hidden={HIDDEN} {dts}: "
                   f"kernel_ms {t['ms']:.5f} bound_ms {t['bound_ms']:.5f} "
-                  f"({t['bound_by']}) plain_ms {t['plain_ms']:.5f} "
-                  f"library_ms {lib_txt}")
+                  f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.0f} % "
+                  f"of it) plain_ms {t['plain_ms']:.5f} library_ms {lib_txt}"
+                  f"{lib_note if lib else ''}; launch floor {floor:.5f}")
     return max_err, timings
 
 
@@ -1324,6 +1474,10 @@ def profile_train_step(train_step, ids, labels, step_s, tag="train"):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"[{tag} profile] {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:110]}")
+    ln_fwd = [e for e in events if LN_FWD_KERNEL in e.key]
+    print(f"[{tag} profile] the LayerNorm forwards: "
+          f"{sum(e.self_device_time_total for e in ln_fwd) / 1e3:.3f} ms in "
+          f"{sum(e.count for e in ln_fwd)} launches")
 
 
 def _gpt(num_layers=None):
@@ -1971,7 +2125,12 @@ def main(argv=None):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "per_step")}
         if name in ("ln_fwd", "ln_res_fwd"):
-            shape = {"rows": TIMED_ROWS, "hidden": HIDDEN, "dtype": "bfloat16"}
+            wide = timings[(name, TRAIN_LN_ROWS)]
+            shape = {"rows": TIMED_ROWS, "hidden": HIDDEN, "dtype": "bfloat16",
+                     "launch_floor_ms": t["launch_floor_ms"],
+                     f"ms_{TRAIN_LN_ROWS}": wide["ms"],
+                     f"bound_ms_{TRAIN_LN_ROWS}": wide["bound_ms"],
+                     f"library_ms_{TRAIN_LN_ROWS}": wide["library_ms"]}
         by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

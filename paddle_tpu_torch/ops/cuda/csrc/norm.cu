@@ -17,13 +17,26 @@
 // The arithmetic is a few operations per element, far below the card's
 // rate per byte.
 //
-// Forward design: one warp per row, the whole row held in registers
-// (H <= 4096: at most 128 floats per lane), so each element crosses
-// device memory once each way. Loads and stores are 16 bytes per lane.
-// Both reductions (the mean, then the mean of squared deviations: two
-// passes over the registers, never E[x^2] - mean^2) are warp shuffles: no
-// shared memory, no block barrier. A ragged row count needs no padding: a
-// warp past the last row returns.
+// Forward design (ln_fwd_kernel, both forwards). At the main path's
+// shapes (hidden 2048: decode 8 rows, prefill 64-900, the train step
+// 4096) a launch is short, and below ~1000 rows what bounds it is
+// latency: the chain of memory round trips and reductions a row waits
+// on, not the bytes. The first design (a warp a row, four rows a block,
+// w and b loaded after the statistics) put 8 decode rows on 2 SMs
+// behind two round trips. This one:
+//   - gives a row a team of hidden/8 threads, one 16-byte chunk a lane
+//     (256 at 2048): 8 decode rows run on 8 SMs;
+//   - issues every load before the first reduction: w and b once a
+//     thread, held in registers, and each next row's x (and r) while this
+//     one is reduced, so after the statistics only stores touch memory;
+//   - launches one wave of resident blocks (two 512-thread blocks an SM
+//     at <= 64 registers) that walk the rows in a grid stride, so 4096
+//     rows leave no ragged last wave and each thread loads w and b once;
+//   - takes gelu as a template parameter.
+// Two passes over the registers give the mean and then the mean of
+// squared deviations, never E[x^2] - mean^2. The sums run in an order
+// fixed by hidden alone, so every run and every row count gives the
+// same bits. Each element crosses device memory once each way.
 //
 // Backward design (ln_bwd_kernel + ln_bwd_sum_kernel). What bounds it on
 // an H100 at the training path's shape (4096 x 2048 bf16, 25 + 24 calls
@@ -55,9 +68,6 @@
 // reduction through the warps' shuffles and one fixed-order shared-memory
 // pass. Each element crosses device memory once each way.
 //
-// At decode (R = max_num_seqs = 8 rows) a launch is two blocks, and its
-// time is launch latency, not bandwidth.
-//
 // Every entry point launches on the stream it is given, does not
 // synchronise, and returns cudaGetLastError().
 
@@ -67,9 +77,8 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
 constexpr int kChunk = 8;         // elements a lane moves per step
-constexpr int kMaxHidden = 4096;  // 16 chunks per lane
+constexpr int kMaxHidden = 4096;  // ln_bwd: hidden/8 threads a row, <= 512
 constexpr int kRmsChunks = 4;       // rms_fwd: chunks a thread holds
 constexpr int kRmsMaxThreads = 512; // rms_fwd: hidden <= 512 * 4 * 8 = 16384
 
@@ -129,123 +138,156 @@ __device__ __forceinline__ float gelu_tanh(float u) {
   return 0.5f * u * (1.0f + t);
 }
 
-// Replaces the row values v (this lane's chunks) by their deviations
-// from the row mean and returns rsqrt(var + eps).
-template <int NCHUNK>
-__device__ __forceinline__ float center_and_rstd(float (&v)[NCHUNK][kChunk], float sum,
-                                                 int lane, int nchunks, int hidden,
-                                                 float eps) {
-  const float mean = warp_sum(sum) / static_cast<float>(hidden);
-  float sq = 0.0f;
+// ------------------------------------------------------ LayerNorm forwards
+constexpr int kFwdMaxThreads = 512;  // a block: a row of hidden/8 threads, <= 16 warps
+constexpr int kFwdBlocksPerSm = 2;   // of 512 threads: <= 64 registers a thread
+
+// A chunk's 8 elements as loaded: one 16-byte word (bf16) or two (f32).
+template <typename T>
+struct Raw {
+  uint4 u[sizeof(T) / 2];
+};
+
+template <typename T>
+__device__ __forceinline__ void fetch(const T* p, Raw<T>& c) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
 #pragma unroll
-  for (int j = 0; j < NCHUNK; ++j) {
-    if (lane + 32 * j < nchunks) {
+  for (int i = 0; i < static_cast<int>(sizeof(T) / 2); ++i) c.u[i] = q[i];
+}
+
+__device__ __forceinline__ void unpack(const Raw<float>& c, float v[kChunk]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    v[4 * i] = __uint_as_float(c.u[i].x);
+    v[4 * i + 1] = __uint_as_float(c.u[i].y);
+    v[4 * i + 2] = __uint_as_float(c.u[i].z);
+    v[4 * i + 3] = __uint_as_float(c.u[i].w);
+  }
+}
+
+__device__ __forceinline__ void unpack(const Raw<__nv_bfloat16>& c, float v[kChunk]) {
+  const uint32_t w[4] = {c.u[0].x, c.u[0].y, c.u[0].z, c.u[0].w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);  // a bf16 is the high half of an f32
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// The sum over a row of its lanes' values: each warp's by a butterfly,
+// then the warps' in order through red (one float a warp; callers
+// alternate two, so one barrier a call suffices).
+__device__ __forceinline__ float row_sum(float part, float* red, int warp, int warps) {
+  const float s = warp_sum(part);
+  if (warps == 1) return s;
+  if ((threadIdx.x & 31) == 0) red[warp] = s;
+  __syncthreads();
+  float total = 0.0f;
+  for (int i = 0; i < warps; ++i) total += red[i];
+  return total;
+}
+
+// Both forwards, _ln_kernel (RES false) and _ln_res_kernel (RES true):
+// h = x + r in f32 (RES), y = act((v - mean) * rstd * w + b) with
+// v = x or h, the mean and then the mean of squared deviations of the f32
+// v (never E[v^2] - mean^2), act = tanh-gelu when GELU. w == nullptr: no
+// affine (b ignored); b == nullptr: zero bias.
+//
+// A row belongs to a team of hidden/8 threads (rounded up to a warp),
+// lane l of warp k holding chunk 32k + l. A team of several warps is a
+// block, and its reductions cross the warps through shared memory under
+// a block barrier; one-warp teams go blockDim.x / 32 to a block. Team s of
+// block i takes row i * slots + s, then every gridDim.x * slots-th row
+// after it (norm.py:ln_fwd_split sizes the grid to the resident blocks).
+// The team, and so the order of every sum, depends on hidden alone: a
+// row's bits do not depend on the row count.
+//
+// Every load a row needs is issued before its first reduction: w and b
+// once a thread, before its first row, into registers kept across rows;
+// the first row with them; each later row's x (and r) while the row
+// before it is reduced. After the statistics only stores touch memory.
+template <typename TX, typename TR, typename TO, typename TW, bool RES, bool GELU>
+__global__ void __launch_bounds__(kFwdMaxThreads, kFwdBlocksPerSm)
+    ln_fwd_kernel(const TX* __restrict__ x, const TR* __restrict__ r,
+                  const TW* __restrict__ w, const TW* __restrict__ b, TO* __restrict__ h_out,
+                  TO* __restrict__ y, int rows, int hidden, float eps) {
+  __shared__ float red[2][kFwdMaxThreads / 32];
+  const int nchunks = hidden / kChunk;
+  const int warps = (nchunks + 31) / 32;  // a row's team
+  const int warp = (threadIdx.x >> 5) % warps;
+  const int slots = blockDim.x / (32 * warps);
+  const int stride = gridDim.x * slots;
+  const int chunk = warp * 32 + (threadIdx.x & 31);
+  const bool has = chunk < nchunks;
+  const int col = chunk * kChunk;
+  const float n = static_cast<float>(hidden);
+  int row = blockIdx.x * slots + (threadIdx.x >> 5) / warps;
+
+  Raw<TX> xr;
+  Raw<TR> rr;
+  auto fetch_row = [&](int at) {
+    if (!has) return;
+    const size_t i = static_cast<size_t>(at) * hidden + col;
+    fetch(x + i, xr);
+    if (RES) fetch(r + i, rr);
+  };
+  if (row < rows) fetch_row(row);
+  Raw<TW> wr, br;
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(TW) / 2); ++i)
+    wr.u[i] = br.u[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (has && w != nullptr) {
+    fetch(w + col, wr);
+    if (b != nullptr) fetch(b + col, br);
+  }
+
+  for (; row < rows; row += stride) {
+    const size_t at = static_cast<size_t>(row) * hidden + col;
+    float v[kChunk];
+    float part = 0.0f;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) v[e] = 0.0f;
+    if (has) {
+      unpack(xr, v);
+      if (RES) {
+        float rv[kChunk];
+        unpack(rr, rv);
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) v[e] += rv[e];
+        store_chunk(h_out + at, v);
+      }
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) part += v[e];
+    }
+    if (row + stride < rows) fetch_row(row + stride);
+    const float mean = row_sum(part, red[0], warp, warps) / n;
+    part = 0.0f;
+    if (has) {
 #pragma unroll
       for (int e = 0; e < kChunk; ++e) {
-        const float d = v[j][e] - mean;
-        v[j][e] = d;
-        sq += d * d;
+        const float d = v[e] - mean;
+        v[e] = d;
+        part += d * d;
       }
     }
-  }
-  const float var = warp_sum(sq) / static_cast<float>(hidden);
-  return rsqrtf(var + eps);
-}
-
-// y = (v * rstd) * w + b over one chunk (w == nullptr: no affine).
-template <typename TW>
-__device__ __forceinline__ void affine_chunk(const float v[kChunk], float rstd, const TW* w,
-                                             const TW* b, int col, float o[kChunk]) {
-  if (w == nullptr) {
-#pragma unroll
-    for (int e = 0; e < kChunk; ++e) o[e] = v[e] * rstd;
-    return;
-  }
-  float wv[kChunk];
-  float bv[kChunk] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  load_chunk(w + col, wv);
-  if (b != nullptr) load_chunk(b + col, bv);
-#pragma unroll
-  for (int e = 0; e < kChunk; ++e) o[e] = v[e] * rstd * wv[e] + bv[e];
-}
-
-template <typename TX, typename TW, int NCHUNK>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    ln_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                  const TW* __restrict__ b, TX* __restrict__ y, int rows, int hidden,
-                  float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int nchunks = hidden / kChunk;
-  const size_t base = static_cast<size_t>(row) * hidden;
-
-  float v[NCHUNK][kChunk];
-  float sum = 0.0f;
-#pragma unroll
-  for (int j = 0; j < NCHUNK; ++j) {
-    const int c = lane + 32 * j;
-    if (c < nchunks) {
-      load_chunk(x + base + c * kChunk, v[j]);
-#pragma unroll
-      for (int e = 0; e < kChunk; ++e) sum += v[j][e];
-    }
-  }
-  const float rstd = center_and_rstd<NCHUNK>(v, sum, lane, nchunks, hidden, eps);
-#pragma unroll
-  for (int j = 0; j < NCHUNK; ++j) {
-    const int c = lane + 32 * j;
-    if (c < nchunks) {
+    const float rstd = rsqrtf(row_sum(part, red[1], warp, warps) / n + eps);
+    if (has) {
       float o[kChunk];
-      affine_chunk(v[j], rstd, w, b, c * kChunk, o);
-      store_chunk(y + base + c * kChunk, o);
-    }
-  }
-}
-
-template <typename TX, typename TR, typename TO, typename TW, int NCHUNK>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    ln_res_fwd_kernel(const TX* __restrict__ x, const TR* __restrict__ r,
-                      const TW* __restrict__ w, const TW* __restrict__ b,
-                      TO* __restrict__ h_out, TO* __restrict__ y, int rows, int hidden,
-                      float eps, int gelu) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int nchunks = hidden / kChunk;
-  const size_t base = static_cast<size_t>(row) * hidden;
-
-  // h = x + r is summed in f32; the statistics and y come from this f32
-  // h, not from h rounded to the output type (as in _ln_res_kernel).
-  float v[NCHUNK][kChunk];
-  float sum = 0.0f;
+      if (w == nullptr) {
 #pragma unroll
-  for (int j = 0; j < NCHUNK; ++j) {
-    const int c = lane + 32 * j;
-    if (c < nchunks) {
-      float rv[kChunk];
-      load_chunk(x + base + c * kChunk, v[j]);
-      load_chunk(r + base + c * kChunk, rv);
+        for (int e = 0; e < kChunk; ++e) o[e] = v[e] * rstd;
+      } else {
+        float wv[kChunk], bv[kChunk];
+        unpack(wr, wv);
+        unpack(br, bv);
 #pragma unroll
-      for (int e = 0; e < kChunk; ++e) {
-        v[j][e] += rv[e];
-        sum += v[j][e];
+        for (int e = 0; e < kChunk; ++e) o[e] = v[e] * rstd * wv[e] + bv[e];
       }
-      store_chunk(h_out + base + c * kChunk, v[j]);
-    }
-  }
-  const float rstd = center_and_rstd<NCHUNK>(v, sum, lane, nchunks, hidden, eps);
-#pragma unroll
-  for (int j = 0; j < NCHUNK; ++j) {
-    const int c = lane + 32 * j;
-    if (c < nchunks) {
-      float o[kChunk];
-      affine_chunk(v[j], rstd, w, b, c * kChunk, o);
-      if (gelu) {
+      if (GELU) {
 #pragma unroll
         for (int e = 0; e < kChunk; ++e) o[e] = gelu_tanh(o[e]);
       }
-      store_chunk(y + base + c * kChunk, o);
+      store_chunk(y + at, o);
     }
   }
 }
@@ -590,77 +632,52 @@ __global__ void __launch_bounds__(kRmsMaxThreads)
   }
 }
 
-// Chunks per lane, rounded up to the instantiated power of two (0: too wide).
-int chunks_per_lane(int hidden) {
-  const int per_lane = (hidden / kChunk + 31) / 32;
-  for (int n = 1; n <= kMaxHidden / kChunk / 32; n *= 2)
-    if (per_lane <= n) return n;
-  return 0;
+// A launch of ln_fwd_kernel: `slots` rows a block at once (1 unless a
+// row's team is one warp), `blocks` blocks (norm.py:ln_fwd_split).
+struct FwdSplit {
+  int slots, blocks;
+};
+
+bool valid_split(const FwdSplit& s, int hidden) {
+  const int warps = (hidden / kChunk + 31) / 32;
+  return s.slots >= 1 && s.blocks >= 1 && (warps == 1 || s.slots == 1) &&
+         32 * warps * s.slots <= kFwdMaxThreads;
 }
 
-dim3 grid_for(int rows) { return dim3((rows + kWarpsPerBlock - 1) / kWarpsPerBlock); }
-
-template <typename TX, typename TW, int NCHUNK>
-void launch_ln(const void* x, const void* w, const void* b, void* y, int rows, int hidden,
-               float eps, cudaStream_t stream) {
-  ln_fwd_kernel<TX, TW, NCHUNK><<<grid_for(rows), kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<const TW*>(b),
-      static_cast<TX*>(y), rows, hidden, eps);
-}
-
-template <typename TX, typename TW>
-void dispatch_ln(int nchunk, const void* x, const void* w, const void* b, void* y, int rows,
-                 int hidden, float eps, cudaStream_t s) {
-  switch (nchunk) {
-    case 1: launch_ln<TX, TW, 1>(x, w, b, y, rows, hidden, eps, s); break;
-    case 2: launch_ln<TX, TW, 2>(x, w, b, y, rows, hidden, eps, s); break;
-    case 4: launch_ln<TX, TW, 4>(x, w, b, y, rows, hidden, eps, s); break;
-    case 8: launch_ln<TX, TW, 8>(x, w, b, y, rows, hidden, eps, s); break;
-    default: launch_ln<TX, TW, 16>(x, w, b, y, rows, hidden, eps, s); break;
-  }
-}
-
-template <typename TX, typename TR, typename TO, typename TW, int NCHUNK>
-void launch_ln_res(const void* x, const void* r, const void* w, const void* b, void* h,
-                   void* y, int rows, int hidden, float eps, int gelu, cudaStream_t stream) {
-  ln_res_fwd_kernel<TX, TR, TO, TW, NCHUNK>
-      <<<grid_for(rows), kWarpsPerBlock * 32, 0, stream>>>(
-          static_cast<const TX*>(x), static_cast<const TR*>(r), static_cast<const TW*>(w),
-          static_cast<const TW*>(b), static_cast<TO*>(h), static_cast<TO*>(y), rows, hidden,
-          eps, gelu);
+template <typename TX, typename TR, typename TO, typename TW, bool RES, bool GELU>
+void launch_fwd(const FwdSplit& s, const void* x, const void* r, const void* w, const void* b,
+                void* h, void* y, int rows, int hidden, float eps, cudaStream_t stream) {
+  const int threads = 32 * ((hidden / kChunk + 31) / 32) * s.slots;
+  ln_fwd_kernel<TX, TR, TO, TW, RES, GELU><<<s.blocks, threads, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TR*>(r), static_cast<const TW*>(w),
+      static_cast<const TW*>(b), static_cast<TO*>(h), static_cast<TO*>(y), rows, hidden, eps);
 }
 
 template <typename TX, typename TR, typename TO, typename TW>
-void dispatch_ln_res(int nchunk, const void* x, const void* r, const void* w, const void* b,
-                     void* h, void* y, int rows, int hidden, float eps, int gelu,
-                     cudaStream_t s) {
-  switch (nchunk) {
-    case 1: launch_ln_res<TX, TR, TO, TW, 1>(x, r, w, b, h, y, rows, hidden, eps, gelu, s); break;
-    case 2: launch_ln_res<TX, TR, TO, TW, 2>(x, r, w, b, h, y, rows, hidden, eps, gelu, s); break;
-    case 4: launch_ln_res<TX, TR, TO, TW, 4>(x, r, w, b, h, y, rows, hidden, eps, gelu, s); break;
-    case 8: launch_ln_res<TX, TR, TO, TW, 8>(x, r, w, b, h, y, rows, hidden, eps, gelu, s); break;
-    default: launch_ln_res<TX, TR, TO, TW, 16>(x, r, w, b, h, y, rows, hidden, eps, gelu, s); break;
-  }
+void dispatch_res(const FwdSplit& s, const void* x, const void* r, const void* w, const void* b,
+                  void* h, void* y, int rows, int hidden, float eps, int gelu,
+                  cudaStream_t stream) {
+  if (gelu)
+    launch_fwd<TX, TR, TO, TW, true, true>(s, x, r, w, b, h, y, rows, hidden, eps, stream);
+  else
+    launch_fwd<TX, TR, TO, TW, true, false>(s, x, r, w, b, h, y, rows, hidden, eps, stream);
 }
 
 // The output type of ln_res_fwd is promote_types(x, r): bf16 only when
 // both inputs are bf16.
 template <typename TW>
-void dispatch_ln_res_inputs(int nchunk, int x_dtype, int r_dtype, const void* x,
-                            const void* r, const void* w, const void* b, void* h, void* y,
-                            int rows, int hidden, float eps, int gelu, cudaStream_t s) {
+void dispatch_res_inputs(const FwdSplit& s, int x_dtype, int r_dtype, const void* x,
+                         const void* r, const void* w, const void* b, void* h, void* y, int rows,
+                         int hidden, float eps, int gelu, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   if (x_dtype == kBF16 && r_dtype == kBF16)
-    dispatch_ln_res<bf16, bf16, bf16, TW>(nchunk, x, r, w, b, h, y, rows, hidden, eps, gelu, s);
+    dispatch_res<bf16, bf16, bf16, TW>(s, x, r, w, b, h, y, rows, hidden, eps, gelu, stream);
   else if (x_dtype == kBF16)
-    dispatch_ln_res<bf16, float, float, TW>(nchunk, x, r, w, b, h, y, rows, hidden, eps, gelu,
-                                            s);
+    dispatch_res<bf16, float, float, TW>(s, x, r, w, b, h, y, rows, hidden, eps, gelu, stream);
   else if (r_dtype == kBF16)
-    dispatch_ln_res<float, bf16, float, TW>(nchunk, x, r, w, b, h, y, rows, hidden, eps, gelu,
-                                            s);
+    dispatch_res<float, bf16, float, TW>(s, x, r, w, b, h, y, rows, hidden, eps, gelu, stream);
   else
-    dispatch_ln_res<float, float, float, TW>(nchunk, x, r, w, b, h, y, rows, hidden, eps,
-                                             gelu, s);
+    dispatch_res<float, float, float, TW>(s, x, r, w, b, h, y, rows, hidden, eps, gelu, stream);
 }
 
 bool valid_dtype(int d) { return d == kF32 || d == kBF16; }
@@ -669,50 +686,51 @@ bool valid_dtype(int d) { return d == kF32 || d == kBF16; }
 
 // y = LN(x) * w + b over the last axis of a contiguous [rows, hidden]
 // x. w and b may be null (no affine; b alone null: zero bias). y has
-// x's type.
+// x's type. slots and blocks split the rows (norm.py:ln_fwd_split;
+// FwdSplit above); hidden is a multiple of 8 up to 4096.
 extern "C" int ln_fwd(const void* x, const void* w, const void* b, void* y, int rows,
-                      int hidden, int x_dtype, int w_dtype, float eps, int device,
-                      void* stream) {
-  const int nchunk = chunks_per_lane(hidden);
-  if (rows <= 0 || hidden <= 0 || hidden % kChunk || nchunk == 0 || !valid_dtype(x_dtype) ||
-      !valid_dtype(w_dtype))
+                      int hidden, int slots, int blocks, int x_dtype, int w_dtype, float eps,
+                      int device, void* stream) {
+  const FwdSplit split{slots, blocks};
+  if (rows <= 0 || hidden <= 0 || hidden % kChunk || !valid_split(split, hidden) ||
+      !valid_dtype(x_dtype) || !valid_dtype(w_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+#define LN_FWD_LAUNCH(TX, TW) \
+  launch_fwd<TX, TX, TX, TW, false, false>(split, x, nullptr, w, b, nullptr, y, rows, hidden, \
+                                           eps, s)
   if (x_dtype == kBF16) {
-    if (w_dtype == kBF16)
-      dispatch_ln<__nv_bfloat16, __nv_bfloat16>(nchunk, x, w, b, y, rows, hidden, eps, s);
-    else
-      dispatch_ln<__nv_bfloat16, float>(nchunk, x, w, b, y, rows, hidden, eps, s);
+    if (w_dtype == kBF16) LN_FWD_LAUNCH(bf16, bf16); else LN_FWD_LAUNCH(bf16, float);
   } else {
-    if (w_dtype == kBF16)
-      dispatch_ln<float, __nv_bfloat16>(nchunk, x, w, b, y, rows, hidden, eps, s);
-    else
-      dispatch_ln<float, float>(nchunk, x, w, b, y, rows, hidden, eps, s);
+    if (w_dtype == kBF16) LN_FWD_LAUNCH(float, bf16); else LN_FWD_LAUNCH(float, float);
   }
+#undef LN_FWD_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
 // h = x + r; y = act(LN(h) * w + b), act = tanh-gelu when gelu != 0.
 // x and r are contiguous [rows, hidden]; w is required, b may be null.
-// h and y have type promote_types(x, r).
+// h and y have type promote_types(x, r). The split as for ln_fwd.
 extern "C" int ln_res_fwd(const void* x, const void* r, const void* w, const void* b, void* h,
-                          void* y, int rows, int hidden, int x_dtype, int r_dtype,
-                          int w_dtype, int gelu, float eps, int device, void* stream) {
-  const int nchunk = chunks_per_lane(hidden);
-  if (rows <= 0 || hidden <= 0 || hidden % kChunk || nchunk == 0 || w == nullptr ||
-      !valid_dtype(x_dtype) || !valid_dtype(r_dtype) || !valid_dtype(w_dtype))
+                          void* y, int rows, int hidden, int slots, int blocks, int x_dtype,
+                          int r_dtype, int w_dtype, int gelu, float eps, int device,
+                          void* stream) {
+  const FwdSplit split{slots, blocks};
+  if (rows <= 0 || hidden <= 0 || hidden % kChunk || !valid_split(split, hidden) ||
+      w == nullptr || !valid_dtype(x_dtype) || !valid_dtype(r_dtype) || !valid_dtype(w_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_dtype == kBF16)
-    dispatch_ln_res_inputs<__nv_bfloat16>(nchunk, x_dtype, r_dtype, x, r, w, b, h, y, rows,
-                                          hidden, eps, gelu, s);
+    dispatch_res_inputs<__nv_bfloat16>(split, x_dtype, r_dtype, x, r, w, b, h, y, rows, hidden,
+                                       eps, gelu, s);
   else
-    dispatch_ln_res_inputs<float>(nchunk, x_dtype, r_dtype, x, r, w, b, h, y, rows, hidden,
-                                  eps, gelu, s);
+    dispatch_res_inputs<float>(split, x_dtype, r_dtype, x, r, w, b, h, y, rows, hidden, eps,
+                               gelu, s);
   return static_cast<int>(cudaGetLastError());
 }
 

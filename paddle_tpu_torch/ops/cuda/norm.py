@@ -40,15 +40,15 @@ import torch
 from paddle_tpu_torch.ops.cuda import launch
 
 __all__ = ["LAUNCHES", "MAX_HIDDEN", "MAX_RMS_HIDDEN", "ROUTED", "ln_bwd",
-           "ln_bwd_split", "ln_fwd", "ln_kernel_takes", "ln_res_fwd",
-           "rms_fwd", "rms_kernel_takes"]
+           "ln_bwd_split", "ln_fwd", "ln_fwd_split", "ln_kernel_takes",
+           "ln_res_fwd", "rms_fwd", "rms_kernel_takes"]
 
 LAUNCHES = {"ln_fwd": 0, "ln_res_fwd": 0, "ln_bwd": 0, "ln_bwd_res": 0,
             "rms_fwd": 0}
 # calls the normalization functionals sent to their composition because
 # the kernels do not take the tensors (ln_kernel_takes, rms_kernel_takes)
 ROUTED = {"layer_norm": 0, "fused_ln_residual": 0, "rms_norm": 0}
-MAX_HIDDEN = 4096        # forward: a warp holds a row; backward: H/8 threads
+MAX_HIDDEN = 4096        # forward and backward: H/8 threads a row, <= 512
 MAX_RMS_HIDDEN = 16384   # rms_fwd: a block of <= 512 threads, 32 values each
 _CHUNK = 8               # hidden must be a multiple: 16-byte accesses
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,12 +56,16 @@ _GELU_K = 0.7978845608028654   # sqrt(2/pi)
 _GELU_C = 0.044715
 _BWD_THREADS = 512        # ln_bwd: at most a block's threads (`slots` rows)
 _BWD_BLOCKS_PER_SM = 2    # ln_bwd: blocks a launch aims for, per SM
+_FWD_SM_THREADS = 1024    # ln_fwd, ln_res_fwd: resident threads an SM
+                          # (norm.cu: kFwdBlocksPerSm x 512 threads)
+_FWD_ONE_WARP_SLOTS = 4   # rows a block when one warp holds a row
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ln_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
-    "ln_res_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "ln_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+               _P],
+    "ln_res_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                    ctypes.c_float, _I, _P],
     "ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                _I, _I, ctypes.c_float, _I, _P],
@@ -256,9 +260,30 @@ def ln_bwd_split(rows, hidden, sm_count):
     return slots, per_block, -(-rows // per_block)
 
 
+def ln_fwd_split(rows, hidden, sm_count):
+    """How the LayerNorm forwards split ``rows``: ``(threads, slots,
+    blocks)``. A row belongs to a team of hidden/8 threads (rounded up to
+    a warp), one 16-byte chunk a lane; a team of several warps is a block,
+    one-warp teams go ``slots`` to a block of ``threads``. The launch has
+    ``blocks`` blocks, at most one wave of resident blocks on ``sm_count``
+    SMs; team s of block i takes row ``i * slots + s``, then every
+    ``blocks * slots``-th row after it."""
+    warps = -(-hidden // _CHUNK // 32)
+    slots = _FWD_ONE_WARP_SLOTS if warps == 1 else 1
+    threads = 32 * warps * slots
+    wave = sm_count * (_FWD_SM_THREADS // threads)
+    return threads, slots, min(-(-rows // slots), wave)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _fwd_grid(rows, hidden, device):
+    """(slots, blocks) of :func:`ln_fwd_split` on ``device``: what the
+    forwards' C entry points take (the threads follow from hidden)."""
+    return ln_fwd_split(rows, hidden, _sm_count(device.index))[1:]
 
 
 def _route(*tensors):
@@ -284,7 +309,7 @@ def _ln_fwd_launch(x, weight, bias, eps):
         return y
     rc = _lib().ln_fwd(
         x.data_ptr(), launch.ptr(weight), launch.ptr(bias), y.data_ptr(),
-        rows, hidden,
+        rows, hidden, *_fwd_grid(rows, hidden, x.device),
         _DTYPES[x.dtype], _DTYPES[weight.dtype] if weight is not None else 0,
         float(eps), x.device.index, launch.stream(x.device))
     launch.raise_on(rc, "ln_fwd")
@@ -312,7 +337,9 @@ def _ln_res_fwd_launch(x, residual, weight, bias, eps, act):
     rc = _lib().ln_res_fwd(
         x.data_ptr(), residual.data_ptr(), weight.data_ptr(),
         launch.ptr(bias),
-        h.data_ptr(), y.data_ptr(), rows, hidden, _DTYPES[x.dtype],
+        h.data_ptr(), y.data_ptr(), rows, hidden,
+        *_fwd_grid(rows, hidden, x.device),
+        _DTYPES[x.dtype],
         _DTYPES[residual.dtype], _DTYPES[weight.dtype], int(act == "gelu"),
         float(eps), x.device.index, launch.stream(x.device))
     launch.raise_on(rc, "ln_res_fwd")

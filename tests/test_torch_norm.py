@@ -313,6 +313,29 @@ def test_ln_bwd_split_covers_every_row_once(rows, hidden, sms):
     assert sorted(seen) == list(range(rows))
 
 
+# ------------------------------------------- the forwards' row split
+@pytest.mark.parametrize("sms", [132, 114])            # H100 SXM, PCIe
+@pytest.mark.parametrize("hidden", [8, 2048, 4096])
+@pytest.mark.parametrize("rows", [1, 8, 900, 1000, 4096, 4097])
+def test_ln_fwd_split_covers_every_row_once(rows, hidden, sms):
+    threads, slots, blocks = norm.ln_fwd_split(rows, hidden, sms)
+    # the kernels' launch bound: a row of MAX_HIDDEN / 8 threads
+    assert threads % 32 == 0 and 32 <= threads <= norm.MAX_HIDDEN // 8 <= 1024
+    team = threads // slots
+    assert team * slots == threads and team % 32 == 0
+    assert team == 32 or slots == 1      # a team of several warps is a block
+    # one 16-byte chunk a lane, the kernel's register array: the team's
+    # lanes cover the row, and no warp of it is idle
+    assert team * 8 >= hidden > (team - 32) * 8
+    assert 1 <= blocks <= -(-rows // slots)
+    assert blocks <= sms * (norm._FWD_SM_THREADS // threads)   # one wave
+    seen = []
+    for blk in range(blocks):            # the kernel's walk of its rows
+        for slot in range(slots):
+            seen.extend(range(blk * slots + slot, rows, blocks * slots))
+    assert sorted(seen) == list(range(rows))
+
+
 # ------------------------------------------- routing by shape (C.1)
 def _vectors(hidden, dtype=torch.float32):
     return torch.ones(hidden, dtype=dtype), torch.zeros(hidden, dtype=dtype)

@@ -73,9 +73,12 @@ Phases, in order (any failure raises and exits non-zero):
    ``rms_fwd`` at rows 8, 1000, 8192 by hidden 2048, 4096, 8192, f32 and
    bf16 x with an f32, a bf16 or no weight, within one bf16 ulp (f32
    1e-5); ``bsa_fwd`` (o and lse) at the path's shape, a long-context
-   shape, BigBird-base's head, a ragged f32 shape and a non-causal mask
-   with an empty q-row (o = 0, finite lse), per element as the flash
-   checks; then their times beside bound, plain version and library;
+   shape, BigBird-base's head, a ragged f32 shape, a non-causal mask
+   with an empty q-row (o = 0, finite lse), a ragged bf16 shape at
+   blocks of 128 and a window at block_q 256 / block_k 64, per element
+   as the flash checks, each launched twice for the same bits; then
+   their times beside bound, plain version and library (``bsa_fwd`` at
+   the path's, the long-context and BigBird-base's shapes);
 12. sparse block: a pre-norm long-context attention block written from
    the port's public layers (``nn.RMSNorm(2048)``, ``nn.Linear(2048,
    6144)``, ``F.sparse_attention`` over a CSR of a global+window
@@ -1769,30 +1772,45 @@ def phase_rollback():
 
 
 # ------------------------------------------- RMSNorm, block-sparse attention
+def _token_window_mask(nq, nk, block_q, block_k, window):
+    """[nq, nk] causal window at block level when block_q != block_k:
+    q-block i holds the k-blocks that meet its tokens or the `window`
+    tokens before them, none past its last token."""
+    qi, kj = np.arange(nq)[:, None], np.arange(nk)[None, :]
+    return ((kj * block_k < (qi + 1) * block_q)
+            & ((kj + 1) * block_k > qi * block_q - window))
+
+
 def _bsa_case(name, gen):
-    """q, k, v, the block mask and its block size of check shape `name`:
-    (a) the sparse block path's, (b) long context, (c) BigBird-base's
-    head, (d) f32 with a ragged sequence, (e) a non-causal mask with an
-    empty q-row."""
+    """q, k, v, the block mask and its block_q, block_k of check shape
+    `name`: (a) the sparse block path's, (b) long context, (c)
+    BigBird-base's head, (d) f32 with a ragged sequence, (e) a non-causal
+    mask with an empty q-row, (f) bf16 ragged at blocks of 128 (a box past
+    seq_k in the last k-block), (g) block_q 256 over block_k 64 (stages
+    pair two k-blocks of one long mask row)."""
     from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
     bf16, f32 = torch.bfloat16, torch.float32
-    shape, dtype, block, bm = {
-        "a": ((SB_B, H, SB_S, D), bf16, SB_BLOCK,
+    shape, dtype, bq, bk, bm = {
+        "a": ((SB_B, H, SB_S, D), bf16, SB_BLOCK, SB_BLOCK,
               bsa.make_global_plus_window_mask(64, 64, 3, 2)),
-        "b": ((1, 16, 16384, 128), bf16, 512,
+        "b": ((1, 16, 16384, 128), bf16, 512, 512,
               bsa.make_global_plus_window_mask(32, 32, 2, 1)),
-        "c": ((2, 12, 4096, 64), bf16, 64,
+        "c": ((2, 12, 4096, 64), bf16, 64, 64,
               bsa.make_global_plus_window_mask(64, 64, 3, 2)),
-        "d": ((1, 4, 4000, 128), f32, 64,
+        "d": ((1, 4, 4000, 128), f32, 64, 64,
               bsa.make_global_plus_window_mask(63, 63, 3, 2)),
-        "e": ((1, 4, 1024, 128), bf16, 64,
+        "e": ((1, 4, 1024, 128), bf16, 64, 64,
               bsa.make_sliding_window_mask(16, 16, 2, causal=False)),
+        "f": ((1, 4, 4000, 128), bf16, 128, 128,
+              bsa.make_global_plus_window_mask(32, 32, 3, 2)),
+        "g": ((2, 8, 2048, 128), bf16, 256, 64,
+              _token_window_mask(8, 32, 256, 64, 512)),
     }[name]
     if name == "e":
         bm[5, :] = False
     q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
                for _ in range(3))
-    return q, k, v, bm, block
+    return q, k, v, bm, bq, bk
 
 
 def _bsa_terms(q, k, v, lse, tables, scale):
@@ -1822,25 +1840,33 @@ def _bsa_terms(q, k, v, lse, tables, scale):
     return terms.reshape(b, h, -1, d)[:, :, :sq]
 
 
+BSA_CASES = "abcdefg"
+
+
 def check_bsa(gen):
-    """bsa_fwd against its plain version at shapes (a)-(e): o per element
+    """bsa_fwd against its plain version at shapes (a)-(g): o per element
     as the flash forward (``check_terms``), lse within 1e-5; rows with no
-    active block o = 0 and lse finite and equal to the plain version's."""
+    active block o = 0 and lse finite and equal to the plain version's;
+    a second launch on the same inputs gives the same bits."""
     from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
     err = 0.0
-    for name in "abcde":
-        q, k, v, bm, block = _bsa_case(name, gen)
-        tables = bsa.prepare_block_mask(bm, block, block)
+    for name in BSA_CASES:
+        q, k, v, bm, bq, bk = _bsa_case(name, gen)
+        tables = bsa.prepare_block_mask(bm, bq, bk)
         t = tables.on(q.device)
         scale = 1.0 / math.sqrt(q.shape[-1])
         o, lse = bsa.bsa_fwd(q, k, v, tables)
+        o2, lse2 = bsa.bsa_fwd(q, k, v, tables)
         o_ref, lse_ref = bsa._bsa_fwd_ref(q, k, v, t["kt"], t["cnt"], scale,
-                                          block, block)
+                                          bq, bk)
         torch.cuda.synchronize()
         sq = q.shape[2]
-        rows = torch.from_numpy(np.repeat(bm.any(1), block)[:sq]).cuda()
-        tag = f"({name}) {list(q.shape)} block {block} " \
+        rows = torch.from_numpy(np.repeat(bm.any(1), bq)[:sq]).cuda()
+        tag = f"({name}) {list(q.shape)} blocks {bq}/{bk} " \
               f"{str(q.dtype).split('.')[1]}"
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"bsa_fwd {tag}: a second launch on the "
+                                 f"same inputs gave other bits")
         terms = _bsa_terms(q, k, v, lse_ref, tables, scale)
         err = max(err, check_terms(f"bsa_fwd o {tag}", o[:, :, rows],
                                    o_ref[:, :, rows], terms[:, :, rows]),
@@ -1857,23 +1883,59 @@ def check_bsa(gen):
             print(f"[sparse kernels] bsa_fwd {tag}: {int(empty.sum())} rows "
                   f"with no active block: o = 0, lse "
                   f"{lse[0, empty][0].item():.6e}")
-        del q, k, v, o, lse, o_ref, lse_ref, terms
+        del q, k, v, o, lse, o2, lse2, o_ref, lse_ref, terms
     return err
 
 
-def _bsa_pairs(bm, block, sq, sk, bh):
+def _bsa_pairs(bm, bq, bk, sq, sk, bh):
     """(q, k) pairs the mask's active blocks hold, ragged ends cut."""
     nq, nk = bm.shape
-    rows = np.minimum(block, sq - np.arange(nq) * block)
-    cols = np.minimum(block, sk - np.arange(nk) * block)
+    rows = np.minimum(bq, sq - np.arange(nq) * bq)
+    cols = np.minimum(bk, sk - np.arange(nk) * bk)
     return bh * int((rows[:, None] * cols[None, :] * bm).sum())
+
+
+def time_bsa_case(name, gen):
+    """bsa_fwd at check shape `name`: kernel, plain version, bound and
+    SDPA with the block mask expanded to an additive bias, by CUDA
+    events over two input sets."""
+    from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    few = dict(reps=10, per_rep=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sets = [_bsa_case(name, gen) for _ in range(2)]
+    _q, _k, _v, bm, bq, bk = sets[0]
+    tables = bsa.prepare_block_mask(bm, bq, bk)
+    tb = tables.on("cuda")
+    b, h, sq, d = sets[0][0].shape
+    scale = 1.0 / math.sqrt(d)
+    # the token-level mask as SDPA's additive bias, made once (every row
+    # of (a), (b) and (c) has an active block)
+    tok = torch.from_numpy(np.kron(bm, np.ones((bq, bk), bool))[
+        :sq, :sq]).cuda()
+    bias = torch.zeros(tok.shape, dtype=torch.bfloat16,
+                       device="cuda").masked_fill(~tok, float("-inf"))
+    elems = b * h * sq * d
+    bound, by = _bound(4 * elems * 2 + b * h * sq * 4,
+                       4 * _bsa_pairs(bm, bq, bk, sq, sq, b * h) * d,
+                       BF16_OPS_PER_S)
+    return {
+        "ms": device_ms(bsa.bsa_fwd, [(q, k, v, tables)
+                                      for q, k, v, *_ in sets], **few),
+        "plain_ms": device_ms(bsa._bsa_fwd_ref, [
+            (q, k, v, tb["kt"], tb["cnt"], scale, bq, bk)
+            for q, k, v, *_ in sets], **few),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": device_ms(
+            lambda q, k, v: sdpa(q, k, v, attn_mask=bias),
+            [(q, k, v) for q, k, v, *_ in sets], **few),
+        "shape": [b, h, sq, d], "block": bq,
+        "active_blocks": int(bm.sum()), "dtype": "bfloat16"}
 
 
 def time_sparse_kernels(gen):
     """rms_fwd at the path's rows (8192 x 2048) and a decode row block
-    (8), bf16 x and an f32 weight; bsa_fwd at (a) and (b). Kernel, plain
-    version, bound and library call, by CUDA events."""
-    from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    (8), bf16 x and an f32 weight; bsa_fwd at (a), (b) and (c). Kernel,
+    plain version, bound and library call, by CUDA events."""
     from paddle_tpu_torch.ops.cuda import norm
     t = {}
     for rows in (8192, 8):
@@ -1893,38 +1955,8 @@ def time_sparse_kernels(gen):
             "library_ms": device_ms(torch.nn.functional.rms_norm, lib),
             "rows": rows, "hidden": HIDDEN, "dtype": "bfloat16",
             "weight_dtype": "float32"}
-    few = dict(reps=10, per_rep=5)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name in "ab":
-        sets = [_bsa_case(name, gen) for _ in range(2)]
-        _q, _k, _v, bm, block = sets[0]
-        tables = bsa.prepare_block_mask(bm, block, block)
-        tb = tables.on("cuda")
-        b, h, sq, d = sets[0][0].shape
-        scale = 1.0 / math.sqrt(d)
-        # the token-level mask as SDPA's additive bias, made once (every
-        # row of (a) and (b) has an active block)
-        tok = torch.from_numpy(np.kron(bm, np.ones((block, block), bool))[
-            :sq, :sq]).cuda()
-        bias = torch.zeros(tok.shape, dtype=torch.bfloat16,
-                           device="cuda").masked_fill(~tok, float("-inf"))
-        elems = b * h * sq * d
-        bound, by = _bound(4 * elems * 2 + b * h * sq * 4,
-                           4 * _bsa_pairs(bm, block, sq, sq, b * h) * d,
-                           BF16_OPS_PER_S)
-        t[("bsa_fwd", name)] = {
-            "ms": device_ms(bsa.bsa_fwd, [(q, k, v, tables)
-                                          for q, k, v, _, _ in sets], **few),
-            "plain_ms": device_ms(bsa._bsa_fwd_ref, [
-                (q, k, v, tb["kt"], tb["cnt"], scale, block, block)
-                for q, k, v, _, _ in sets], **few),
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": device_ms(
-                lambda q, k, v: sdpa(q, k, v, attn_mask=bias),
-                [(q, k, v) for q, k, v, _, _ in sets], **few),
-            "shape": [b, h, sq, d], "block": block,
-            "active_blocks": int(bm.sum()), "dtype": "bfloat16"}
-        del sets, tok, bias
+    for name in "abc":
+        t[("bsa_fwd", name)] = time_bsa_case(name, gen)
     for key, v in t.items():
         print(f"[sparse kernels] {key[0]} {key[1]}: " + ", ".join(
             f"{k} {x:.5f}" if isinstance(x, float) else f"{k} {x}"
@@ -1957,7 +1989,8 @@ def phase_sparse_kernels():
                     cases += 1
     err["bsa_fwd"] = check_bsa(gen)
     print(f"[sparse kernels] agree with their plain versions (rms_fwd "
-          f"{cases} cases, bsa_fwd 5 shapes); max abs err {err}")
+          f"{cases} cases, bsa_fwd {len(BSA_CASES)} shapes); max abs err "
+          f"{err}")
     print(f"[sparse kernels] largest error as a share of its limit: "
           f"{shares(*err)}")
     return err, time_sparse_kernels(gen)
@@ -2131,6 +2164,12 @@ def main(argv=None):
                      f"ms_{TRAIN_LN_ROWS}": wide["ms"],
                      f"bound_ms_{TRAIN_LN_ROWS}": wide["bound_ms"],
                      f"library_ms_{TRAIN_LN_ROWS}": wide["library_ms"]}
+        if name == "bsa_fwd":           # (a) above; (b) and (c) beside it
+            for case in "bc":
+                c = sparse_timings[("bsa_fwd", case)]
+                shape.update({f"{k}_{case}": c[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "shape", "block")})
         by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -9,7 +9,9 @@ and ``block_k`` key tokens, fixed on the host (a layout, not data).
 (``kt``, padded with the row's last active block, and ``counts``); the
 transposed tables (``qt``, ``qcounts``) list each k-block's active
 q-blocks for dk/dv. These numpy helpers and the mask builders are copies
-of the reference's and give the same arrays.
+of the reference's and give the same arrays. :func:`tile_walk_tables`
+lays the same rows out for the bf16 kernel, which owns 128 query rows a
+block and walks 64-key boxes two a stage.
 
 :func:`block_sparse_flash_attention` is differentiable: its forward is
 :func:`bsa_fwd`, its backward the PyTorch form of the reference's
@@ -39,7 +41,8 @@ from paddle_tpu_torch.ops.cuda import launch
 __all__ = ["BLOCK_SIZES", "HEAD_DIMS", "LAUNCHES", "block_mask_tables",
            "block_sparse_attention", "block_sparse_flash_attention",
            "bsa_fwd", "make_global_plus_window_mask",
-           "make_sliding_window_mask", "prepare_block_mask"]
+           "make_sliding_window_mask", "prepare_block_mask",
+           "tile_walk_tables"]
 
 LAUNCHES = {"bsa_fwd": 0}
 HEAD_DIMS = (64, 128)               # the instantiated kernels'
@@ -49,12 +52,14 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 _TABLES_CAP = 64
+TILE_ROWS = 128     # query rows a block of the bf16 kernel owns, 64 a warpgroup
+BOX_KEYS = 64       # keys a TMA box of the bf16 kernel holds, two a stage
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "bsa_fwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-                _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    "bsa_fwd": [_P] * 10 + [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 11
+               + [ctypes.c_float, _I, _P],
 }
 
 
@@ -100,28 +105,69 @@ def block_mask_tables(block_mask):
     return kt, counts, max_active
 
 
+def tile_walk_tables(block_mask, block_q, block_k):
+    """[nq, nk] bool -> (boxes, counts, order), the bf16 kernel's walk.
+
+    Tile t is query rows [128 t, 128 t + 128), ceil(nq * block_q / 128)
+    tiles; warpgroup w of it owns the 64 rows from 128 t + 64 w, which lie
+    in mask row (128 t + 64 w) // block_q (block_q a multiple of 64).
+    ``boxes[t, :counts[t]]`` lists the 64-key boxes of the sorted union of
+    the active k-blocks of the tile's mask rows, block_k / 64 boxes a
+    k-block in order, each as ``(key // 64) << 2 | flags``: bit w of flags
+    says that warpgroup w's mask row holds the box's k-block. So each mask
+    row's k-blocks appear in ``kt``'s order, each once. ``order`` lists
+    the tiles by stages (``ceil(count / 2)``) descending, ties by index:
+    blocks take the heaviest tiles first. A warpgroup past the last mask
+    row holds no box."""
+    bm = np.asarray(block_mask, bool)
+    nq, nk = bm.shape
+    tiles = -(-nq * block_q // TILE_ROWS)
+    per_block = block_k // BOX_KEYS
+    rows = (np.arange(tiles)[:, None] * TILE_ROWS
+            + np.arange(2)[None, :] * (TILE_ROWS // 2)) // block_q
+    held = np.where((rows < nq)[..., None], bm[np.minimum(rows, nq - 1)],
+                    False)                               # [tiles, 2, nk]
+    flags = held[:, 0].astype(np.int32) | held[:, 1].astype(np.int32) << 1
+    counts = (flags > 0).sum(1).astype(np.int32) * per_block
+    boxes = np.zeros((tiles, max(1, int(counts.max()))), np.int32)
+    for t in range(tiles):
+        kb = np.nonzero(flags[t])[0]
+        chunk = (kb[:, None] * per_block + np.arange(per_block)).ravel()
+        boxes[t, :len(chunk)] = chunk << 2 | np.repeat(flags[t, kb], per_block)
+    order = np.argsort(-((counts + 1) // 2), kind="stable").astype(np.int32)
+    return boxes, counts, order
+
+
 class _BlockMaskTables:
-    """The tables of one pattern: ``kt``/``counts`` by q-row and the
-    transposed ``qt``/``qcounts`` by k-column (numpy), and their device
-    copies, made once per device (:meth:`on`)."""
+    """The tables of one pattern: ``kt``/``counts`` by q-row, the
+    transposed ``qt``/``qcounts`` by k-column and the bf16 kernel's walk
+    (``boxes``/``box_counts``/``tile_order``, :func:`tile_walk_tables`),
+    all numpy, and their device copies, made once per device
+    (:meth:`on`)."""
 
     def __init__(self, block_mask, block_q, block_k):
         bm = np.asarray(block_mask, bool)
         self.kt, self.counts, self.max_active = block_mask_tables(bm)
         self.qt, self.qcounts, self.qmax = block_mask_tables(bm.T)
+        self.boxes, self.box_counts, self.tile_order = tile_walk_tables(
+            bm, block_q, block_k)
         self.block_q, self.block_k = int(block_q), int(block_k)
         self.shape = bm.shape
         self._on = {}
 
     def on(self, device):
-        """``{kt, cnt, qt, qcnt}`` on ``device`` (int32; the kernel reads
-        kt and cnt), copied at the first call for that device."""
+        """``{kt, cnt, qt, qcnt, boxes, bcnt, order}`` on ``device``
+        (int32; the f32 kernel reads kt and cnt, the bf16 kernel boxes,
+        bcnt and order), copied at the first call for that device."""
         device = torch.device(device)
         if device not in self._on:
             self._on[device] = {
                 name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for name, a in (("kt", self.kt), ("cnt", self.counts),
-                                ("qt", self.qt), ("qcnt", self.qcounts))}
+                                ("qt", self.qt), ("qcnt", self.qcounts),
+                                ("boxes", self.boxes),
+                                ("bcnt", self.box_counts),
+                                ("order", self.tile_order))}
         return self._on[device]
 
 
@@ -329,9 +375,10 @@ def bsa_fwd(q, k, v, tables, scale=None):
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     rc = launch.bind(_SIGNATURES).bsa_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        dev["kt"].data_ptr(), dev["cnt"].data_ptr(), _strides(q, k, v, o),
-        b, h, sq, k.shape[2], d, _DTYPES[q.dtype], tables.block_q,
-        tables.block_k, tables.max_active, scale, q.device.index,
+        *(dev[n].data_ptr() for n in ("kt", "cnt", "boxes", "bcnt", "order")),
+        _strides(q, k, v, o), b, h, sq, k.shape[2], d, _DTYPES[q.dtype],
+        tables.block_q, tables.block_k, tables.max_active,
+        tables.boxes.shape[0], tables.boxes.shape[1], scale, q.device.index,
         launch.stream(q.device))
     launch.raise_on(rc, "bsa_fwd")
     LAUNCHES["bsa_fwd"] += 1

@@ -1,23 +1,21 @@
-// Tile code shared by the attention kernels for Hopper (sm_90a) that run
-// on mma.sync: flash_attention.cu's f32 flash_fwd, flash_bwd_dq and
-// flash_bwd_dkv, and block_sparse_attention.cu's bsa_fwd (bf16). The bf16
-// flash kernels run on wgmma and TMA instead (hopper.cuh).
+// Tile code shared by the f32 attention kernels for Hopper (sm_90a):
+// flash_attention.cu's flash_fwd, flash_bwd_dq and flash_bwd_dkv, and
+// block_sparse_attention.cu's bsa_fwd. The bf16 kernels run on wgmma and
+// TMA instead (hopper.cuh).
 //
 // A block of four warps owns 64 query rows (16 a warp). Tiles are staged
 // in shared memory with 16-byte loads, rows padded by 8 elements; the
-// products are mma.sync m16n8k16 bf16 tiles with f32 accumulation for bf16
-// inputs, and f32 FMAs in the same register layout for f32 inputs.
+// products are f32 FMAs in the register layout of mma.sync's m16n8k16
+// tiles (wgmma's tf32 would change f32 results; f32 is the checking path).
 // Tensors are read and written through their (batch, seq, head) strides
 // with a contiguous last axis.
 //
 // Numerics follow the Pallas kernels: base-2 softmax with scale*log2(e)
 // folded into the scores, masked scores set to -1e30 (not -inf), l == 0
-// rows divided by 1, lse stored in natural log as m*ln2 + log(l) in f32;
-// p is rounded to the value dtype before p@v.
+// rows divided by 1, lse stored in natural log as m*ln2 + log(l) in f32.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,22 +39,9 @@ struct Strides {  // in elements; the head_dim axis is contiguous
 Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
 template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
-}
 
 // Rows [row0, row0 + ROWS) of a [seq, D] slab (row stride `stride`) into
 // shared memory (row stride D + kPad); rows at or past `seq` are zeroed,
@@ -77,53 +62,11 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst, const T* __restri
   }
 }
 
-// Two bf16 at p[0] and p[S] packed as mma.sync wants them (p[0] low).
-template <int S>
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) {
-  if constexpr (S == 1) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  } else {
-    const uint32_t lo = __bfloat16_as_ushort(p[0]);
-    const uint32_t hi = __bfloat16_as_ushort(p[S]);
-    return lo | (hi << 16);
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // One warp: acc[j] += A (16 x K) @ B (K x 8*NT), A(r, k) = a[r*A_RS + k*A_KS]
-// and B(k, n) = b[k*B_KS + n*B_NS] in shared memory. Lane (g = lane/4,
-// t = lane%4) holds rows g and g + 8, columns 2t and 2t + 1 of each
-// 8-wide tile j: acc[j] = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
-template <int NT, int K, int A_RS, int A_KS, int B_KS, int B_NS>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const __nv_bfloat16* a,
-                                         const __nv_bfloat16* b) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[4];
-    af[0] = pair<A_KS>(a + g * A_RS + (k0 + 2 * t) * A_KS);
-    af[1] = pair<A_KS>(a + (g + 8) * A_RS + (k0 + 2 * t) * A_KS);
-    af[2] = pair<A_KS>(a + g * A_RS + (k0 + 2 * t + 8) * A_KS);
-    af[3] = pair<A_KS>(a + (g + 8) * A_RS + (k0 + 2 * t + 8) * A_KS);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t bf[2];
-      bf[0] = pair<B_KS>(b + (k0 + 2 * t) * B_KS + (j * 8 + g) * B_NS);
-      bf[1] = pair<B_KS>(b + (k0 + 2 * t + 8) * B_KS + (j * 8 + g) * B_NS);
-      mma_bf16(acc[j], af, bf);
-    }
-  }
-}
-
-// The same product for f32 inputs, by FMAs, in the same register layout.
+// and B(k, n) = b[k*B_KS + n*B_NS] in shared memory, by FMAs in mma.sync's
+// register layout: lane (g = lane/4, t = lane%4) holds rows g and g + 8,
+// columns 2t and 2t + 1 of each 8-wide tile j: acc[j] = {(g, 2t), (g,
+// 2t+1), (g+8, 2t), (g+8, 2t+1)}.
 template <int NT, int K, int A_RS, int A_KS, int B_KS, int B_NS>
 __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a, const float* b) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;

@@ -75,8 +75,8 @@
 // tiles from the diagonal on. Tiles are staged in shared memory (16-byte
 // loads, rows padded by 8 elements); the products are f32 FMAs in the
 // mma.sync register layout (wgmma's tf32 would change f32 results, and
-// f32 is the checking path). bsa_fwd keeps these tiles' bf16 mma.sync
-// form (block_sparse_attention.cu).
+// f32 is the checking path). bsa_fwd's f32 kernel shares these tiles
+// (block_sparse_attention.cu).
 //
 // Numerics follow the Pallas kernels: base-2 softmax with scale*log2(e)
 // folded into the scores, masked scores set to -1e30 (not -inf), the
@@ -121,11 +121,6 @@ struct WgBarriers {
   uint64_t full_k[kWgStages], full_v[kWgStages], empty_k[kWgStages], empty_v[kWgStages];
 };
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Block (b*h, 128 query rows), heaviest causal tiles first
 // (flash_attention.py:fwd_tile_order). Two warpgroups each own 64 query
 // rows. Thread 0 loads the q tile once by TMA and keeps 128-key K and V
@@ -147,8 +142,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                            int heads, int bh_count, int q_tiles, int seq_q, int seq_k, float sl2,
                            int causal) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sq = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sq = hopper::align_1024(smem_raw);
   unsigned char* sk = sq + kTileBytes;
   unsigned char* sv = sk + kWgStages * kTileBytes;
   WgBarriers& bar = *reinterpret_cast<WgBarriers*>(sv + kWgStages * kTileBytes);
@@ -278,8 +272,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       acc[4 * j + 1] *= corr[0];
       acc[4 * j + 2] *= corr[1];
       acc[4 * j + 3] *= corr[1];
-      p[2 * j] = pack_bf16x2(sc[4 * j], sc[4 * j + 1]);
-      p[2 * j + 1] = pack_bf16x2(sc[4 * j + 2], sc[4 * j + 3]);
+      p[2 * j] = hopper::pack_bf16x2(sc[4 * j], sc[4 * j + 1]);
+      p[2 * j + 1] = hopper::pack_bf16x2(sc[4 * j + 2], sc[4 * j + 3]);
     }
 
     hopper::mbar_wait(&bar.full_v[s], parity);
@@ -308,10 +302,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int col = 8 * j + 2 * t;
     if (row_a < seq_q)
       *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(row_a) * os.s + col) =
-          pack_bf16x2(acc[4 * j] / la, acc[4 * j + 1] / la);
+          hopper::pack_bf16x2(acc[4 * j] / la, acc[4 * j + 1] / la);
     if (row_a + 8 < seq_q)
       *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(row_a + 8) * os.s + col) =
-          pack_bf16x2(acc[4 * j + 2] / lb, acc[4 * j + 3] / lb);
+          hopper::pack_bf16x2(acc[4 * j + 2] / lb, acc[4 * j + 3] / lb);
   }
   if (t == 0) {
     float* lrow = lse + static_cast<long long>(bh) * seq_q;
@@ -341,11 +335,6 @@ struct BwBarriers {
   uint64_t own;                                   // the block's own two tiles
   uint64_t full[kBwStages], empty[kBwStages];     // the ring
 };
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~static_cast<uintptr_t>(1023));
-}
 
 // Rows [row0, row0 + 64) of head h, batch b: two boxes into dst (16 KB).
 __device__ __forceinline__ void tma_rows64(unsigned char* dst, const CUtensorMap* map,
@@ -387,10 +376,10 @@ __device__ __forceinline__ void store_acc_rows(__nv_bfloat16* base, long long st
     const int col = 8 * j + 2 * t;
     if (row_a < seq)
       *reinterpret_cast<uint32_t*>(base + static_cast<long long>(row_a) * stride + col) =
-          pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+          hopper::pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
     if (row_a + 8 < seq)
       *reinterpret_cast<uint32_t*>(base + static_cast<long long>(row_a + 8) * stride + col) =
-          pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+          hopper::pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
@@ -413,7 +402,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                               int bh_count, int q_tiles, int seq_q, int seq_k, float scale,
                               int causal) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sq = align_1024(smem_raw);
+  unsigned char* sq = hopper::align_1024(smem_raw);
   unsigned char* sdo = sq + kBwOwnBytes;
   unsigned char* sk = sdo + kBwOwnBytes;
   unsigned char* sv = sk + kBwStages * kBwStepBytes;
@@ -486,8 +475,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         const float p = exp2f(x - lse2[e >> 1]);
         sc[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]) * scale;
       }
-      da[2 * j] = pack_bf16x2(sc[4 * j], sc[4 * j + 1]);
-      da[2 * j + 1] = pack_bf16x2(sc[4 * j + 2], sc[4 * j + 3]);
+      da[2 * j] = hopper::pack_bf16x2(sc[4 * j], sc[4 * j + 1]);
+      da[2 * j + 1] = hopper::pack_bf16x2(sc[4 * j + 2], sc[4 * j + 3]);
     }
   };
 
@@ -557,7 +546,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                Strides dks, Strides dvs, int heads, int bh_count, int seq_q,
                                int seq_k, float scale, int causal) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sk = align_1024(smem_raw);
+  unsigned char* sk = hopper::align_1024(smem_raw);
   unsigned char* sv = sk + kBwOwnBytes;
   unsigned char* sq = sv + kBwOwnBytes;
   unsigned char* sdo = sq + kBwStages * kBwStepBytes;
@@ -627,10 +616,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         p[e] = exp2f(x - st[c]);
         ds[e] = p[e] * (dp[4 * j + e] - st[kBwStep + c]) * scale;
       }
-      pa[2 * j] = pack_bf16x2(p[0], p[1]);
-      pa[2 * j + 1] = pack_bf16x2(p[2], p[3]);
-      da[2 * j] = pack_bf16x2(ds[0], ds[1]);
-      da[2 * j + 1] = pack_bf16x2(ds[2], ds[3]);
+      pa[2 * j] = hopper::pack_bf16x2(p[0], p[1]);
+      pa[2 * j + 1] = hopper::pack_bf16x2(p[2], p[3]);
+      da[2 * j] = hopper::pack_bf16x2(ds[0], ds[1]);
+      da[2 * j + 1] = hopper::pack_bf16x2(ds[2], ds[3]);
     }
   };
 

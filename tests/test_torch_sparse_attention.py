@@ -4,12 +4,15 @@ against ``paddle_tpu`` at the reference tests' size (``B, H, S, D = 1, 2,
 mask builders and tables, the kernel's plain forward (``o`` and ``lse``)
 against the Pallas kernel in interpret mode, the autograd Function's
 gradients against ``jax.vjp`` of the reference's custom VJP, the CSR
-pattern analysis and its dense fallback, and a pre-norm sparse
-attention block (RMSNorm, a qkv projection, sparse_attention, an output
+pattern analysis and its dense fallback, the bf16 kernel's per-tile
+walk tables (and a plain walk of them against the plain forward), and
+a pre-norm sparse attention block (RMSNorm, a qkv projection, sparse_attention, an output
 projection and the residual) built from each package's public layers on
 shared weights.
 
-Tolerances: f32 forward within 5e-5 (the reference's own limit);
+Tolerances: f32 forward within 5e-5 (the reference's own limit); the
+plain walk within 1e-6 of the plain forward (f32 sums grouped by stage
+instead of by block);
 gradients, the block's loss and its gradients within 1e-4 of each
 tensor's largest magnitude (f32 sums in another order).
 """
@@ -91,6 +94,126 @@ def test_mask_builders_and_tables_equal_reference(nq, nk, window, glob,
         assert (got.max_active, got.qmax) == (want.max_active, want.qmax)
     with pytest.raises(ValueError, match="no active blocks"):
         bsa.block_mask_tables(np.zeros((2, 2), bool))
+
+
+def _ragged_mask(nk):
+    """5 q-blocks of 64 (300 tokens: a ragged last block, and a last tile
+    with one mask row) over nk k-blocks: a non-causal window plus global
+    k-block 0, q-row 1 empty."""
+    bm = bsa.make_sliding_window_mask(5, nk, 2, causal=False)
+    bm[:, 0] = True
+    bm[1, :] = False
+    return bm
+
+
+# name -> (block mask, block_q, block_k, seq_q, seq_k)
+WALK_CASES = {
+    **{name: (make(), BLOCK, BLOCK, S, S) for name, make in PATTERNS.items()},
+    "global_window_ragged": (PATTERNS["global_window"](), BLOCK, BLOCK, 200,
+                             200),
+    "empty_row_ragged_64_64": (_ragged_mask(5), 64, 64, 300, 300),
+    "empty_row_ragged_64_128": (_ragged_mask(3), 64, 128, 300, 300),
+    "global_window_128_64": (bsa.make_global_plus_window_mask(2, 4, 2, 1),
+                             128, 64, S, S),
+    "window_256_128": (bsa.make_sliding_window_mask(2, 4, 3, causal=False),
+                       256, 128, 512, 512),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_tile_walk_tables_cover_each_row_in_kt_order(case):
+    """Each warpgroup's boxes (flag bit set) are exactly its mask row's
+    active k-blocks in kt's order, block_k / 64 boxes each, once; every
+    box has a flag; a warpgroup past the last mask row holds none; the
+    order puts the tiles with the most stages first."""
+    bm, bq, bk, _sq, _sk = WALK_CASES[case]
+    t = bsa.prepare_block_mask(bm, bq, bk)
+    boxes, counts, order = t.boxes, t.box_counts, t.tile_order
+    nq = bm.shape[0]
+    per = bk // bsa.BOX_KEYS
+    assert boxes.shape[0] == -(-nq * bq // bsa.TILE_ROWS) == len(counts)
+    for tile in range(boxes.shape[0]):
+        bx = boxes[tile, :counts[tile]]
+        assert not boxes[tile, counts[tile]:].any()
+        assert (bx & 3).all() and (np.diff(bx >> 2) > 0).all()
+        for w in range(2):
+            qi = (tile * bsa.TILE_ROWS + w * 64) // bq
+            mine = bx[(bx >> w) & 1 == 1] >> 2
+            if qi >= nq:
+                assert len(mine) == 0
+                continue
+            want = (t.kt[qi, :t.counts[qi], None] * per
+                    + np.arange(per)).ravel()
+            assert np.array_equal(mine, want), (tile, w)
+    stages = (counts + 1) // 2
+    assert sorted(order) == list(range(len(counts)))
+    assert (np.diff(stages[order]) <= 0).all()
+
+
+def _walk_fwd(q, k, v, tables, scale):
+    """The bf16 kernel's walk in plain PyTorch: tiles in ``tile_order``,
+    each warpgroup's 64 rows through stages of two 64-key boxes (an odd
+    count's missing box a copy of the first), the scores of a box the
+    warpgroup does not hold, of the missing box and of keys past seq_k at
+    -1e30, the base-2 online softmax a stage, p rounded to v's type."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    boxes, counts = tables.boxes, tables.box_counts
+    n_keys = (int(boxes.max() >> 2) + 1) * bsa.BOX_KEYS
+    pad = (0, 0, 0, max(0, n_keys - sk))
+    qf = q.float().reshape(b * h, sq, d)
+    kf = torch.nn.functional.pad(k.float().reshape(b * h, sk, d), pad)
+    vf = torch.nn.functional.pad(v.float().reshape(b * h, sk, d), pad)
+    o = torch.zeros(b * h, sq, d)
+    lse = torch.zeros(b * h, sq)
+    cols = torch.arange(bsa.BOX_KEYS)
+    for tile in tables.tile_order:
+        bx = [int(e) for e in boxes[tile, :counts[tile]]]
+        for w in range(2):
+            r0 = tile * bsa.TILE_ROWS + w * 64
+            r1 = min(r0 + 64, sq)
+            if r0 >= sq:
+                continue
+            m = torch.full((b * h, r1 - r0, 1), bsa._NEG_INF)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(b * h, r1 - r0, d)
+            for j in range(0, len(bx), 2):
+                pair = bx[j:j + 2] if j + 1 < len(bx) else [bx[j], bx[j] >> 2 << 2]
+                if not any((e >> w) & 1 for e in pair):
+                    continue
+                rows = torch.cat([(e >> 2) * bsa.BOX_KEYS + cols for e in pair])
+                keep = torch.cat([((e >> w) & 1) & ((e >> 2) * bsa.BOX_KEYS + cols < sk)
+                                  for e in pair]).bool()
+                s = torch.matmul(qf[:, r0:r1], kf[:, rows].transpose(-1, -2))
+                s = (s * (scale * bsa._LOG2E)).masked_fill(~keep, bsa._NEG_INF)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                p = torch.exp2(s - m_new)
+                corr = torch.exp2(m - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + torch.matmul(p.to(v.dtype).float(),
+                                                vf[:, rows])
+                m = m_new
+            l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+            o[:, r0:r1] = acc / l_safe
+            lse[:, r0:r1] = (m * bsa._LN2 + torch.log(l_safe))[..., 0]
+    return o.reshape(b, h, sq, d).to(q.dtype), lse
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_tile_walk_plain_matches_bsa_fwd_ref(case):
+    """A plain walk of the tile tables in the kernel's order gives the
+    plain forward's o and lse (itself held against the Pallas kernel by
+    test_bsa_fwd_plain_matches_pallas_kernel), empty rows included."""
+    bm, bq, bk, sq, sk = WALK_CASES[case]
+    q = torch.tensor(_qkv(10, s=sq)[0])
+    k, v = map(torch.tensor, _qkv(11, s=sk)[:2])
+    tables = bsa.prepare_block_mask(bm, bq, bk)
+    dev = tables.on("cpu")
+    want_o, want_lse = bsa._bsa_fwd_ref(q, k, v, dev["kt"], dev["cnt"],
+                                        D ** -0.5, bq, bk)
+    o, lse = _walk_fwd(q, k, v, tables, D ** -0.5)
+    assert (o - want_o).abs().max() <= 1e-6
+    assert (lse - want_lse).abs().max() <= 1e-6
 
 
 def test_tables_are_copied_once_per_pattern():

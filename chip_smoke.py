@@ -21,13 +21,20 @@ Phases, in order (any failure raises and exits non-zero):
    the bound, the plain version's time, the library call's and the
    launch floor (an empty kernel's time);
 4. serving: GPT-1.3B (``gpt3_1p3b(fused_ln=True)``, random bf16 weights
-   from a seeded generator) serves 8 requests through ``LLMEngine``;
-   every request finishes with 64 tokens, every logit is finite, the
-   kernels' launch counts match the forward passes exactly, and serving
-   the same requests one at a time on a fresh engine gives the same
-   tokens; then one run with every request sampled (temperature 0.8,
-   top_k 50, top_p 0.9: threefry noise drawn on the card), whose first
-   request alone draws the same tokens;
+   from a seeded generator) serves 8 requests through ``LLMEngine``,
+   whose ``warmup()`` first captures every program as a CUDA graph
+   (``compile_bound`` = 10: seven prefill buckets, the decode step, two
+   sampler widths) and which then serves only by replaying them,
+   capturing nothing more; every request finishes with 64 tokens, the
+   logits of every prefill and decode call are finite, the kernels'
+   launch counts (counted once a replay) match the forward passes
+   exactly, and serving the same requests one at a time on a fresh
+   engine gives the same tokens; the decode graph's logits equal one
+   uncaptured call of the same program function on copies of the same
+   pools, tables, lengths and tokens (``check_close``); then one run
+   with every request sampled (temperature 0.8, top_k 50, top_p 0.9:
+   threefry noise drawn on the card), whose first request alone draws
+   the same tokens;
 5. train kernels: the flash attention kernels (forward, dq, dk/dv) at the
    training path's shape (``[4, 1024, 16, 128]``, causal, q/k/v strided
    views of a fused projection) plus a ragged non-causal one, causal
@@ -576,6 +583,66 @@ def _launches():
     return {k: v for counts in _launch_counts() for k, v in counts.items()}
 
 
+def _watch_finite(eng, finite):
+    """Wrap the engine's prefill and decode programs so that each call
+    notes whether its logits are all finite, read at once (the next call
+    overwrites a graph's output). Returns the programs it wrapped."""
+    originals = {k: p for k, p in eng._programs.items()
+                 if k[0] in ("prefill", "decode")}
+
+    def watched(prog):
+        def call(*args):
+            out = prog(*args)
+            finite.append(torch.isfinite(out).all())
+            return out
+        return call
+
+    eng._programs.update({k: watched(p) for k, p in originals.items()})
+    # the check's own kernels load at their first call: not in the timing
+    torch.isfinite(torch.zeros(1, 8, device="cuda")).all()
+    return originals
+
+
+def check_decode_graph(eng, prompts, sps):
+    """One decode step at full width: the decode graph's logits against
+    one uncaptured call of the same ``_decode_program()`` function on
+    copies of the same pools, tables, lengths and tokens. Returns the
+    max abs error."""
+    for p, sp in zip(prompts, sps):
+        eng.add_request(p, sp)
+    eng.step()                         # admits and prefills all 8
+    eng.step()
+    # the next step's inputs, as LLMEngine._decode_step makes them
+    page = eng.config.page_size
+    tokens = np.zeros((eng.config.max_num_seqs, 1), np.int64)
+    for slot, req in enumerate(eng._slots):
+        need = eng._alloc.pages_needed(int(eng._lens[slot]) + 1, page)
+        for pos, pg in eng._alloc.allocate(slot, need):
+            eng._tables[slot, pos] = pg
+        tokens[slot, 0] = req.output_token_ids[-1]
+    args = [torch.from_numpy(a) for a in (eng._tables, eng._lens, tokens)]
+    copies = ([p.clone() for p in eng._k_pools],
+              [p.clone() for p in eng._v_pools])
+    replayed = eng._get_decode()(*args).clone()
+    fn, _ = eng._decode_program(pools=copies)
+    eager = fn(*(a.cuda() for a in args))
+    torch.cuda.synchronize()
+    # bf16 products upcast: compared at bf16, check_close's bf16 limit
+    err = check_close("serving decode graph logits bf16",
+                      replayed.bfloat16(), eager.bfloat16())
+    same = torch.equal(replayed, eager)
+    pools_same = all(torch.equal(a, b) for a, b in zip(
+        eng._k_pools + eng._v_pools, copies[0] + copies[1]))
+    print(f"[serving] decode graph vs the uncaptured decode program at "
+          f"lens {eng._lens.tolist()}: max abs err {err}, bit-identical "
+          f"{same}, pools after bit-identical {pools_same}")
+    if not pools_same:
+        raise AssertionError("decode graph: the pools differ from the "
+                             "uncaptured program's")
+    eng.shutdown()
+    return err
+
+
 def phase_serving(profile):
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_1p3b
     from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
@@ -600,14 +667,15 @@ def phase_serving(profile):
                           top_k=0 if i % 2 == 0 else 50, seed=100 + i)
            for i in range(len(prompts))]
 
-    warm = engine()                    # cuBLAS and allocator warm-up
-    warm.generate([prompts[0][:16]], [SamplingParams(max_new_tokens=2)])
-    warm.shutdown()
-
-    finite = []
-    hook = model.register_forward_hook(
-        lambda _m, _inp, out: finite.append(torch.isfinite(out).all()))
     eng = engine()
+    bound = eng.config.compile_bound
+    boot = eng.warmup()
+    print(f"[serving] warmup: {boot['programs']} programs captured as CUDA "
+          f"graphs in {boot['boot_ms']:.1f} ms (compile bound {bound})")
+    if not boot["programs"] == boot["compiled"] == bound == 10:
+        raise AssertionError(f"warmup built {boot}, bound {bound}")
+    finite = []
+    originals = _watch_finite(eng, finite)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -616,16 +684,20 @@ def phase_serving(profile):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches("serving")
-    hook.remove()
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
     m = eng.metrics
+    if m.compile_count != bound:
+        raise AssertionError(f"generate captured {m.compile_count - bound} "
+                             f"more programs")
     forwards = m.prefill_steps + m.decode_steps
     expect = {k: 0 for k in launches}
     expect.update(ln_fwd=forwards * (cfg.num_layers + 1),
                   ln_res_fwd=forwards * cfg.num_layers)
     print(f"[serving] {len(results)} requests, prompts "
           f"{[len(p) for p in prompts]}, {m.prefill_steps} prefills + "
-          f"{m.decode_steps} decode steps; launches {launches}")
+          f"{m.decode_steps} decode steps, all graph replays; launches "
+          f"{launches}")
     if launches != expect:
         raise AssertionError(f"kernel launches {launches} != {expect}")
     if len(finite) != forwards or not bool(torch.stack(finite).all()):
@@ -634,6 +706,7 @@ def phase_serving(profile):
         if len(r.output_token_ids) != 64:
             raise AssertionError(f"{r.request_id}: "
                                  f"{len(r.output_token_ids)} tokens")
+    eng._programs.update(originals)
     eng.shutdown()
 
     seq = engine()
@@ -644,6 +717,7 @@ def phase_serving(profile):
                                  f"differs from sequential")
     seq.shutdown()
     print("[serving] continuous == sequential for all 8 requests")
+    check_decode_graph(engine(), prompts, sps)
 
     # one run with every request sampled: the threefry noise of (seed,
     # position) is drawn on the card, and request 0 alone on a fresh
@@ -652,6 +726,7 @@ def phase_serving(profile):
                               top_p=0.9, seed=200 + i)
                for i in range(len(prompts))]
     eng_s = engine()
+    eng_s.warmup()
     t0 = time.perf_counter()
     res_s = eng_s.generate(prompts, sampled)
     torch.cuda.synchronize()
@@ -677,16 +752,20 @@ def phase_serving(profile):
           f"step {snap['decode_step_ms']['mean']:.2f} ms, mean prefill "
           f"{snap['prefill_step_ms']['mean']:.2f} ms, TTFT p50 "
           f"{snap['ttft_ms']['p50']:.1f} ms p99 {snap['ttft_ms']['p99']:.1f}"
-          f" ms, peak memory {peak / 2**30:.2f} GiB")
+          f" ms, boot {boot['boot_ms']:.1f} ms, peak memory "
+          f"{peak / 2**30:.2f} GiB allocated, {reserved / 2**30:.2f} GiB "
+          f"reserved (the graphs' pool is reserved, not allocated)")
     if profile:
         profile_decode(engine(), prompts, sps)
     return launches
 
 
 def profile_decode(eng, prompts, sps):
-    """Device time by kernel over 10 decode steps at full width."""
+    """Device time by kernel over 10 decode steps at full width, all
+    graph replays."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
+    eng.warmup()
     for p, sp in zip(prompts, sps):
         eng.add_request(p, sp)
     eng.step()                         # admits and prefills all 8
@@ -695,10 +774,14 @@ def profile_decode(eng, prompts, sps):
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(10):
             eng.step()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    print(f"[serving] profiled: 10 decode steps in {wall * 1e3:.1f} ms of "
+          f"host time")
     eng.shutdown()
 
 

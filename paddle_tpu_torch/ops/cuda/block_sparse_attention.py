@@ -44,7 +44,7 @@ __all__ = ["BLOCK_SIZES", "HEAD_DIMS", "LAUNCHES", "block_mask_tables",
            "make_sliding_window_mask", "prepare_block_mask",
            "tile_walk_tables"]
 
-LAUNCHES = {"bsa_fwd": 0}
+LAUNCHES = launch.counts(("bsa_fwd",))
 HEAD_DIMS = (64, 128)               # the instantiated kernels'
 BLOCK_SIZES = (64, 128, 256, 512)   # mask blocks the kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

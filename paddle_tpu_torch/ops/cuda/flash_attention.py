@@ -57,10 +57,10 @@ __all__ = ["BWD_STEP", "BWD_TILE", "FWD_TILE", "HEAD_DIM", "LAUNCHES", "ROUTED",
            "flash_attention_bshd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
            "fwd_key_tiles", "fwd_tile_order", "kernel_takes", "tma_geometry"]
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES = launch.counts(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
 # calls the attention functional sent to a composition because the
 # kernels do not take their shape or type (kernel_takes)
-ROUTED = {"flash_attention": 0}
+ROUTED = launch.counts(("flash_attention",))
 HEAD_DIM = 128                 # the instantiated kernels' (GPT-1.3B's)
 FWD_TILE = 128                 # bf16 forward: query rows a block, keys a step
 BWD_TILE = 128                 # bf16 dq / dk,dv: query rows / keys a block owns

@@ -1,17 +1,60 @@
 """What every kernel wrapper of the port shares: binding the built
-library's C functions, routing a call by the devices of its tensors, and
-turning a launch's CUDA error code into an exception."""
+library's C functions, routing a call by the devices of its tensors,
+turning a launch's CUDA error code into an exception, and the counts.
+
+Each wrapper module declares its counts (``LAUNCHES``, ``ROUTED``) with
+:func:`counts`, and a wrapper adds one where it launches its kernel (or
+routes a call), in Python. The counts mean calls executed on the device:
+a CUDA graph replays its kernels without the host, so the region it
+captured is counted by :func:`captured_counts`, which takes the region's
+increases back out of the counts and keeps them, and each replay adds
+them once with :func:`add_replay_counts`.
+"""
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 from paddle_tpu_torch.ops.cuda import build
 
-__all__ = ["bind", "ptr", "raise_on", "route", "stream"]
+__all__ = ["add_replay_counts", "bind", "captured_counts", "counts", "ptr",
+           "raise_on", "route", "stream"]
 
 _bound = {}           # C function name -> the library it was declared on
+_counts = []          # every dict declared with counts()
+
+
+def counts(names):
+    """A dict of counts, one per name, all 0, that the capture and replay
+    helpers below know."""
+    d = dict.fromkeys(names, 0)
+    _counts.append(d)
+    return d
+
+
+@contextlib.contextmanager
+def captured_counts():
+    """Around a graph capture: yields a list that, on exit, holds each
+    count's increase inside the region (``(counts, name, n)``), and the
+    counts are as they were before it: a capture executes nothing."""
+    before = [dict(d) for d in _counts]
+    added = []
+    try:
+        yield added
+    finally:
+        for d, was in zip(_counts, before):
+            for name, n in d.items():
+                if n != was[name]:
+                    added.append((d, name, n - was[name]))
+            d.update(was)
+
+
+def add_replay_counts(added):
+    """One replay of a region :func:`captured_counts` recorded."""
+    for d, name, n in added:
+        d[name] += n
 
 
 def bind(signatures):

@@ -43,11 +43,11 @@ __all__ = ["LAUNCHES", "MAX_HIDDEN", "MAX_RMS_HIDDEN", "ROUTED", "ln_bwd",
            "ln_bwd_split", "ln_fwd", "ln_fwd_split", "ln_kernel_takes",
            "ln_res_fwd", "rms_fwd", "rms_kernel_takes"]
 
-LAUNCHES = {"ln_fwd": 0, "ln_res_fwd": 0, "ln_bwd": 0, "ln_bwd_res": 0,
-            "rms_fwd": 0}
+LAUNCHES = launch.counts(("ln_fwd", "ln_res_fwd", "ln_bwd", "ln_bwd_res",
+                          "rms_fwd"))
 # calls the normalization functionals sent to their composition because
 # the kernels do not take the tensors (ln_kernel_takes, rms_kernel_takes)
-ROUTED = {"layer_norm": 0, "fused_ln_residual": 0, "rms_norm": 0}
+ROUTED = launch.counts(("layer_norm", "fused_ln_residual", "rms_norm"))
 MAX_HIDDEN = 4096        # forward and backward: H/8 threads a row, <= 512
 MAX_RMS_HIDDEN = 16384   # rms_fwd: a block of <= 512 threads, 32 values each
 _CHUNK = 8               # hidden must be a multiple: 16-byte accesses

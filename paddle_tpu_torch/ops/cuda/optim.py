@@ -32,7 +32,8 @@ from paddle_tpu_torch.ops.cuda import launch
 
 __all__ = ["LAUNCHES", "fused_adam_update", "supports_fused"]
 
-LAUNCHES = {"adam_update": 0, "adam_update_guard": 0, "adam_guard_sumsq": 0}
+LAUNCHES = launch.counts(("adam_update", "adam_update_guard",
+                           "adam_guard_sumsq"))
 # per-operand block-bytes ceiling of the reference's row blocks: the
 # guard's regions are exactly its blocks
 _BLOCK_BYTES = 1 << 21

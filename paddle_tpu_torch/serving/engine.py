@@ -1,16 +1,29 @@
 """LLMEngine — continuous-batching serving over a paged KV cache
 (counterpart of ``paddle_tpu/serving/engine.py``).
 
-Execution model, as in the reference:
+Execution model, as in the reference: a small, fixed set of programs
+serves every request mix —
 
-- PREFILL one request at a time at a padded prompt-length bucket
-  (``[1, bucket]`` token ids): dense causal attention, the real tokens'
-  K/V scattered into the shared paged pools, the last REAL token's
-  logits out;
-- DECODE at the full slot width ``[max_num_seqs, 1]``: every live
-  sequence appends its token at its own length and attends over its own
-  pages; empty slots decode garbage rows against page 0;
-- sampling per width (1 and max_num_seqs) with every knob per row.
+- one PREFILL program per prompt-length bucket: ``[1, bucket]`` token
+  ids in, dense causal attention, the real tokens' K/V scattered into
+  the shared paged pools, the last REAL token's logits out;
+- ONE DECODE program at the full slot width ``[max_num_seqs, 1]``:
+  every live sequence appends its token at its own length and attends
+  over its own pages; empty slots decode garbage rows against page 0;
+- one SAMPLER program per width (1 and max_num_seqs) with every knob
+  per row as an operand.
+
+Each program is a function of device tensors only (the pools are
+written in place). On CUDA the engine captures each one as a CUDA graph
+the first time it is needed (or all of them in :meth:`LLMEngine.warmup`)
+and from then on replays it: a call copies the step's host arrays into
+the graph's static input buffers, replays, and returns its static
+output, which the next call of the same program overwrites. A step's
+one host read is the sampler's tokens. On the CPU the same functions run
+uncaptured. Either way at most ``EngineConfig.compile_bound =
+len(prefill_buckets) + 3`` programs are built for the life of the
+engine, and `EngineMetrics.note_compile` raises past it. A capture that
+fails raises: there is no eager fallback.
 
 Continuous batching: new requests join the running decode batch at step
 boundaries, finished sequences free their pages immediately, and when
@@ -19,14 +32,14 @@ deterministically preempted (replayed later by prefilling prompt +
 generated tokens; the (seed, position) sampler makes the replay
 token-identical).
 
-PyTorch runs eagerly, so there are no compiled programs and no compile
-bound. Not ported yet: tensor-parallel meshes, quantized KV pools, the
-serving guard, the AOT program cache, crash-safe decode, the router,
-fleet and traffic hooks, and tracing spans.
+Not ported yet: tensor-parallel meshes, quantized KV pools, the serving
+guard, the AOT program cache, crash-safe decode, the router, fleet and
+traffic hooks, and tracing spans.
 """
 from __future__ import annotations
 
 import math
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -35,6 +48,7 @@ import torch
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.incubate.nn.paged_attention import (
     PageAllocator, paged_decode_step, paged_prefill_append)
+from paddle_tpu_torch.ops.cuda import launch
 from paddle_tpu_torch.resilience.health import HealthMonitor
 from paddle_tpu_torch.serving.metrics import EngineMetrics
 from paddle_tpu_torch.serving.request import (GenerationResult, Request,
@@ -47,6 +61,7 @@ __all__ = ["AdmissionRejected", "EngineConfig", "LLMEngine",
            "PagedKVContext"]
 
 _NARROW = (torch.bfloat16, torch.float16)
+_WARMUP_CALLS = 2      # eager calls of a program before its capture
 
 
 class EngineConfig:
@@ -108,6 +123,12 @@ class EngineConfig:
         self.health_degraded_at = float(health_degraded_at)
         self.health_drain_at = float(health_drain_at)
         self.health_recover_at = float(health_recover_at)
+
+    @property
+    def compile_bound(self):
+        """Ceiling on the programs built for the engine's lifetime: one
+        prefill per bucket + one decode + two sampler widths."""
+        return len(self.prefill_buckets) + 3
 
 
 class PagedKVContext:
@@ -177,6 +198,63 @@ def _dense_causal_attention(q, k, v):
     return torch.matmul(probs, v)
 
 
+class _Graph:
+    """One program captured as a CUDA graph over static input buffers.
+
+    ``fn`` runs :data:`_WARMUP_CALLS` times eagerly on ``stream`` on
+    copies of ``example`` (the first call loads what it launches: the
+    kernel library, cuBLAS's handle and workspace; its kernels count as
+    launched), then once under capture into ``pool``, and the graph is
+    replayed once on the example (a graph's first replay uploads it, and
+    should not fall on a request). The example's tables are zeros, so
+    these calls write only the garbage page 0. The captured region ends
+    by copying the result into an output buffer allocated outside the
+    pool, so no tensor of the pool outlives a replay: the engine's graphs
+    share one pool and replay in any order. The region's kernel counts
+    (``launch.captured_counts``) are added once a replay.
+    """
+
+    def __init__(self, fn, example, pool, stream):
+        self.inputs = [a.clone() for a in example]
+        self.staging = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                        for a in example]
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            for _ in range(_WARMUP_CALLS):
+                out = fn(*self.inputs)
+        torch.cuda.current_stream(stream.device).wait_stream(stream)
+        self.out = torch.empty_like(out)
+        del out
+        self.graph = torch.cuda.CUDAGraph()
+        with launch.captured_counts() as self.counts:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.out.copy_(fn(*self.inputs))
+        self._staged = torch.cuda.Event()
+        self._replay()
+
+    def _replay(self):
+        self._staged.record()
+        self.graph.replay()
+        launch.add_replay_counts(self.counts)
+
+    def __call__(self, *args):
+        """Copy ``args`` (CPU or CUDA tensors) into the input buffers,
+        replay, and return the output buffer, which the next call
+        overwrites."""
+        self._staged.synchronize()     # the last call's copies are done
+        for buf, host, a in zip(self.inputs, self.staging, args):
+            if a.is_cuda:
+                buf.copy_(a)
+            else:
+                host.copy_(a)
+                buf.copy_(host, non_blocking=True)
+        self._replay()
+        return self.out
+
+    def release(self):
+        self.graph.reset()
+
+
 class LLMEngine:
     """Continuous-batching engine over any kv_ctx-aware decoder model.
 
@@ -192,7 +270,7 @@ class LLMEngine:
     unless ``device="cpu"``), where the model must already live.
 
     Public surface: :meth:`add_request`, :meth:`step`, :meth:`generate`,
-    :attr:`metrics`, :meth:`shutdown`.
+    :meth:`warmup`, :attr:`metrics`, :meth:`shutdown`.
     """
 
     def __init__(self, model, config=None, device=None, program_cache=None):
@@ -237,7 +315,11 @@ class LLMEngine:
                                    cfg.growth_reserve_pages,
                                    max_queue_depth=cfg.max_queue_depth)
         self.metrics = EngineMetrics()
+        self.metrics.compile_bound = cfg.compile_bound
         self.metrics.pages_total = cfg.num_pages - 1   # page 0 reserved
+        self._programs = {}          # key -> built program (_compile)
+        self._graph_pool = None      # CUDA: the graphs' shared memory pool
+        self._capture_stream = None
         self.health = HealthMonitor(
             degraded_at=cfg.health_degraded_at,
             drain_at=cfg.health_drain_at,
@@ -370,8 +452,32 @@ class LLMEngine:
             self.finished_requests.pop(r, None)
         return [GenerationResult(req) for req in reqs]
 
+    def warmup(self):
+        """Build every program this engine can run (each prefill bucket,
+        the decode step, both sampler widths), so that serving builds
+        none. Returns ``{"programs", "compiled", "cache_loads",
+        "boot_ms"}``. Idempotent."""
+        t0 = time.perf_counter()
+        for b in self.config.prefill_buckets:
+            self._get_prefill(b)
+        self._get_decode()
+        self._get_sampler(1)
+        self._get_sampler(self.config.max_num_seqs)
+        return {
+            "programs": len(self._programs),
+            "compiled": self.metrics.compile_count,
+            "cache_loads": self.metrics.aot_cache_loads,
+            "boot_ms": (time.perf_counter() - t0) * 1e3,
+        }
+
     def shutdown(self):
-        """Release the KV pools; the engine serves nothing after this."""
+        """Release the KV pools and the programs (each CUDA graph gives
+        its memory back); the engine serves nothing after this."""
+        for prog in self._programs.values():
+            if isinstance(prog, _Graph):
+                prog.release()
+        self._programs.clear()
+        self._graph_pool = self._capture_stream = None
         self._k_pools = []
         self._v_pools = []
 
@@ -423,13 +529,8 @@ class LLMEngine:
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :L] = tokens
         pos_ids = np.arange(bucket, dtype=np.int64)[None, :]
-        ctx = PagedKVContext(self._k_pools, self._v_pools,
-                             self._on_device(self._tables[slot:slot + 1]),
-                             self._on_device(np.array([L])), cfg.page_size,
-                             "prefill")
-        logits = self._run_model(ids, pos_ids, ctx)
-        # logits [1, bucket, V] -> the last REAL token's row
-        last_logits = logits[:, L - 1].float()
+        last_logits = self._get_prefill(bucket)(*_tensors(
+            self._tables[slot:slot + 1], ids, pos_ids, np.array([L])))
         self._lens[slot] = L
 
         tok = self._sample(last_logits, [req], width=1)[0]
@@ -480,14 +581,8 @@ class LLMEngine:
         for s, r in live:
             tokens[s, 0] = r.output_token_ids[-1]
 
-        ctx = PagedKVContext(self._k_pools, self._v_pools,
-                             self._on_device(self._tables),
-                             self._on_device(self._lens), cfg.page_size,
-                             "decode")
-        # each row's position is its cache length
-        logits = self._run_model(tokens, self._lens[:, None], ctx)
-        logits = logits[:, 0].float()
-
+        logits = self._get_decode()(*_tensors(self._tables, self._lens,
+                                              tokens))
         toks = self._sample(logits, list(self._slots),
                             width=cfg.max_num_seqs)
         for s, r in live:
@@ -507,8 +602,8 @@ class LLMEngine:
         """reqs: per-row Request or None (padding rows).  Position is
         the ABSOLUTE index of the token being sampled = the row's cache
         length AFTER its input token was appended = `total_len`."""
-        seeds = [0] * width
-        pos = [0] * width
+        seeds = np.zeros((width,), np.int64)
+        pos = np.zeros((width,), np.int64)
         temps = np.zeros((width,), np.float32)
         top_ks = np.zeros((width,), np.int32)
         top_ps = np.ones((width,), np.float32)
@@ -521,8 +616,9 @@ class LLMEngine:
             temps[i] = sp.temperature
             top_ks[i] = sp.top_k
             top_ps[i] = sp.top_p
-        out = sample_tokens(logits, seeds, pos, temps, top_ks, top_ps)
-        return out.tolist()
+        out = self._get_sampler(width)(logits, *_tensors(
+            seeds, pos, temps, top_ks, top_ps))
+        return out.tolist()         # the step's one host read
 
     # ------------------------------------------------- finish / evict
     def _post_token(self, req, events, now):
@@ -575,14 +671,97 @@ class LLMEngine:
             m.pages_in_use / m.pages_total if m.pages_total else 0.0)
         m.health = state.name.lower()
 
-    # --------------------------------------------------------- model
-    def _on_device(self, array):
-        """A device copy of a host array (never a view of it: the host
-        copy changes after the step)."""
-        return torch.tensor(array, dtype=torch.int64, device=self.device)
-
-    def _run_model(self, ids, pos_ids, ctx):
+    # ------------------------------------------------------ programs
+    def _forward(self, ids, pos_ids, ctx):
         with torch.no_grad():
-            return self._model(self._on_device(ids),
-                               position_ids=self._on_device(pos_ids),
-                               kv_ctx=ctx)
+            return self._model(ids, position_ids=pos_ids, kv_ctx=ctx)
+
+    def _zeros(self, *shape, dtype=torch.int64):
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _prefill_program(self, bucket):
+        """(fn, example inputs) of the prefill program at ``bucket``:
+        ``fn(row_table [1, P], ids [1, bucket], pos_ids [1, bucket],
+        length [1])`` -> the last real token's logits ``[1, V]`` f32; the
+        prompt's K/V go into the engine's pools in place."""
+        cfg = self.config
+        k_pools, v_pools = self._k_pools, self._v_pools
+
+        def prefill(row_table, ids, pos_ids, length):
+            ctx = PagedKVContext(k_pools, v_pools, row_table, length,
+                                 cfg.page_size, "prefill")
+            logits = self._forward(ids, pos_ids, ctx)       # [1, bucket, V]
+            last = (length - 1)[:, None, None].expand(-1, 1,
+                                                      logits.shape[-1])
+            return logits.gather(1, last)[:, 0].float()
+
+        return prefill, (self._zeros(1, cfg.max_pages_per_seq),
+                         self._zeros(1, bucket), self._zeros(1, bucket),
+                         torch.ones(1, dtype=torch.int64,
+                                    device=self.device))
+
+    def _decode_program(self, pools=None):
+        """(fn, example inputs) of the decode program: ``fn(tables [B, P],
+        lens [B], tokens [B, 1])`` -> logits ``[B, V]`` f32; each row's
+        token goes into ``pools`` (``(k_pools, v_pools)``, default the
+        engine's) in place at its length, which is also its position."""
+        cfg = self.config
+        k_pools, v_pools = pools or (self._k_pools, self._v_pools)
+
+        def decode(tables, lens, tokens):
+            ctx = PagedKVContext(k_pools, v_pools, tables, lens,
+                                 cfg.page_size, "decode")
+            return self._forward(tokens, lens[:, None], ctx)[:, 0].float()
+
+        B = cfg.max_num_seqs
+        return decode, (self._zeros(B, cfg.max_pages_per_seq),
+                        self._zeros(B), self._zeros(B, 1))
+
+    def _sampler_program(self, width):
+        """(fn, example inputs) of the sampler at ``width``: ``fn(logits
+        [width, V] f32, seeds, positions, temperatures, top_ks, top_ps)``
+        -> token ids ``[width]`` int32."""
+        V = int(self._model.config.vocab_size)
+        return sample_tokens, (
+            self._zeros(width, V, dtype=torch.float32), self._zeros(width),
+            self._zeros(width), self._zeros(width, dtype=torch.float32),
+            self._zeros(width, dtype=torch.int32),
+            torch.ones(width, dtype=torch.float32, device=self.device))
+
+    def _get_prefill(self, bucket):
+        key = ("prefill", bucket)
+        if key in self._programs:
+            return self._programs[key]
+        return self._compile(key, *self._prefill_program(bucket))
+
+    def _get_decode(self):
+        key = ("decode",)
+        if key in self._programs:
+            return self._programs[key]
+        return self._compile(key, *self._decode_program())
+
+    def _get_sampler(self, width):
+        key = ("sample", width)
+        if key in self._programs:
+            return self._programs[key]
+        return self._compile(key, *self._sampler_program(width))
+
+    def _compile(self, key, fn, example):
+        """Count, build and keep one program: every program the engine
+        runs passes through here, so ``metrics.compile_count`` is exact,
+        and one past the bound raises before anything is built. On CUDA
+        the program is ``fn`` captured as a :class:`_Graph` (a failed
+        capture raises); on the CPU it is ``fn`` itself."""
+        self.metrics.note_compile()
+        if self.device.type == "cuda":
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(self.device)
+            fn = _Graph(fn, example, self._graph_pool, self._capture_stream)
+        self._programs[key] = fn
+        return fn
+
+
+def _tensors(*arrays):
+    """Host arrays as CPU tensors (no copy), a program's inputs."""
+    return [torch.from_numpy(a) for a in arrays]

@@ -1,7 +1,8 @@
 """Serving metrics: plain counters, gauges and latency histograms,
 exposed as one plain-dict snapshot (counterpart of
 ``paddle_tpu/serving/metrics.py``; the port has no observability
-registry yet). PyTorch runs eagerly, so there is no compile count.
+registry yet). A compile is one program the engine builds: a captured
+CUDA graph on CUDA, the plain function on the CPU.
 """
 from __future__ import annotations
 
@@ -73,6 +74,9 @@ class EngineMetrics:
         self.decode_steps = 0
         self.prompt_tokens = 0
         self.generated_tokens = 0
+        self.compile_count = 0
+        self.compile_bound = 0       # 0: no bound (the engine sets it)
+        self.aot_cache_loads = 0     # no AOT program cache yet: stays 0
         # gauges (engine pushes current values)
         self.queue_depth = 0
         self.running = 0
@@ -86,9 +90,18 @@ class EngineMetrics:
         self.prefill_step_s = Histogram()
         self.decode_step_s = Histogram()
 
+    def note_compile(self):
+        """One program built; raises past ``compile_bound``."""
+        self.compile_count += 1
+        if self.compile_bound and self.compile_count > self.compile_bound:
+            raise RuntimeError(
+                f"recompile storm: {self.compile_count} compiles exceeds "
+                f"the declared bound {self.compile_bound} — a shape "
+                f"escaped the bucket set")
+
     def snapshot(self):
         """Plain-dict view of everything (the reference's keys, less the
-        compile and fleet counters)."""
+        fleet counters)."""
         elapsed = max(self.clock() - self.started_t, 1e-9)
         return {
             "uptime_s": elapsed,
@@ -117,6 +130,11 @@ class EngineMetrics:
                 "total": self.pages_total,
                 "utilization": (self.pages_in_use / self.pages_total
                                 if self.pages_total else 0.0),
+            },
+            "compiles": {
+                "count": self.compile_count,
+                "bound": self.compile_bound,
+                "cache_loads": self.aot_cache_loads,
             },
             "ttft_ms": self.ttft.summary(),
             "inter_token_ms": self.inter_token.summary(),

@@ -39,14 +39,13 @@ any faithful implementation: ``|dg| <= 2 ulp(g) + 2^-22``.
 Every word is a uint32 value held in ``torch.int64`` (torch's uint32
 lacks the ops), masked with ``0xFFFFFFFF`` after each add and shift.
 :func:`sample_tokens` draws the ``[B, V]`` noise of all rows in one
-vectorised pass on the logits' device from ``[B]`` keys, folded from the
-seed and position tensors where those live, with no host generator, so
-the draw can live inside a captured graph. Seeds and
-positions are cast to int32 first, as the reference casts them.
+vectorised pass on the logits' device from ``[B]`` keys folded there,
+with no host generator and no host read, so the draw can live inside a
+captured graph. Seeds and positions keep their low 32 bits, as the
+reference's int32 cast does.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 __all__ = ["fold_in", "gumbel", "gumbel_noise", "prng_key", "random_bits",
@@ -191,23 +190,24 @@ def sample_tokens(logits, seeds, positions, temperatures, top_ks, top_ps,
 
     logits ``[B, V]`` (a tensor on the sampling device); the per-row
     seeds/positions/top_ks (ints) and temperatures/top_ps (floats) are
-    sequences or tensors -> token ids ``[B]`` int32 on logits' device.
-    ``noise`` (``[B, V]``) replaces the Gumbel draws, which otherwise
-    come from (seed, position) for every row in one pass (none when
-    every row is greedy; greedy rows ignore theirs).
+    sequences, arrays or tensors on any device -> token ids ``[B]``
+    int32 on logits' device. ``noise`` (``[B, V]``) replaces the Gumbel
+    draws, which otherwise come from (seed, position) for every row in
+    one pass on the logits' device, greedy rows too (they ignore
+    theirs), as the reference's traced sampler draws them. Given tensors
+    on the logits' device it reads nothing back to the host, so a CUDA
+    graph can capture it.
     """
     dev = logits.device
-    V = logits.shape[-1]
-    temps = np.asarray(temperatures, np.float32)
+
+    def on_dev(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
     if noise is None:
-        noise = 0.0
-        if (temps > 0.0).any():
-            # the [B] keys are folded where the seeds live (the host for
-            # the engine's lists), the [B, V] noise on the logits' device
-            key = fold_in(prng_key(seeds), positions)
-            noise = gumbel(tuple(k.to(dev) for k in key), V)
+        key = fold_in(prng_key(on_dev(seeds, torch.int64)),
+                      on_dev(positions, torch.int64))
+        noise = gumbel(key, logits.shape[-1])
     return _sample_rows(
-        logits, torch.as_tensor(temps, device=dev),
-        torch.as_tensor(np.asarray(top_ks, np.int32), device=dev),
-        torch.as_tensor(np.asarray(top_ps, np.float32), device=dev),
-        torch.as_tensor(noise, dtype=torch.float32, device=dev))
+        logits, on_dev(temperatures, torch.float32),
+        on_dev(top_ks, torch.int32), on_dev(top_ps, torch.float32),
+        on_dev(noise, torch.float32))

@@ -59,23 +59,44 @@ Phases, in order (any failure raises and exits non-zero):
    seeded batch of 4 x 1024 tokens; every loss is finite, the last is
    below the first by more than ``LOSS_DROP``, every parameter ends
    with a finite gradient, and each step launches each kernel exactly as
-   often as the model has call sites; then one step under
+   often as the model has call sites. Every train phase below runs the
+   step as ``to_static`` captures it, one CUDA graph (``_compiled`` at
+   1), its first call's ``WARMUP_CALLS`` eager warm-ups counted with the
+   launches; here the same 10 steps of a copy through
+   ``dygraph_function`` (eagerly) first, and the captured run equals it
+   bit for bit (losses and final weights); the first call's time and
+   peak memory apart from the steady ones; then one replayed step under
    ``torch.profiler`` says where a step's time goes;
 8. guarded training: the same model, weights and batch through the
    reference's optimized, guarded step (``to_static(amp_policy="bf16",
    guard=True)``, ``AdamW(fused=True, guard=True)``) watched by a
    ``TrainingSentinel``: 10 clean steps (every action OK, 3091 guarded
    regions, losses within ``TRAJECTORY_TOL`` of phase 7's), then a
-   ``nan_grad`` fault in the word embedding's gradient: the step is
+   ``nan_grad`` fault in the word embedding's gradient (that step through
+   ``dygraph_function``, under the fault plan: the step is
    classified ``nan_grad`` with one bad region, that 128-row block keeps
-   its p, m and v, the rest moves, the embedding's beta powers hold;
-   launch counts exact; its breakdown and profile;
+   its p, m and v, the rest moves, the embedding's beta powers hold),
+   and one more captured step; launch counts exact; its breakdown and
+   profile;
 9. fused, unguarded: ``AdamW(fused=True)`` at depth 2 against
-   ``AdamW(fused=False)``, 3 steps;
+   ``AdamW(fused=False)``, 3 steps; then the lr as device state: a
+   depth-2 guarded, fused step under ``LinearWarmup`` stepped between 6
+   captured calls equals 6 eager steps bit for bit, and so does the
+   same step given its batches on the CPU (placed on the card by the
+   state it changes, captured, its batches staged into device buffers);
+   the fault hooks' counts over a first call, two more, a new shape,
+   ``set_lr`` and a call; a captured ``Linear(6, 3)`` step against its
+   eager twin: without a clear ``.grad`` accumulates over 3 calls, with
+   ``zero_grad()`` or ``zero_grad(set_to_none=False)`` weights and
+   ``.grad`` follow eager steps, returned losses survive later calls;
+   a step drawing from its own generator fails its capture and dropout
+   on the default one draws fresh masks each replay;
 10. rollback: at depth 2, a fault-free run and a run with ``nan_grad`` on
    steps 7 and 8 (checkpoint at 4, ``skip_limit`` 2): detected at step
-   7, 2 skips, 1 rollback, and the resumed run's losses and weights
-   equal the fault-free run's bit for bit;
+   7, 2 skips, 1 rollback, and the resumed run's (eager) losses and
+   weights equal the fault-free (captured) run's bit for bit; the step-4
+   checkpoint restored into the captured run replays as one eager step
+   from it, bit for bit;
 11. (run after phase 6) RMSNorm and block-sparse attention kernels:
    ``rms_fwd`` at rows 8, 1000, 8192 by hidden 2048, 4096, 8192, f32 and
    bf16 x with an f32, a bf16 or no weight, within one bf16 ulp (f32
@@ -92,7 +113,9 @@ Phases, in order (any failure raises and exits non-zero):
    pattern, ``nn.Linear(2048, 2048)``, the residual) takes 5 steps of
    ``to_static(amp_policy="bf16")`` + ``AdamW(1e-3, fused=True)`` on 2 x
    4096 tokens: losses finite and falling, every gradient finite, the
-   pattern analysed once and memoised after, launches exact per step;
+   pattern analysed once and memoised after (the capture finds it in
+   the memo), launches exact per step; a step taking the CSR as an
+   argument fails its capture;
 13. (run after phase 11) shapes no kernel takes: ``gpt3_tiny`` (head_dim
    16) trains 3 f32 steps (dropout 0, ``to_static``, ``AdamW(fused=
    False)``) on the card and on the CPU from the same weights and batch,
@@ -182,6 +205,7 @@ RMS_OPS_PER_ELEM = 4                 # square, sum, scale, weight
 # the sparse block path: batch, sequence, mask block, steps (hidden 2048,
 # 16 heads of 128: GPT-1.3B's widths)
 SB_B, SB_S, SB_BLOCK, SB_STEPS = 2, 4096, 64, 5
+LR_STEPS = 6                         # captured steps under LinearWarmup
 TINY_STEPS = 3                       # gpt3_tiny on the card against the CPU
 TINY_REL = 1e-4                      # their f32 losses, relative
 LN_WIDE = 5120                       # past MAX_HIDDEN: the LN composition
@@ -1109,6 +1133,7 @@ def phase_tiny():
     import copy
 
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
     from paddle_tpu_torch.nn import functional as F
     cfg = gpt3_tiny(fused_ln=True)
@@ -1148,10 +1173,12 @@ def phase_tiny():
         if not (math.isfinite(g) and abs(g - c) <= TINY_REL * abs(c)):
             raise AssertionError(f"tiny GPT losses differ beyond {TINY_REL}"
                                  f": {losses}")
-    expect = step_launches(cfg, TINY_STEPS, fused=False, guard=False)
+    # the card's first call also runs WARMUP_CALLS eager steps
+    steps = TINY_STEPS + WARMUP_CALLS
+    expect = step_launches(cfg, steps, fused=False, guard=False)
     expect.update(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0)
     if launches != expect or routed["flash_attention"] != \
-            cfg.num_layers * TINY_STEPS or routed["layer_norm"] or \
+            cfg.num_layers * steps or routed["layer_norm"] or \
             routed["fused_ln_residual"]:
         raise AssertionError(f"tiny GPT: launches {launches} (expected "
                              f"{expect}), routed {routed}")
@@ -1426,54 +1453,57 @@ def time_adam_kernels(gen):
 
 # -------------------------------------------------------------- training
 def phase_train():
-    """GPT-1.3B, 10 train steps through the port's entry points."""
+    """GPT-1.3B, 10 train steps through the port's entry points: first a
+    copy through ``dygraph_function`` (eagerly), then the step captured
+    by ``to_static``, which must match it bit for bit."""
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_1p3b
-    from paddle_tpu_torch.nn import functional as F
-    cfg = gpt3_1p3b(fused_ln=True, dropout=0.0, attention_dropout=0.0)
-    vocab = cfg.vocab_size
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
     t0 = time.perf_counter()
-    model = GPTForCausalLM(cfg, device="cuda",
-                           generator=torch.Generator("cuda").manual_seed(0))
-    model.train()
-    opt = pt.optimizer.AdamW(learning_rate=1e-4,
-                             parameters=model.parameters(), fused=False)
-
-    @pt.jit.to_static(amp_policy="bf16")
-    def train_step(ids, labels):
-        opt.clear_grad()
-        logits = model(ids)
-        loss = F.cross_entropy(logits.reshape([-1, vocab]),
-                               labels.reshape([-1]))
-        loss.backward()
-        opt.step()
-        return loss
-
-    data = torch.Generator("cuda").manual_seed(1)
-    ids = torch.randint(0, vocab, (B, S), device="cuda", generator=data)
-    labels = torch.randint(0, vocab, (B, S), device="cuda", generator=data)
+    cfg, twin = _gpt()
+    vocab = cfg.vocab_size
+    twin_opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                  parameters=twin.parameters(), fused=False)
+    eager_step = _train_step(twin, twin_opt, vocab, guard=False)
+    ids, labels = _batch(vocab, 1)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in twin.parameters())
     print(f"[train] gpt3_1p3b(fused_ln=True, dropout=0): {n_params / 1e9:.3f}"
           f" B f32 params, built in {time.perf_counter() - t0:.1f} s; "
           f"batch {B} x {S} tokens, AdamW(1e-4, fused=False), "
           f"to_static(amp_policy='bf16')")
-
-    torch.cuda.reset_peak_memory_stats()
+    # the eager run first: the state tensors its optimizer registers
+    # would key a new capture if they came after the first call
     reset_launches()
-    losses, step_s = [], []
+    eager = []
     for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        loss = train_step(ids, labels).item()         # synchronises
-        step_s.append(time.perf_counter() - t0)
-        losses.append(loss)
+        with pt.amp.activation_residency("bf16"):
+            eager.append(eager_step.dygraph_function(ids, labels).item())
+    eager_launches = read_launches("train, dygraph_function")
+    if eager_launches != step_launches(cfg, TRAIN_STEPS, fused=False,
+                                       guard=False):
+        raise AssertionError(f"dygraph launches {eager_launches}")
+    eager_weights = [p.detach() for p in twin.parameters()]
+    del twin, twin_opt, eager_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, model = _gpt()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters(), fused=False)
+    train_step = _train_step(model, opt, vocab, guard=False)
+    reset_launches()
+    losses, step_s, first = captured_run(train_step, [(ids, labels)] *
+                                         TRAIN_STEPS)
     launches = read_launches("train")
-    peak = torch.cuda.max_memory_allocated()
-    expect = step_launches(cfg, TRAIN_STEPS, fused=False, guard=False)
+    expect = step_launches(cfg, TRAIN_STEPS + WARMUP_CALLS, fused=False,
+                           guard=False)
     print(f"[train] losses {losses}")
-    print(f"[train] launches {launches}")
+    print(f"[train] launches {launches} ({TRAIN_STEPS} steps and the "
+          f"first call's {WARMUP_CALLS} eager warm-ups)")
     if launches != expect:
         raise AssertionError(f"train launches {launches} != {expect}")
+    if len(train_step._compiled) != 1:
+        raise AssertionError(f"{len(train_step._compiled)} captures")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] <= losses[0] - LOSS_DROP:
@@ -1484,16 +1514,50 @@ def phase_train():
     if missing or bad:
         raise AssertionError(f"parameters without a finite gradient: "
                              f"missing {missing}, non-finite {bad}")
+    differ = [n for (n, a), b in zip(model.named_parameters(), eager_weights)
+              if not torch.equal(a, b)]
+    print(f"[train] dygraph_function from the same initial state: losses "
+          f"{eager}; {len(differ)} of {len(eager_weights)} final weights "
+          f"differ from the captured run's")
+    if eager != losses or differ:
+        raise AssertionError(f"captured and eager runs differ: losses "
+                             f"{losses} / {eager}, weights {differ}")
+    del eager_weights
     steady = statistics.median(step_s[1:])
-    card = card_line()
     print(f"[train] every one of {len(list(model.parameters()))} parameters "
-          f"has a finite gradient (LayerNorm weights included)")
-    print(f"[train] {card}: step {steady * 1e3:.1f} ms (median of steps "
-          f"2-{TRAIN_STEPS}; first {step_s[0] * 1e3:.1f} ms), "
-          f"{B * S / steady:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
+          f"has a finite gradient (LayerNorm weights included); the "
+          f"captured run's {TRAIN_STEPS} losses and final weights equal "
+          f"the eager run's bit for bit")
+    print(f"[train] {card_line()}: step {steady * 1e3:.1f} ms (median of "
+          f"steps 2-{TRAIN_STEPS}), {B * S / steady:.0f} tokens/s; {first}")
     breakdown(model, opt, ids, labels, vocab, steady)
     profile_train_step(train_step, ids, labels, steady)
     return launches, losses
+
+
+def captured_run(train_step, batches):
+    """Call a ``to_static`` step once a batch: (losses, wall seconds a
+    step, the first call's line). The first call discovers, captures
+    and replays once: its time and its peak memory are its own, and the
+    peak statistics are reset after it for the steady peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        losses.append(train_step(*batch).item())          # synchronises
+        step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            first = (torch.cuda.max_memory_allocated(),
+                     torch.cuda.max_memory_reserved())
+            torch.cuda.reset_peak_memory_stats()
+    gib = 2 ** 30
+    line = (f"first call (discovery, capture, first replay) "
+            f"{step_s[0] * 1e3:.1f} ms, peak {first[0] / gib:.2f} GiB "
+            f"allocated / {first[1] / gib:.2f} reserved; steady peak "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} / "
+            f"{torch.cuda.max_memory_reserved() / gib:.2f} GiB")
+    return losses, step_s, line
 
 
 def step_launches(cfg, steps, fused, guard):
@@ -1554,7 +1618,8 @@ def profile_train_step(train_step, ids, labels, step_s, tag="train"):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"[{tag} profile] one step: {busy_ms:.1f} ms of kernel time, "
+    print(f"[{tag} profile] one step: {busy_ms:.1f} ms of kernel time in "
+          f"{sum(e.count for e in events)} kernels, "
           f"{100 * busy_ms / (step_s * 1e3):.1f} % of the {step_s * 1e3:.1f}"
           f" ms step; by kernel:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
@@ -1578,12 +1643,16 @@ def _gpt(num_layers=None):
     return cfg, model
 
 
-def _train_step(model, opt, vocab, guard):
+def _train_step(model, opt, vocab, guard, host_batch=False):
+    """The GPT train step under ``to_static``; ``host_batch``: it takes
+    its batch on the CPU and moves it to the card itself."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.nn import functional as F
 
     @pt.jit.to_static(amp_policy="bf16", guard=guard)
     def train_step(ids, labels):
+        if host_batch:
+            ids, labels = ids.to("cuda"), labels.to("cuda")
         opt.clear_grad()
         logits = model(ids)
         loss = F.cross_entropy(logits.reshape([-1, vocab]),
@@ -1628,8 +1697,12 @@ def _check_held_block(opt, emb_name, emb, rows, before):
 
 def phase_train_guarded(unfused_losses):
     """GPT-1.3B through the reference's optimized, guarded step, watched
-    by a TrainingSentinel; a nan_grad fault after 10 clean steps."""
+    by a TrainingSentinel; a nan_grad fault after 10 clean steps. Steps
+    1-10 and 12 run the captured step; step 11, the planted fault, runs
+    through ``dygraph_function`` (a fault hook fires in Python, never in
+    a replay)."""
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
     from paddle_tpu_torch.ops.cuda import optim
     from paddle_tpu_torch.resilience import (FaultInjector, FaultPlan,
                                              FaultSpec, SentinelAction,
@@ -1644,11 +1717,11 @@ def phase_train_guarded(unfused_losses):
     emb_name, emb = next(iter(model.named_parameters()))
     if emb_name != "gpt.embeddings.word_embeddings.weight":
         raise AssertionError(f"first parameter is {emb_name}")
-    plan = FaultPlan([FaultSpec("optimizer.grads", "nan_grad",
-                                at=TRAIN_STEPS)], seed=0)
+    # installed around step 11 alone: its first occurrence
+    plan = FaultPlan([FaultSpec("optimizer.grads", "nan_grad", at=0)],
+                     seed=0)
     # the element corrupt_array poisons, and its 128-row block
-    idx = random.Random(plan.seed * 1000003 + TRAIN_STEPS * 101).randrange(
-        emb.numel())
+    idx = random.Random(plan.seed * 1000003).randrange(emb.numel())
     br, _ = optim._regions(emb.shape)
     block = idx // emb.shape[1] // br
     rows = slice(block * br, (block + 1) * br)
@@ -1661,41 +1734,54 @@ def phase_train_guarded(unfused_losses):
 
     sent = TrainingSentinel(skip_limit=3)
     losses, step_s, actions, summaries = [], [], [], []
+    gib = 2 ** 30
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    with FaultInjector(plan):
-        sentinel.install(sent)
-        try:
-            for step in range(1, TRAIN_STEPS + 3):
-                if step == TRAIN_STEPS + 1:
-                    st = opt.state_dict()
-                    before = {k: st[f"{emb_name}_{k}"].clone() for k in (
-                        "moment1", "moment2", "beta1_pow", "beta2_pow")}
-                    before["p"] = emb.detach().clone()
+    sentinel.install(sent)
+    try:
+        for step in range(1, TRAIN_STEPS + 3):
+            if step == TRAIN_STEPS + 1:
+                st = opt.state_dict()
+                before = {k: st[f"{emb_name}_{k}"].clone() for k in (
+                    "moment1", "moment2", "beta1_pow", "beta2_pow")}
+                before["p"] = emb.detach().clone()
+                with FaultInjector(plan), \
+                        pt.amp.activation_residency("bf16"):
+                    t0 = time.perf_counter()
+                    loss = train_step.dygraph_function(ids, labels).item()
+            else:
                 t0 = time.perf_counter()
                 train_step(ids, labels)
-                summary = opt.guard_summary()                # synchronises
-                step_s.append(time.perf_counter() - t0)
                 loss = train_step.last_guard["loss"]
-                actions.append(sent.observe(step, loss=loss,
-                                            summary=summary))
-                losses.append(loss)
-                summaries.append(summary)
-                if step == TRAIN_STEPS + 1:
-                    held = _check_held_block(opt, emb_name, emb, rows,
-                                             before)
-        finally:
-            sentinel.uninstall(sent)
+            summary = opt.guard_summary()                # synchronises
+            step_s.append(time.perf_counter() - t0)
+            if step == 1:
+                first = (torch.cuda.max_memory_allocated(),
+                         torch.cuda.max_memory_reserved())
+                torch.cuda.reset_peak_memory_stats()
+            actions.append(sent.observe(step, loss=loss, summary=summary))
+            losses.append(loss)
+            summaries.append(summary)
+            if step == TRAIN_STEPS + 1:
+                held = _check_held_block(opt, emb_name, emb, rows, before)
+    finally:
+        sentinel.uninstall(sent)
     launches = read_launches("guarded train")
-    peak = torch.cuda.max_memory_allocated()
+    peak = (torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
     clean = losses[:TRAIN_STEPS]
     print(f"[guarded train] losses {losses}")
     print(f"[guarded train] actions {[a.name for a in actions]}; "
           f"summaries {summaries}")
-    print(f"[guarded train] launches {launches}")
-    expect = step_launches(cfg, TRAIN_STEPS + 2, fused=True, guard=True)
+    print(f"[guarded train] launches {launches} ({TRAIN_STEPS + 1} captured "
+          f"steps, the first call's {WARMUP_CALLS} warm-ups, 1 eager step)")
+    expect = step_launches(cfg, TRAIN_STEPS + 2 + WARMUP_CALLS, fused=True,
+                           guard=True)
     if launches != expect:
         raise AssertionError(f"guarded launches {launches} != {expect}")
+    if len(train_step._compiled) != 1:
+        raise AssertionError(f"{len(train_step._compiled)} captures")
     want = [SentinelAction.OK] * TRAIN_STEPS + [SentinelAction.SKIP,
                                                 SentinelAction.OK]
     if actions != want:
@@ -1728,9 +1814,11 @@ def phase_train_guarded(unfused_losses):
     steady = statistics.median(step_s[1:TRAIN_STEPS])
     print(f"[guarded train] {card_line()}: step {steady * 1e3:.1f} ms "
           f"(median of steps 2-{TRAIN_STEPS}, host clock to the guard "
-          f"summary's read; first {step_s[0] * 1e3:.1f} ms), "
-          f"{B * S / steady:.0f} tokens/s, peak memory "
-          f"{peak / 2**30:.2f} GiB")
+          f"summary's read), {B * S / steady:.0f} tokens/s; first call "
+          f"(discovery, capture, first replay) {step_s[0] * 1e3:.1f} ms, "
+          f"peak {first[0] / gib:.2f} GiB allocated / {first[1] / gib:.2f} "
+          f"reserved; steady peak {peak[0] / gib:.2f} / "
+          f"{peak[1] / gib:.2f} GiB (the eager step 11 included)")
     breakdown(model, opt, ids, labels, cfg.vocab_size, steady,
               tag="guarded train")
     profile_train_step(train_step, ids, labels, steady, tag="guarded train")
@@ -1741,6 +1829,7 @@ def phase_fused_unguarded():
     """AdamW(fused=True) without the guard, at depth 2, against
     AdamW(fused=False) from the same weights on the same batch."""
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
     runs = {}
     for fused in (False, True):
         cfg, model = _gpt(num_layers=2)
@@ -1751,8 +1840,10 @@ def phase_fused_unguarded():
         reset_launches()
         runs[fused] = [step(ids, labels).item() for _ in range(3)]
         launches = read_launches(f"fused={fused} train")
+        if len(step._compiled) != 1:
+            raise AssertionError(f"{len(step._compiled)} captures")
         del model, opt, step
-    expect = step_launches(cfg, 3, fused=True, guard=False)
+    expect = step_launches(cfg, 3 + WARMUP_CALLS, fused=True, guard=False)
     delta = max(abs(a - b) for a, b in zip(runs[True], runs[False]))
     print(f"[fused adamw] depth 2, 3 steps: fused {runs[True]}, unfused "
           f"{runs[False]}, largest |delta| {delta:.3e} (limit 1e-3); "
@@ -1767,7 +1858,9 @@ def phase_fused_unguarded():
 def _chaos_run(ckpt_dir, plan):
     """TestChaosAcceptance's loop at GPT-1.3B width and depth 2: one
     seeded batch a step, a checkpoint after step CHAOS_CKPT, rollback
-    after CHAOS_SKIPS anomalies in a row."""
+    after CHAOS_SKIPS anomalies in a row. Without a plan the captured
+    step runs; with one, ``dygraph_function`` does (a fault hook fires
+    in Python, never in a replay)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.resilience import (Checkpointer, FaultInjector,
                                              SentinelAction,
@@ -1781,19 +1874,26 @@ def _chaos_run(ckpt_dir, plan):
     sent = TrainingSentinel(checkpointer=ck, model=model, optimizer=opt,
                             skip_limit=CHAOS_SKIPS, lr_cooldown=1.0)
     inj = faultinject.install(FaultInjector(plan)) if plan else None
+
+    def run(batch):
+        if plan is None:
+            step_fn(*batch)
+            return step_fn.last_guard["loss"]
+        with pt.amp.activation_residency("bf16"):
+            return step_fn.dygraph_function(*batch).item()
+
     losses, executed, io_s = {}, 0, 0.0
     try:
         step = 1
         while step <= CHAOS_TOTAL:
-            step_fn(*_batch(cfg.vocab_size, 1000 + step))
+            loss = run(_batch(cfg.vocab_size, 1000 + step))
             executed += 1
-            act = sent.observe(step, loss=step_fn.last_guard["loss"],
-                               summary=opt.guard_summary())
+            act = sent.observe(step, loss=loss, summary=opt.guard_summary())
             if act is SentinelAction.ROLLBACK:
                 step = sent.resume_step
                 continue
             if act is SentinelAction.OK:
-                losses[step] = step_fn.last_guard["loss"]
+                losses[step] = loss
                 if step == CHAOS_CKPT:
                     t0 = time.perf_counter()
                     ck.save_train_state(step, model, opt)
@@ -1803,13 +1903,47 @@ def _chaos_run(ckpt_dir, plan):
     finally:
         if inj is not None:
             faultinject.uninstall(inj)
-    return cfg, model, losses, sent, executed, io_s
+    return cfg, model, opt, step_fn, ck, losses, sent, executed, io_s
+
+
+def _resume_into_capture(cfg, model, opt, step_fn, ck):
+    """Restore the step-CHAOS_CKPT checkpoint into a captured run (in
+    place: the graph keeps replaying the same memory) and take the next
+    step once by a replay and once eagerly from the same checkpoint:
+    loss, weights and accumulators bit for bit."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.resilience import auto_resume
+    batch = _batch(cfg.vocab_size, 1000 + CHAOS_CKPT + 1)
+    runs = []
+    for eager in (False, True):
+        if auto_resume(ck, model, opt, step=CHAOS_CKPT)[0] != \
+                CHAOS_CKPT + 1:
+            raise AssertionError("no step-4 checkpoint to resume from")
+        if eager:
+            with pt.amp.activation_residency("bf16"):
+                loss = step_fn.dygraph_function(*batch).item()
+        else:
+            step_fn(*batch)
+            loss = step_fn.last_guard["loss"]
+        runs.append((loss, [p.detach().clone() for p in model.parameters()],
+                     [t.clone() for t in opt.state_dict().values()]))
+    (replayed, w1, a1), (eager, w2, a2) = runs
+    differ = sum(not torch.equal(a, b) for a, b in zip(w1 + a1, w2 + a2))
+    print(f"[rollback] step-{CHAOS_CKPT} checkpoint restored into the "
+          f"captured run: the replay's loss {replayed}, eager {eager}; "
+          f"{differ} of {len(w1 + a1)} weights and accumulators differ")
+    if replayed != eager or differ or len(step_fn._compiled) != 1:
+        raise AssertionError(f"a replay from the restored checkpoint is "
+                             f"not one eager step ({differ} tensors differ, "
+                             f"{len(step_fn._compiled)} captures)")
 
 
 def phase_rollback():
     """The chaos acceptance proof at full width, depth 2: a fault-free
-    run and a run with nan_grad on steps 7 and 8 end with the same
-    losses and weights, bit for bit."""
+    run (captured) and a run with nan_grad on steps 7 and 8 (eager) end
+    with the same losses and weights, bit for bit; then a checkpoint
+    restored into the captured run replays as one eager step."""
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
     from paddle_tpu_torch.resilience import FaultPlan, FaultSpec
     plan = FaultPlan([FaultSpec("optimizer.grads", "nan_grad",
                                 at=CHAOS_FAULT - 1, times=CHAOS_SKIPS)],
@@ -1817,21 +1951,39 @@ def phase_rollback():
     reset_launches()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        cfg, clean_model, clean, _, n_clean, io_clean = _chaos_run(
-            str(Path(tmp) / "clean"), None)
-        _, model, faulted, sent, n_fault, io_fault = _chaos_run(
+        (cfg, clean_model, clean_opt, clean_fn, clean_ck, clean, _, n_clean,
+         io_clean) = _chaos_run(str(Path(tmp) / "clean"), None)
+        clean_weights = [p.detach().clone()
+                         for p in clean_model.parameters()]
+        # before the faulted run, whose optimizer registers new state
+        # tensors, which would key a new capture
+        _resume_into_capture(cfg, clean_model, clean_opt, clean_fn,
+                             clean_ck)
+        del clean_model, clean_opt, clean_fn
+        _, model, _, _, _, faulted, sent, n_fault, io_fault = _chaos_run(
             str(Path(tmp) / "faulted"), plan)
         ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*.pkl"))
-    launches = read_launches("rollback")
-    print(f"[rollback] depth 2, {n_clean} + {n_fault} steps in "
-          f"{time.perf_counter() - t0:.1f} s (checkpoint saves "
-          f"{io_clean + io_fault:.1f} s, {ckpt_bytes / 2**30:.2f} GiB on disk "
-          f"at the end); anomalies {[a.to_dict() for a in sent.anomalies]}, "
-          f"skips {sent.skips_total}, rollbacks {sent.rollbacks}, resumed "
-          f"at step {sent.resume_step}")
+    print(f"[rollback] depth 2, {n_clean} captured + {n_fault} eager steps "
+          f"in {time.perf_counter() - t0:.1f} s (checkpoint saves "
+          f"{io_clean + io_fault:.1f} s, {ckpt_bytes / 2**30:.2f} GiB on "
+          f"disk at the end); anomalies "
+          f"{[a.to_dict() for a in sent.anomalies]}, skips "
+          f"{sent.skips_total}, rollbacks {sent.rollbacks}, resumed at step "
+          f"{sent.resume_step}")
     print(f"[rollback] fault-free losses {clean}")
     print(f"[rollback] resumed losses    {faulted}")
-    expect = step_launches(cfg, n_clean + n_fault, fused=True, guard=True)
+    if faulted != clean:
+        raise AssertionError("resumed losses differ from the fault-free run")
+    differ = [n for (n, a), b in zip(model.named_parameters(), clean_weights)
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"resumed weights differ: {differ}")
+    print(f"[rollback] the resumed (eager) run's {len(faulted)} losses and "
+          f"{len(clean_weights)} weights equal the fault-free (captured) "
+          f"run's bit for bit")
+    launches = read_launches("rollback")
+    expect = step_launches(cfg, n_clean + WARMUP_CALLS + n_fault + 2,
+                           fused=True, guard=True)
     if launches != expect:
         raise AssertionError(f"rollback launches {launches} != {expect}")
     if not sent.anomalies or sent.anomalies[0].step != CHAOS_FAULT or \
@@ -1841,17 +1993,232 @@ def phase_rollback():
     if (sent.skips_total, sent.rollbacks) != (CHAOS_SKIPS, 1):
         raise AssertionError(f"{sent.skips_total} skips, {sent.rollbacks} "
                              f"rollbacks")
-    if faulted != clean:
-        raise AssertionError("resumed losses differ from the fault-free run")
-    differ = [n for (n, a), (_, b) in zip(model.named_parameters(),
-                                          clean_model.named_parameters())
-              if not torch.equal(a, b)]
-    if differ:
-        raise AssertionError(f"resumed weights differ: {differ}")
-    print(f"[rollback] the resumed run's {len(faulted)} losses and "
-          f"{len(list(model.parameters()))} weights equal the fault-free "
-          f"run's bit for bit")
     return launches
+
+
+def phase_lr_schedule():
+    """The lr as device state under capture. A 2-layer GPT-1.3B (full
+    width, ``AdamW(fused=True, guard=True)``, whose fused kernel, rank-1
+    loop and decoupled decay all read the lr tensor) under
+    ``LinearWarmup``, stepped between calls: LR_STEPS captured steps
+    against the same steps of a copy through ``dygraph_function``, bit
+    for bit, with one capture. Then the fault hooks' occurrences over a
+    first call, two more, a new batch shape, ``set_lr`` and a call of a
+    guarded ``Linear(6, 3)`` step, beside the reference's (which fires
+    them at trace time only)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
+    from paddle_tpu_torch.optimizer import lr
+    from paddle_tpu_torch.resilience import FaultInjector, FaultPlan
+
+    def build(host_batch=False):
+        cfg, model = _gpt(num_layers=2)
+        sched = lr.LinearWarmup(1e-3, warmup_steps=4, start_lr=1e-5,
+                                end_lr=1e-3)
+        opt = pt.optimizer.AdamW(learning_rate=sched,
+                                 parameters=model.named_parameters(),
+                                 fused=True, guard=True)
+        return cfg, model, sched, _train_step(model, opt, cfg.vocab_size,
+                                              guard=True,
+                                              host_batch=host_batch)
+
+    # the eager copy first: its optimizer's state registers before the
+    # captured step's first call
+    cfg, twin, sched, step = build()
+    batches = [_batch(cfg.vocab_size, 2000 + i) for i in range(LR_STEPS)]
+    eager, lrs = [], []
+    for batch in batches:
+        lrs.append(sched())
+        with pt.amp.activation_residency("bf16"):
+            eager.append(step.dygraph_function(*batch).item())
+        sched.step()
+    eager_weights = [p.detach() for p in twin.parameters()]
+    del twin, sched, step
+    cfg, model, sched, step = build()
+    reset_launches()
+    losses = []
+    for batch in batches:
+        step(*batch)
+        losses.append(step.last_guard["loss"])
+        sched.step()
+    launches = read_launches("lr schedule")
+    differ = sum(not torch.equal(a, b)
+                 for a, b in zip(model.parameters(), eager_weights))
+    print(f"[lr schedule] depth 2, LinearWarmup lrs {lrs}: captured losses "
+          f"{losses}, eager {eager}; {differ} of {len(eager_weights)} "
+          f"weights differ; {len(step._compiled)} capture(s)")
+    expect = step_launches(cfg, LR_STEPS + WARMUP_CALLS, fused=True,
+                           guard=True)
+    if launches != expect:
+        raise AssertionError(f"lr schedule launches {launches} != {expect}")
+    if losses != eager or differ or len(step._compiled) != 1:
+        raise AssertionError("the captured step did not follow the "
+                             "schedule as the eager one did")
+    del model, step
+    gc.collect()
+    check_host_batches(build, batches, eager, eager_weights)
+    del eager_weights
+    gc.collect()
+    check_linear_replays()
+
+    lin = pt.nn.Linear(6, 3, device="cuda")
+    opt = pt.optimizer.AdamW(learning_rate=0.05,
+                             parameters=lin.named_parameters(), guard=True)
+
+    @pt.jit.to_static(guard=True)
+    def linear_step(X, y):
+        opt.clear_grad()
+        loss = ((lin(X) - y) ** 2).mean()
+        loss.backward()
+        opt.step()
+        return loss
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    counts, entries = [], []
+    with FaultInjector(FaultPlan([])) as inj:
+        for i, n in enumerate((8, 8, 8, 5, 5)):
+            if i == 4:
+                opt.set_lr(0.01)
+            linear_step(torch.randn(n, 6, device="cuda", generator=gen),
+                        torch.randn(n, 3, device="cuda", generator=gen))
+            counts.append(inj.occurrences("optimizer.step"))
+            entries.append(len(linear_step._compiled))
+    print(f"[lr schedule] optimizer.step hook over first call, 2 more, a "
+          f"new batch shape, set_lr + a call: {counts} with {entries} "
+          f"captures (the reference on the CPU: [2, 2, 2, 3, 3] with "
+          f"[1, 1, 1, 2, 2]; a capture here fires {WARMUP_CALLS} warm-ups "
+          f"and the capture, a replay none)")
+    want = [1 + WARMUP_CALLS] * 3 + [2 + 2 * WARMUP_CALLS] * 2
+    if counts != want or entries != [1, 1, 1, 2, 2]:
+        raise AssertionError(f"hook counts {counts} != {want} or captures "
+                             f"{entries}")
+
+    # random numbers: a generator the graph was not given refuses the
+    # capture; the default one is registered, and each replay draws anew
+    X = torch.ones(8, 6, device="cuda")
+
+    @pt.jit.to_static
+    def own_generator(X):
+        opt.clear_grad()
+        loss = (lin(X) + torch.rand(8, 3, device="cuda", generator=gen)).sum()
+        loss.backward()
+        opt.step()
+        return loss
+
+    @pt.jit.to_static
+    def dropout_step(X):
+        opt.clear_grad()
+        y = torch.nn.functional.dropout(lin(X), 0.5)
+        y.sum().backward()
+        opt.step()
+        return y.detach() != 0
+
+    try:
+        own_generator(X)
+    except RuntimeError as e:
+        if "capturing own_generator failed" not in str(e):
+            raise
+    else:
+        raise AssertionError("a step drawing from its own generator captured")
+    masks = [dropout_step(X) for _ in range(3)]
+    fresh = [bool((a != b).any()) for a, b in zip(masks, masks[1:])]
+    print(f"[lr schedule] a step drawing from its own torch.Generator fails "
+          f"its capture; dropout on the default generator: "
+          f"{len(dropout_step._compiled)} capture, masks of 3 calls differ "
+          f"{fresh}")
+    if len(dropout_step._compiled) != 1 or not all(fresh):
+        raise AssertionError("replays do not draw fresh dropout masks")
+    return launches
+
+
+def check_host_batches(build, batches, eager, eager_weights):
+    """The step of :func:`phase_lr_schedule` given its batches on the
+    CPU (it moves them to the card itself): ``to_static`` places it by
+    the state it changes, on the card, captures it and stages each
+    batch into the graph's buffers. One capture; losses and weights
+    equal the eager steps'; launches exact (the placing call, the
+    warm-ups and the steps)."""
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
+    cfg, model, sched, step = build(host_batch=True)
+    host = [(ids.cpu(), labels.cpu()) for ids, labels in batches]
+    reset_launches()
+    losses = []
+    for batch in host:
+        step(*batch)
+        losses.append(step.last_guard["loss"])
+        sched.step()
+    launches = read_launches("lr schedule, CPU batches")
+    differ = sum(not torch.equal(a, b)
+                 for a, b in zip(model.parameters(), eager_weights))
+    graphs = [e.graph is not None for e in step._compiled.values()]
+    print(f"[lr schedule] batches on the CPU: captured losses {losses}; "
+          f"{differ} weights differ from the eager steps'; captures with "
+          f"a graph {graphs}")
+    expect = step_launches(cfg, len(host) + WARMUP_CALLS + 1, fused=True,
+                           guard=True)
+    if launches != expect:
+        raise AssertionError(f"CPU-batch launches {launches} != {expect}")
+    if losses != eager or differ or graphs != [True]:
+        raise AssertionError("a step given CPU batches was not captured "
+                             "on the card as the eager steps ran")
+
+
+def check_linear_replays():
+    """The replay's host side on a captured ``Linear(6, 3)`` step, each
+    against the same 3 calls of an eager twin from the same weights
+    (run first, so its state registers before the capture): a step that
+    runs backward without clearing adds each call's gradient to
+    ``.grad`` (the reference's ``_apply``); steps that clear by
+    ``zero_grad()`` or ``zero_grad(set_to_none=False)`` leave one call's
+    gradient and the weights of eager steps, bit for bit; each returned
+    loss is as it came back after the later calls."""
+    import paddle_tpu_torch as pt
+    gen = torch.Generator("cuda").manual_seed(11)
+    xs = [(torch.randn(8, 6, device="cuda", generator=gen),
+           torch.randn(8, 3, device="cuda", generator=gen))
+          for _ in range(3)]
+    for clear in ("none", "zero_grad", "zero_grad_in_place"):
+        runs = []
+        for captured in (False, True):
+            lin = pt.nn.Linear(6, 3, device="cuda")
+            if runs:
+                with torch.no_grad():
+                    for p, q in zip(lin.parameters(), first):
+                        p.copy_(q)
+            else:
+                first = [p.detach().clone() for p in lin.parameters()]
+            opt = pt.optimizer.AdamW(learning_rate=0.05,
+                                     parameters=lin.named_parameters())
+
+            def step(X, y, lin=lin, opt=opt):
+                if clear == "zero_grad":
+                    lin.zero_grad()
+                elif clear == "zero_grad_in_place":
+                    lin.zero_grad(set_to_none=False)
+                loss = ((lin(X) - y) ** 2).mean()
+                loss.backward()
+                if clear != "none":
+                    opt.step()
+                return loss
+
+            fn = pt.jit.to_static(step) if captured else step
+            losses = [(loss, loss.clone()) for loss in
+                      (fn(X, y) for X, y in xs)]
+            kept = all(torch.equal(a, b) for a, b in losses)
+            runs.append(([p.detach().clone() for p in lin.parameters()],
+                         [p.grad.clone() for p in lin.parameters()],
+                         [b for _, b in losses], kept))
+            if captured:
+                (entry,) = fn._compiled.values()
+                cleared = len(entry.cleared)
+        (w0, g0, l0, _), (w1, g1, l1, kept) = runs
+        same = all(map(torch.equal, w0 + g0 + l0, w1 + g1 + l1))
+        print(f"[linear replays] {clear}: captured weights, grads and "
+              f"losses equal eager's {same}; returned losses kept {kept}; "
+              f"{cleared} of 2 gradients seen cleared")
+        if not (same and kept and cleared == (0 if clear == "none" else 2)):
+            raise AssertionError(f"captured {clear} step differs from "
+                                 f"its eager twin")
 
 
 # ------------------------------------------- RMSNorm, block-sparse attention
@@ -2100,9 +2467,13 @@ class SparseBlock(torch.nn.Module):
 
 
 def phase_sparse_block():
-    """The sparse block path: 5 train steps through the port's public
-    layers, with exact launch counts."""
+    """The sparse block path: 5 captured train steps through the port's
+    public layers, with exact launch counts; the CSR lives outside the
+    step's arguments, so the captured step finds it in the pattern's
+    identity memo. A step that takes the CSR as an argument must fail
+    its capture: a replay would reuse the first call's pattern."""
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
     from paddle_tpu_torch.nn.functional import transformer
     from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
     gen = torch.Generator("cuda").manual_seed(4)
@@ -2142,19 +2513,14 @@ def phase_sparse_block():
           f"{bm.size} active, {cols.shape[-1]} entries a head) -> "
           f"Linear({HIDDEN}, {HIDDEN}) -> + x; batch {SB_B} x {SB_S}, "
           f"to_static(amp_policy='bf16'), AdamW(1e-3, fused=True)")
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    losses, step_s = [], []
-    for _ in range(SB_STEPS):
-        t0 = time.perf_counter()
-        losses.append(train_step(x, target).item())       # synchronises
-        step_s.append(time.perf_counter() - t0)
-        if len(losses) == 1:
-            first_analysis = stats["analysis_s"]
+    losses, step_s, first = captured_run(train_step,
+                                         [(x, target)] * SB_STEPS)
+    first_analysis = stats["analysis_s"]
     launches = read_launches("sparse block")
-    peak = torch.cuda.max_memory_allocated()
+    steps = SB_STEPS + WARMUP_CALLS          # the first call's warm-ups
     expect = {k: 0 for k in launches}
-    expect.update(rms_fwd=SB_STEPS, bsa_fwd=SB_STEPS, adam_update=2 * SB_STEPS)
+    expect.update(rms_fwd=steps, bsa_fwd=steps, adam_update=2 * steps)
     print(f"[sparse block] losses {losses}")
     print(f"[sparse block] launches {launches}; pattern cache "
           f"{[(h[1], int(h[0].sum())) if h else None for h in transformer._block_mask_cache.values()]}, "
@@ -2166,9 +2532,13 @@ def phase_sparse_block():
             not np.array_equal(hits[0][0], bm):
         raise AssertionError(f"the CSR was not recognised as the block "
                              f"pattern at {SB_BLOCK}")
-    if stats["analyses"] != 1 or stats["memo_hits"] != SB_STEPS - 1:
-        raise AssertionError(f"steps 2-{SB_STEPS} did not all hit the "
-                             f"identity memo: {stats}")
+    # the first warm-up analyses; the second and the capture hit the
+    # memo; replays run no Python
+    if stats["analyses"] != 1 or stats["memo_hits"] != WARMUP_CALLS or \
+            len(train_step._compiled) != 1:
+        raise AssertionError(f"the pattern was not analysed once and then "
+                             f"memoised: {stats}, "
+                             f"{len(train_step._compiled)} captures")
     if not all(math.isfinite(v) for v in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
@@ -2178,11 +2548,30 @@ def phase_sparse_block():
         raise AssertionError(f"parameters without a finite gradient: {bad}")
     steady = statistics.median(step_s[1:])
     print(f"[sparse block] {card_line()}: step {steady * 1e3:.2f} ms "
-          f"(median of steps 2-{SB_STEPS}; first {step_s[0] * 1e3:.1f} ms, "
-          f"of which the host-side pattern analysis {first_analysis:.3f} s),"
-          f" {SB_B * SB_S / steady:.0f} tokens/s, peak memory "
-          f"{peak / 2**30:.2f} GiB; every parameter has a finite gradient")
+          f"(median of steps 2-{SB_STEPS}), {SB_B * SB_S / steady:.0f} "
+          f"tokens/s; {first}; the host-side pattern analysis "
+          f"{first_analysis:.3f} s of the first call; every parameter has "
+          f"a finite gradient")
     profile_train_step(train_step, x, target, steady, tag="sparse block")
+
+    @pt.jit.to_static(amp_policy="bf16")
+    def csr_step(x, target, offs, cols):
+        opt.clear_grad()
+        loss = ((model(x, offs, cols).float() - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        return loss
+
+    try:
+        csr_step(x, target, offs, cols)
+    except RuntimeError as e:
+        if "capturing csr_step failed" not in str(e):
+            raise
+        print(f"[sparse block] a step taking the CSR as an argument fails "
+              f"its capture: {str(e)[:160]}")
+    else:
+        raise AssertionError("a step with the CSR as an argument captured")
+    torch.cuda.synchronize()
     return launches
 
 
@@ -2212,6 +2601,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     paths["fused_train"] = phase_fused_unguarded()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["lr_schedule"] = phase_lr_schedule()
     gc.collect()
     torch.cuda.empty_cache()
     paths["rollback"] = phase_rollback()

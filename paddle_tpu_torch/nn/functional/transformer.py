@@ -188,6 +188,13 @@ def _block_pattern(offs, cols, ql, kl):
             PATTERN_STATS["memo_hits"] += 1
     offs_np = cols_np = None
     if key is None:
+        if isinstance(offs, torch.Tensor) and offs.is_cuda and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "sparse_attention: the CSR is not memoised as it is now and "
+                "cannot be analysed inside a CUDA graph capture (a replay "
+                "would reuse the pattern whatever the CSR then holds): keep "
+                "the CSR out of the captured step's arguments")
         offs_np, cols_np = _to_np(offs), _to_np(cols)
         dig = hashlib.sha256()
         dig.update(offs_np.tobytes())

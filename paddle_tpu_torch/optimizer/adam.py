@@ -12,7 +12,9 @@ kernel (:func:`paddle_tpu_torch.ops.cuda.optim.fused_adam_update`,
 kernel #9 of the reference, ``paddle_tpu/ops/pallas/optim.py``), which
 folds the decoupled decay in; rank-1 parameters keep the loop, as in the
 reference. ``moment_dtype="bfloat16"`` stores the moments in bf16 (the
-math stays f32).
+math stays f32). Every update reads the lr from the optimizer's lr
+tensor on the device, and AdamW's factor ``1 - lr * coeff`` is f32 math
+on it, made once a step, as the reference computes it from its f32 lr.
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ class Adam(Optimizer):
         vf = v if v.dtype == torch.float32 else v.float()
         mf.mul_(self._beta1).add_(g, alpha=1 - self._beta1)
         vf.mul_(self._beta2).add_((1 - self._beta2) * g * g)
-        upd = (mf / (1 - b1p)).mul_(self._lr)               # lr * mhat
+        upd = (mf / (1 - b1p)).mul_(self._lr_tensor)        # lr * mhat
         upd.div_((vf / (1 - b2p)).sqrt_().add_(self._epsilon))
         if mf is not m:
             m.copy_(mf)
@@ -82,8 +84,7 @@ class Adam(Optimizer):
         coeff, decay_on = self._fused_decay(p)
         b1_new = b1p * self._beta1
         b2_new = b2p * self._beta2
-        lr = torch.full((), self._lr, device=p.device)
-        sc = torch.stack([lr, 1 - b1_new, 1 - b2_new,
+        sc = torch.stack([self._lr_tensor, 1 - b1_new, 1 - b2_new,
                           torch.full((), float(decay_on), device=p.device)])
         parts = fused_adam_update(
             p, g, m, v, sc, beta1=self._beta1, beta2=self._beta2,
@@ -128,8 +129,11 @@ class AdamW(Adam):
     def _fused_decay(self, p):
         return self._coeff, self._decays(p)
 
+    def _begin_step(self):
+        self._decay_factor = 1.0 - self._lr_tensor * self._coeff
+
     def _update_param(self, p, g):
         if not self._will_fuse(p) and self._decays(p):
             # the fused kernel folds the decay in, in the same order
-            p.copy_(p.float() * (1.0 - self._lr * self._coeff))
+            p.copy_(p.float() * self._decay_factor)
         super()._update_param(p, g)

@@ -17,12 +17,22 @@ host. Unlike the reference, which skips the select when an eager step's
 verdict is concretely good, the port always selects on the device, as
 the reference's traced step does: reading the verdict would cost a host
 sync per parameter.
+
+Everything a step changes lives in tensors that it changes in place and
+that register with :mod:`paddle_tpu_torch.framework.state`: the
+parameters, the accumulators (each with its init), the learning rate (a
+0-d f32 tensor on the parameters' device, which :meth:`Optimizer.set_lr`,
+a bound :class:`~paddle_tpu_torch.optimizer.lr.LRScheduler` and the
+sentinel's cooldown write in place) and the guard summary. So a step
+that ``to_static`` captured as a CUDA graph reads the values of the
+call it replays for, not those of the call it was captured in.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.framework.state import register_state_tensor
 from paddle_tpu_torch.ops.cuda.optim import supports_fused
 from paddle_tpu_torch.resilience import faultinject
 
@@ -34,9 +44,12 @@ class Optimizer:
     ``module.named_parameters()`` gives them (names are what
     ``AdamW``'s ``apply_decay_param_fun`` sees, and what the state dict
     and fault targets are keyed by; an unnamed parameter is
-    ``param_<i>`` by its position)."""
+    ``param_<i>`` by its position). ``learning_rate`` is a float or an
+    :class:`~paddle_tpu_torch.optimizer.lr.LRScheduler`, which then owns
+    the lr."""
 
     def __init__(self, learning_rate=0.001, parameters=None, guard=False):
+        from paddle_tpu_torch.optimizer.lr import LRScheduler
         if parameters is None:
             raise ValueError("optimizer constructed without parameters")
         self._parameter_list = []
@@ -47,14 +60,31 @@ class Optimizer:
             self._parameter_list.append(p)
             self._names[id(p)] = name
             self._keys[id(p)] = name if name is not None else f"param_{i}"
-        self._lr = float(learning_rate)
+            register_state_tensor(p)
+        dev = self._parameter_list[0].device if self._parameter_list \
+            else torch.device("cpu")
+        self._lr_scheduler = None
+        if isinstance(learning_rate, LRScheduler):
+            self._lr_scheduler = learning_rate
+            learning_rate = learning_rate()
+        self._lr_tensor = torch.tensor(float(learning_rate),
+                                       dtype=torch.float32, device=dev)
+        register_state_tensor(self._lr_tensor)
+        if self._lr_scheduler is not None:
+            self._lr_scheduler._bind(self._lr_tensor)
         self._accumulators = {}
         self._inits = {}
         self._acc_keys = {}         # id(p) -> its accumulators' keys
         # subclasses with a fused single-pass update kernel set this
         self._fused = False
         self._guard = bool(guard)
+        # [good, grad_sumsq, bad_regions, regions] of the last guarded
+        # step, written in place; None from guard_summary() until then
         self._guard_summary_t = None
+        self._guard_committed = False
+        if self._guard:
+            self._guard_summary_t = torch.zeros(4, device=dev)
+            register_state_tensor(self._guard_summary_t, init=0.0)
         self._guard_parts = []      # per-parameter device sum-of-squares
         self._guard_bad = []        # per-parameter f32 device bad-region counts
         self._guard_regions = 0
@@ -66,10 +96,19 @@ class Optimizer:
 
     # ---- lr ----
     def get_lr(self):
-        return self._lr
+        """The lr: the scheduler's when one owns it, else the lr tensor's
+        value (a host read)."""
+        if self._lr_scheduler is not None:
+            return self._lr_scheduler()
+        return float(self._lr_tensor)
 
     def set_lr(self, value):
-        self._lr = float(value)
+        """Write ``value`` into the lr tensor in place; RuntimeError when
+        an LRScheduler owns the lr."""
+        if self._lr_scheduler is not None:
+            raise RuntimeError("cannot set_lr when LRScheduler is used")
+        with torch.no_grad():
+            self._lr_tensor.fill_(float(value))
 
     # ---- accumulators ----
     def _acc(self, name, p, init=0.0, shape=None, dtype=torch.float32):
@@ -78,8 +117,9 @@ class Optimizer:
         key = (name, id(p))
         if key not in self._accumulators:
             shape = tuple(p.shape) if shape is None else tuple(shape)
-            self._accumulators[key] = torch.full(
-                shape, init, dtype=dtype, device=p.device)
+            t = torch.full(shape, init, dtype=dtype, device=p.device)
+            register_state_tensor(t, init=init)
+            self._accumulators[key] = t
             self._inits[key] = init
             self._acc_keys.setdefault(id(p), []).append(key)
         return self._accumulators[key]
@@ -103,6 +143,7 @@ class Optimizer:
             self._guard_parts = []
             self._guard_bad = []
             self._guard_regions = 0
+        self._begin_step()
         for p, g in self._params_grads():
             if self._guard and not self._will_fuse(p):
                 self._guarded_update(p, g)
@@ -110,6 +151,9 @@ class Optimizer:
                 self._update_param(p, g)
         if self._guard:
             self._commit_guard_summary()
+
+    def _begin_step(self):
+        """Device scalars a step's updates share, made once a step."""
 
     def _update_param(self, p, g):
         raise NotImplementedError
@@ -139,7 +183,7 @@ class Optimizer:
         :class:`~paddle_tpu_torch.resilience.sentinel.GuardSummary`
         (None before the first guarded step): the one host read of a
         guarded step."""
-        if self._guard_summary_t is None:
+        if not self._guard_committed:
             return None
         from paddle_tpu_torch.resilience.sentinel import GuardSummary
         return GuardSummary.from_array(self._guard_summary_t.cpu().numpy())
@@ -170,30 +214,39 @@ class Optimizer:
             torch.where(good, t, old, out=t)
 
     def _commit_guard_summary(self):
-        """Fold the step's per-region probes into the (4,) summary:
-        ``[good, grad_sumsq, bad_regions, regions]``, on the device."""
-        dev = self._parameter_list[0].device if self._parameter_list \
-            else torch.device("cpu")
+        """Fold the step's per-region probes into the (4,) summary
+        ``[good, grad_sumsq, bad_regions, regions]``, written in place
+        on the device."""
+        dev = self._guard_summary_t.device
         if self._guard_parts:
             total = torch.stack(self._guard_parts).sum()
             bad = torch.stack(self._guard_bad).sum()
         else:
             total = torch.zeros((), device=dev)
             bad = torch.zeros((), device=dev)
-        self._guard_summary_t = torch.stack([
+        self._guard_summary_t.copy_(torch.stack([
             torch.isfinite(total).float(), total, bad,
-            torch.full((), float(self._guard_regions), device=total.device)])
+            torch.full((), float(self._guard_regions), device=dev)]))
+        self._guard_committed = True
 
     # ---- state ----
     def state_dict(self):
         """``{"<parameter key>_<accumulator>": tensor}`` of every
-        accumulator made so far."""
-        return {f"{self._keys[pid]}_{name}": t
-                for (name, pid), t in self._accumulators.items()}
+        accumulator made so far, and, where a scheduler owns the lr,
+        ``"LR_Scheduler": {"last_epoch", "last_lr"}`` as in the
+        reference (which keeps an empty entry without one)."""
+        sd = {f"{self._keys[pid]}_{name}": t
+              for (name, pid), t in self._accumulators.items()}
+        if self._lr_scheduler is not None:
+            sd["LR_Scheduler"] = {"last_epoch": self._lr_scheduler.last_epoch,
+                                  "last_lr": self._lr_scheduler.last_lr}
+        return sd
 
     def set_state_dict(self, state_dict):
         """Copy the accumulators that exist and appear in ``state_dict``
-        (tensors or arrays) back in, each in its own type and device."""
+        (tensors or arrays) back in, each in its own type and device, and
+        a bound scheduler's ``last_epoch`` (the reference restores only
+        that: the lr follows at the scheduler's next step)."""
         with torch.no_grad():
             for (name, pid), t in self._accumulators.items():
                 key = f"{self._keys[pid]}_{name}"
@@ -202,3 +255,6 @@ class Optimizer:
                     if not isinstance(v, torch.Tensor):
                         v = torch.from_numpy(np.asarray(v))
                     t.copy_(v)
+        sched = state_dict.get("LR_Scheduler")
+        if sched and self._lr_scheduler is not None:
+            self._lr_scheduler.last_epoch = sched.get("last_epoch", 0)

@@ -146,6 +146,11 @@ class FaultInjector:
                     return spec
         return None
 
+    def occurrences(self, site):
+        """How often ``site``'s hook has fired under this injector."""
+        with self._lock:
+            return self._counts.get(site, 0)
+
     def __enter__(self):
         install(self)
         return self

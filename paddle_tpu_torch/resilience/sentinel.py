@@ -233,7 +233,14 @@ class TrainingSentinel:
                 self.resume_step = None
             return None
         if self.optimizer is not None and self.lr_cooldown != 1.0:
-            self.optimizer.set_lr(self.optimizer.get_lr() * self.lr_cooldown)
+            try:
+                # in place, so a captured step's next replay reads it
+                self.optimizer.set_lr(
+                    self.optimizer.get_lr() * self.lr_cooldown)
+            except RuntimeError:
+                # an LRScheduler owns the lr: the cooldown is its job,
+                # and the rollback still restores
+                pass
         with self._lock:
             self.rollbacks += 1
             self.resume_step = start

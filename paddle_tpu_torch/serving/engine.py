@@ -45,10 +45,10 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core import cuda_graph
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.incubate.nn.paged_attention import (
     PageAllocator, paged_decode_step, paged_prefill_append)
-from paddle_tpu_torch.ops.cuda import launch
 from paddle_tpu_torch.resilience.health import HealthMonitor
 from paddle_tpu_torch.serving.metrics import EngineMetrics
 from paddle_tpu_torch.serving.request import (GenerationResult, Request,
@@ -61,7 +61,6 @@ __all__ = ["AdmissionRejected", "EngineConfig", "LLMEngine",
            "PagedKVContext"]
 
 _NARROW = (torch.bfloat16, torch.float16)
-_WARMUP_CALLS = 2      # eager calls of a program before its capture
 
 
 class EngineConfig:
@@ -199,60 +198,37 @@ def _dense_causal_attention(q, k, v):
 
 
 class _Graph:
-    """One program captured as a CUDA graph over static input buffers.
+    """One program captured as a CUDA graph over static input buffers
+    (:mod:`paddle_tpu_torch.core.cuda_graph`).
 
-    ``fn`` runs :data:`_WARMUP_CALLS` times eagerly on ``stream`` on
-    copies of ``example`` (the first call loads what it launches: the
-    kernel library, cuBLAS's handle and workspace; its kernels count as
-    launched), then once under capture into ``pool``, and the graph is
-    replayed once on the example (a graph's first replay uploads it, and
-    should not fall on a request). The example's tables are zeros, so
-    these calls write only the garbage page 0. The captured region ends
-    by copying the result into an output buffer allocated outside the
-    pool, so no tensor of the pool outlives a replay: the engine's graphs
-    share one pool and replay in any order. The region's kernel counts
-    (``launch.captured_counts``) are added once a replay.
+    ``fn`` runs ``cuda_graph.WARMUP_CALLS`` times eagerly on ``stream``
+    on copies of ``example`` (its kernels count as launched), then once
+    under capture into ``pool``, and the graph is replayed once on the
+    example (a graph's first replay uploads it, and should not fall on a
+    request). The example's tables are zeros, so these calls write only
+    the garbage page 0. The captured region ends by copying the result
+    into an output buffer allocated outside the pool, so no tensor of
+    the pool outlives a replay: the engine's graphs share one pool and
+    replay in any order.
     """
 
     def __init__(self, fn, example, pool, stream):
-        self.inputs = [a.clone() for a in example]
-        self.staging = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                        for a in example]
-        stream.wait_stream(torch.cuda.current_stream(stream.device))
-        with torch.cuda.stream(stream):
-            for _ in range(_WARMUP_CALLS):
-                out = fn(*self.inputs)
-        torch.cuda.current_stream(stream.device).wait_stream(stream)
+        inputs = cuda_graph.StaticInputs(example, stream.device)
+        out = cuda_graph.warm_up(fn, inputs.buffers, stream)
         self.out = torch.empty_like(out)
         del out
-        self.graph = torch.cuda.CUDAGraph()
-        with launch.captured_counts() as self.counts:
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-                self.out.copy_(fn(*self.inputs))
-        self._staged = torch.cuda.Event()
-        self._replay()
-
-    def _replay(self):
-        self._staged.record()
-        self.graph.replay()
-        launch.add_replay_counts(self.counts)
+        self._graph = cuda_graph.CapturedGraph(
+            lambda *a: self.out.copy_(fn(*a)), inputs, pool, stream)
+        self._graph.replay()
 
     def __call__(self, *args):
         """Copy ``args`` (CPU or CUDA tensors) into the input buffers,
         replay, and return the output buffer, which the next call
         overwrites."""
-        self._staged.synchronize()     # the last call's copies are done
-        for buf, host, a in zip(self.inputs, self.staging, args):
-            if a.is_cuda:
-                buf.copy_(a)
-            else:
-                host.copy_(a)
-                buf.copy_(host, non_blocking=True)
-        self._replay()
-        return self.out
+        return self._graph(args)
 
     def release(self):
-        self.graph.reset()
+        self._graph.release()
 
 
 class LLMEngine:

@@ -168,12 +168,17 @@ def test_rollback_restores_and_cools_lr(init, tmp_path):
     m_ckpt = opt.state_dict()["weight_moment1"].clone()
     _eager_step(model, opt, 2)
     lr0 = opt.get_lr()
+    lr_t = opt._lr_tensor
     assert sent.observe(3, summary=BAD) is SKIP
     assert sent.observe(4, summary=BAD) is ROLLBACK
     assert sent.rollbacks == 1 and sent.resume_step == 2
     assert torch.equal(model.weight.detach(), w_ckpt)
     assert torch.equal(opt.state_dict()["weight_moment1"], m_ckpt)
     assert opt.get_lr() == pytest.approx(lr0 * 0.5)
+    # the cooldown reached the device lr in place (a captured step
+    # reads this tensor on its next replay)
+    assert opt._lr_tensor is lr_t and lr_t.dtype == torch.float32
+    assert lr_t.item() == np.float32(lr0 * 0.5)
     assert sent.skip_streak == 0
 
 

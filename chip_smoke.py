@@ -85,7 +85,7 @@ Phases, in order (any failure raises and exits non-zero):
    same step given its batches on the CPU (placed on the card by the
    state it changes, captured, its batches staged into device buffers);
    the fault hooks' counts over a first call, two more, a new shape,
-   ``set_lr`` and a call; a captured ``Linear(6, 3)`` step against its
+   ``set_lr`` and a call (2, 2, 2, 3, 3, the reference's); a captured ``Linear(6, 3)`` step against its
    eager twin: without a clear ``.grad`` accumulates over 3 calls, with
    ``zero_grad()`` or ``zero_grad(set_to_none=False)`` weights and
    ``.grad`` follow eager steps, returned losses survive later calls;
@@ -126,7 +126,35 @@ Phases, in order (any failure raises and exits non-zero):
 14. the sampler: 64 rows of seeded f32 logits at vocab 50304, the
    threefry uniforms on the card equal the CPU's bit for bit, the Gumbel
    noise within 2 ulp of each log, the tokens sampled at temperature
-   0.8, top_k 50, top_p 0.9 identical.
+   0.8, top_k 50, top_p 0.9 identical;
+15. (run after phase 11) the keep-mask kernel (dropout's
+   ``bernoulli(split(key)[1], 0.9)``) against its plain version (the
+   torch threefry) at the dropout drive's shapes (``[4, 16, 1024,
+   1024]`` bf16, ``[4, 1024, 2048]`` bf16 and f32), a ragged bool, an
+   f16 and a split alone: mask, subkey and advanced key bit for bit;
+   its time beside its bound (integer operations) and the plain
+   version's;
+16. (run after phase 9) GPT-1.3B at its own defaults, dropout 0.1 and
+   attention dropout 0.1, with ``AdamW(1e-4, weight_decay=0.01,
+   grad_clip=ClipGradByGlobalNorm(1.0), fused=True)`` and a
+   ``GPTPretrainingCriterion`` masking each row's last 128 tokens: 10
+   steps eagerly through ``dygraph_function``, then captured by
+   ``to_static(amp_policy="bf16")`` from the same seed: losses, the key
+   after every step and the final weights bit-identical, the key
+   advancing every step, two steps' masks different, 1 + 3 x 24 mask
+   launches a forward and no flash launch; one replay profiled; then the
+   same step under ``remat=True`` (losses within 1e-6, the keys equal),
+   ``remat="bf16"`` (within 0.05), at dropout 0, and under
+   ``remat=True`` at dropout 0 (flash on the path, its forward launched
+   again in the backward), each with its step time, first-call peak and
+   steady memory;
+17. at depth 2 of the same widths, f32: the untied head's
+   ``loss_with_fused_head`` (chunks of 1024 tokens) against logits +
+   ``cross_entropy`` from the same weights (loss within 1e-5 relative,
+   every gradient within 1e-4 of its tensor's largest magnitude), with
+   both peaks; one eager ``GradScaler`` step against an unscaled one.
+
+The phases print their seconds as they end.
 
 Each main path (serving, the training runs) runs with every launch count
 and every count of calls routed to a composition by shape set to 0 just
@@ -164,6 +192,7 @@ NORM_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/norm.cu"
 FLASH_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu"
 OPTIM_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/optim.cu"
 BSA_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/block_sparse_attention.cu"
+RANDOM_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/random.cu"
 REPLACES = {"ln_fwd": "paddle_tpu/ops/pallas/norm.py:55",
             "ln_res_fwd": "paddle_tpu/ops/pallas/norm.py:190",
             "flash_fwd": "paddle_tpu/ops/pallas/flash_attention.py:94",
@@ -175,10 +204,14 @@ REPLACES = {"ln_fwd": "paddle_tpu/ops/pallas/norm.py:55",
             "adam_update_guard": "paddle_tpu/ops/pallas/optim.py:61",
             "adam_guard_sumsq": "paddle_tpu/ops/pallas/optim.py:61",
             "rms_fwd": "paddle_tpu/ops/pallas/norm.py:66",
-            "bsa_fwd": "paddle_tpu/ops/pallas/block_sparse_attention.py:86"}
+            "bsa_fwd": "paddle_tpu/ops/pallas/block_sparse_attention.py:86",
+            # no pallas_call: the XLA fusion of jax.random.bernoulli that
+            # the reference's attention dropout compiles to
+            "keep_mask": "paddle_tpu/nn/functional/transformer.py:39"}
 SOURCES = {name: FLASH_SOURCE if name.startswith("flash") else
            OPTIM_SOURCE if name.startswith("adam") else
-           BSA_SOURCE if name.startswith("bsa") else NORM_SOURCE
+           BSA_SOURCE if name.startswith("bsa") else
+           RANDOM_SOURCE if name == "keep_mask" else NORM_SOURCE
            for name in REPLACES}
 BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor cores
 # the training path: batch, sequence, heads, head_dim (GPT-1.3B)
@@ -211,6 +244,19 @@ TINY_REL = 1e-4                      # their f32 losses, relative
 LN_WIDE = 5120                       # past MAX_HIDDEN: the LN composition
 SAMPLER_ROWS = 64                    # rows of logits for the sampler check
 LN_FWD_KERNEL = "ln_fwd_kernel"       # both LayerNorm forwards, by name
+# int32 operations: the instruction rate, 4 warp instructions a clock an SM
+# (128 lanes: the int32 ALU's 64 and the FMA pipe's IMAD), 132 SMs at
+# 1.98 GHz
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# an element of the keep mask: one threefry-2x32 (20 rounds of add,
+# rotate, xor; 5 key injections of two adds; the two initial adds) and
+# the counter, bits, uniform, compare and store
+KEEP_OPS_PER_ELEM = 80
+DROPOUT = 0.1                        # GPTConfig's own dropout defaults
+SEED = 2024                          # the global key of the dropout drives
+MASK_TAIL = 128                      # loss_mask drops each row's last tokens
+REMAT_TOL = {True: 1e-6, "bf16": 0.05}   # remat losses against plain
+HEAD_CHUNK = 1024                    # loss_with_fused_head's chunk
 
 
 def card_line():
@@ -568,9 +614,10 @@ def _prompts(seed, vocab, n=8):
 
 def _launch_counts():
     from paddle_tpu_torch.ops.cuda import (block_sparse_attention,
-                                           flash_attention, norm, optim)
+                                           flash_attention, norm, optim,
+                                           random)
     return (norm.LAUNCHES, flash_attention.LAUNCHES, optim.LAUNCHES,
-            block_sparse_attention.LAUNCHES)
+            block_sparse_attention.LAUNCHES, random.LAUNCHES)
 
 
 def _routed_counts():
@@ -1531,7 +1578,7 @@ def phase_train():
     print(f"[train] {card_line()}: step {steady * 1e3:.1f} ms (median of "
           f"steps 2-{TRAIN_STEPS}), {B * S / steady:.0f} tokens/s; {first}")
     breakdown(model, opt, ids, labels, vocab, steady)
-    profile_train_step(train_step, ids, labels, steady)
+    profile_train_step(train_step, (ids, labels), steady)
     return launches, losses
 
 
@@ -1560,31 +1607,47 @@ def captured_run(train_step, batches):
     return losses, step_s, line
 
 
-def step_launches(cfg, steps, fused, guard):
+def step_launches(cfg, steps, fused, guard, remat=False):
     """Each kernel's launches over ``steps`` train steps of ``cfg``: the
     model's call sites, and one fused update of each rank-2 weight (four
-    a layer, two embeddings), guarded with its sums of squares."""
+    a layer, two embeddings), guarded with its sums of squares. With
+    dropout in training attention leaves flash for the composition, and
+    each forward draws 1 + 3 a layer keep masks (the embeddings', each
+    layer's attention probabilities' and two residual dropouts'); under
+    ``remat`` every block's forward runs again in the backward, its
+    LayerNorm forwards, flash forward and masks with it."""
     n, rank2 = cfg.num_layers, 4 * cfg.num_layers + 2
-    per_step = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
-                "ln_fwd": n + 1, "ln_res_fwd": n, "ln_bwd": n + 1,
-                "ln_bwd_res": n,
+    again = n if remat else 0
+    drop = cfg.dropout > 0 or cfg.attention_dropout > 0
+    flash = 0 if cfg.attention_dropout > 0 else n
+    per_step = {"flash_fwd": flash + (again if flash else 0),
+                "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
+                "ln_fwd": n + 1 + again, "ln_res_fwd": n + again,
+                "ln_bwd": n + 1, "ln_bwd_res": n,
                 "adam_update": rank2 if fused and not guard else 0,
                 "adam_update_guard": rank2 if fused and guard else 0,
                 "adam_guard_sumsq": rank2 if fused and guard else 0,
-                "rms_fwd": 0, "bsa_fwd": 0}
+                "rms_fwd": 0, "bsa_fwd": 0,
+                "keep_mask": 1 + 3 * (n + again) if drop else 0}
     return {k: steps * v for k, v in per_step.items()}
 
 
 def breakdown(model, opt, ids, labels, vocab, step_s, tag="train"):
-    """Device time of the step's two halves, by CUDA events (median of
-    3): forward + loss + backward under the bf16 policy, then the
-    optimizer update; and the host time of ``opt.step()``'s call (the
-    time to enqueue it, no synchronisation inside)."""
+    """Where an eager step's time goes: the device time of its two
+    halves by CUDA events (median of 3), forward + loss + backward under
+    the bf16 policy, then the optimizer update; the host time of
+    ``opt.step()``'s call (the time to enqueue it); and the eager step's
+    own wall time (host clock to a synchronise), which the halves add up
+    to. The captured step (``step_s``) replays the same kernels back to
+    back, so its time is printed beside them, not as their whole."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.nn import functional as F
-    halves = {"forward+backward": [], "optimizer": [], "optimizer host": []}
+    halves = {"forward+backward": [], "optimizer": [], "optimizer host": [],
+              "eager step": []}
     for _ in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
         opt.clear_grad()
         ev[0].record()
         with pt.amp.activation_residency("bf16"):
@@ -1597,23 +1660,25 @@ def breakdown(model, opt, ids, labels, vocab, step_s, tag="train"):
         halves["optimizer host"].append((time.perf_counter() - t0) * 1e3)
         ev[2].record()
         ev[2].synchronize()
+        halves["eager step"].append((time.perf_counter() - t_step) * 1e3)
         halves["forward+backward"].append(ev[0].elapsed_time(ev[1]))
         halves["optimizer"].append(ev[1].elapsed_time(ev[2]))
-    print(f"[{tag} breakdown] " + ", ".join(
+    print(f"[{tag} breakdown] eager: " + ", ".join(
         f"{k} {statistics.median(v):.1f} ms" for k, v in halves.items())
-        + f" of a {step_s * 1e3:.1f} ms step (CUDA events and host "
-        f"clock, median of 3)")
+        + f" (CUDA events and host clock, median of 3); the captured "
+        f"step beside it: {step_s * 1e3:.1f} ms")
 
 
-def profile_train_step(train_step, ids, labels, step_s, tag="train"):
-    """Device time by kernel over one train step under torch.profiler,
-    and its share of the step's unprofiled wall time."""
+def profile_train_step(train_step, batch, step_s, tag="train"):
+    """Device time by kernel over one train step (``train_step(*batch)``)
+    under torch.profiler, and its share of the step's unprofiled wall
+    time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        train_step(ids, labels)
+        train_step(*batch)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1821,7 +1886,8 @@ def phase_train_guarded(unfused_losses):
           f"{peak[1] / gib:.2f} GiB (the eager step 11 included)")
     breakdown(model, opt, ids, labels, cfg.vocab_size, steady,
               tag="guarded train")
-    profile_train_step(train_step, ids, labels, steady, tag="guarded train")
+    profile_train_step(train_step, (ids, labels), steady,
+                       tag="guarded train")
     return launches
 
 
@@ -2086,9 +2152,11 @@ def phase_lr_schedule():
     print(f"[lr schedule] optimizer.step hook over first call, 2 more, a "
           f"new batch shape, set_lr + a call: {counts} with {entries} "
           f"captures (the reference on the CPU: [2, 2, 2, 3, 3] with "
-          f"[1, 1, 1, 2, 2]; a capture here fires {WARMUP_CALLS} warm-ups "
-          f"and the capture, a replay none)")
-    want = [1 + WARMUP_CALLS] * 3 + [2 + 2 * WARMUP_CALLS] * 2
+          f"[1, 1, 1, 2, 2]: it fires at its traces, twice for a first "
+          f"call that registers state; here the first warm-up and the "
+          f"capture fire, the first warm-up's firings taken back when it "
+          f"registered nothing, a replay fires none)")
+    want = [2, 2, 2, 3, 3]
     if counts != want or entries != [1, 1, 1, 2, 2]:
         raise AssertionError(f"hook counts {counts} != {want} or captures "
                              f"{entries}")
@@ -2552,7 +2620,7 @@ def phase_sparse_block():
           f"tokens/s; {first}; the host-side pattern analysis "
           f"{first_analysis:.3f} s of the first call; every parameter has "
           f"a finite gradient")
-    profile_train_step(train_step, x, target, steady, tag="sparse block")
+    profile_train_step(train_step, (x, target), steady, tag="sparse block")
 
     @pt.jit.to_static(amp_policy="bf16")
     def csr_step(x, target, offs, cols):
@@ -2575,6 +2643,315 @@ def phase_sparse_block():
     return launches
 
 
+# ------------------------------------------ the keep-mask kernel (dropout)
+def _keep_cases():
+    """(shape, dtype) the dropout drive hands the keep-mask kernel (the
+    attention probabilities, bf16; the residual dropouts, bf16; the
+    embeddings', f32), ragged sizes past a vector's and a block's edge,
+    every output type, and a split alone."""
+    return [((B, H, S, S), torch.bfloat16), ((B, S, HIDDEN), torch.bfloat16),
+            ((B, S, HIDDEN), torch.float32), ((1000, 1001), torch.bool),
+            ((3, 7, 11), torch.float16), ((5,), torch.float32), ((0,),
+                                                                  torch.bool)]
+
+
+def phase_keep_mask():
+    """The keep-mask kernel against its plain version (the torch
+    threefry) at each case of :func:`_keep_cases`: the mask, the subkey
+    and the advanced key bit for bit, from two keys; then its time at
+    the attention mask's shape beside its bound and the plain version's.
+    No PyTorch call draws threefry bits: no library time."""
+    from paddle_tpu_torch.ops.cuda import random
+    gen = torch.Generator().manual_seed(11)
+    for shape, dtype in _keep_cases():
+        for _ in range(2):
+            words = torch.randint(0, 2 ** 32, (2,), generator=gen,
+                                  dtype=torch.int64)
+            key, ref_key = words.cuda(), words.clone().cuda()
+            got, sub = random.keep_mask(key, 1.0 - DROPOUT, shape, dtype)
+            want, ref_sub = random._keep_mask_ref(ref_key, 1.0 - DROPOUT,
+                                                  shape, dtype)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(sub, ref_sub)
+                    and torch.equal(key, ref_key)):
+                raise AssertionError(
+                    f"keep_mask {shape} {dtype}: "
+                    f"{int((got != want).sum())} elements differ, sub "
+                    f"{sub.tolist()} / {ref_sub.tolist()}, key "
+                    f"{key.tolist()} / {ref_key.tolist()}")
+        kept = got.float().mean().item() if got.numel() else float("nan")
+        print(f"[keep_mask] {shape} {str(dtype).split('.')[1]}: bit-identical "
+              f"to the plain version (mask, subkey, new key), kept share "
+              f"{kept:.4f}")
+    shape, dtype = _keep_cases()[0]
+    n = math.prod(shape)
+    keys = [(torch.randint(0, 2 ** 32, (2,), generator=gen,
+                           dtype=torch.int64).cuda(),) for _ in range(4)]
+    ms = device_ms(lambda k: random.keep_mask(k, 1.0 - DROPOUT, shape,
+                                              dtype), keys)
+    plain_ms = device_ms(lambda k: random._keep_mask_ref(
+        k, 1.0 - DROPOUT, shape, dtype), keys, reps=3, per_rep=1)
+    bound = _bound(n * 2 + 32, n * KEEP_OPS_PER_ELEM, INT32_OPS_PER_S)
+    print(f"[keep_mask] {card_line()}: {list(shape)} bf16 {ms:.5f} ms, "
+          f"bound {bound[0]:.5f} ms ({bound[1]}: {n} x {KEEP_OPS_PER_ELEM} "
+          f"int32 ops over {INT32_OPS_PER_S / 1e12:.2f} T/s; the bytes "
+          f"{n * 2 / HBM_BYTES_PER_S * 1e3:.5f} ms), plain {plain_ms:.3f} ms,"
+          f" library: none")
+    return {"keep_mask": 0.0}, {"keep_mask": {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+        "bound_by": bound[1], "library_ms": None, "shape": list(shape),
+        "dtype": "bfloat16"}}
+
+
+# --------------------------------- GPT-1.3B at its own defaults (dropout)
+def _dropout_build(remat=None, dropout=DROPOUT, num_layers=None):
+    """GPT-1.3B at ``dropout`` (attention and residual), f32 masters
+    from seed 0, with the flagship's optimizer (AdamW(1e-4,
+    weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0), fused=True))
+    and criterion (GPTPretrainingCriterion with a loss_mask), the step
+    under ``to_static(amp_policy="bf16", remat=remat)``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion,
+                                             gpt3_1p3b)
+    kw = {} if num_layers is None else {"num_layers": num_layers}
+    cfg = gpt3_1p3b(fused_ln=True, dropout=dropout,
+                    attention_dropout=dropout, **kw)
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(0))
+    model.train()
+    opt = pt.optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters(), weight_decay=0.01,
+        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0), fused=True)
+    crit = GPTPretrainingCriterion()
+
+    @pt.jit.to_static(amp_policy="bf16", remat=remat)
+    def train_step(ids, labels, mask):
+        opt.clear_grad()
+        loss = crit(model(ids), labels, mask)
+        loss.backward()
+        opt.step()
+        return loss
+
+    return cfg, model, train_step
+
+
+def _masked_batch(vocab):
+    ids, labels = _batch(vocab, 7)
+    mask = torch.ones(B, S, device="cuda")
+    mask[:, -MASK_TAIL:] = 0
+    return ids, labels, mask
+
+
+def _dropout_run(tag, remat=None, dropout=DROPOUT):
+    """One captured run of ``TRAIN_STEPS`` steps from ``SEED``: (losses,
+    keys after each step, the first call's line, steady step seconds,
+    launches, the model)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
+    cfg, model, step = _dropout_build(remat, dropout)
+    batch = _masked_batch(cfg.vocab_size)
+    pt.seed(SEED)
+    torch.cuda.synchronize()
+    reset_launches()
+    keys = []
+
+    def run():
+        for _ in range(TRAIN_STEPS):
+            yield batch
+            keys.append(pt.get_rng_state())
+
+    losses, step_s, first = captured_run(step, run())
+    launches = read_launches(tag)
+    expect = step_launches(cfg, TRAIN_STEPS + WARMUP_CALLS, fused=True,
+                           guard=False, remat=bool(remat))
+    if launches != expect or len(step._compiled) != 1:
+        raise AssertionError(f"{tag}: launches {launches} != {expect}, "
+                             f"{len(step._compiled)} captures")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] <= losses[0] - LOSS_DROP:
+        raise AssertionError(f"{tag}: losses {losses}")
+    steady = statistics.median(step_s[1:])
+    print(f"[{tag}] losses {losses}")
+    print(f"[{tag}] {card_line()}: step {steady * 1e3:.1f} ms (median of "
+          f"steps 2-{TRAIN_STEPS}), {B * S / steady:.0f} tokens/s; {first}; "
+          f"keep_mask {launches['keep_mask']}, flash_fwd "
+          f"{launches['flash_fwd']} launches over {TRAIN_STEPS} steps and "
+          f"{WARMUP_CALLS} warm-ups")
+    return losses, [k.tolist() for k in keys], first, steady, launches, \
+        model, step
+
+
+def phase_train_dropout():
+    """GPT-1.3B at its own defaults, dropout 0.1 and attention dropout
+    0.1, with clipping, decay and the masked criterion: ``TRAIN_STEPS``
+    steps of 4 x 1024 tokens through ``dygraph_function`` (eager), then
+    the same through the ``to_static`` capture from the same key: losses,
+    the key after every step and the final weights bit-identical; the key
+    advances every step and two steps' masks differ; every forward
+    launches the keep-mask kernel 1 + 3 x 24 times. Then the same step
+    under ``remat=True`` (losses within 1e-6), ``remat="bf16"`` (within
+    0.05), at dropout 0, and under ``remat=True`` at dropout 0 (flash on
+    the path), each with its first call's peak and its steady reserved
+    memory."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.cuda import random
+    t0 = time.perf_counter()
+    cfg, twin, twin_step = _dropout_build()
+    batch = _masked_batch(cfg.vocab_size)
+    pt.seed(SEED)
+    reset_launches()
+    eager, eager_keys = [], []
+    for _ in range(TRAIN_STEPS):
+        with pt.amp.activation_residency("bf16"):
+            eager.append(twin_step.dygraph_function(*batch).item())
+        eager_keys.append(pt.get_rng_state().tolist())
+    launches = read_launches("dropout train, dygraph_function")
+    if launches != step_launches(cfg, TRAIN_STEPS, fused=True, guard=False):
+        raise AssertionError(f"dygraph launches {launches}")
+    eager_weights = [p.detach().cpu() for p in twin.parameters()]
+    del twin, twin_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[dropout train] gpt3_1p3b(fused_ln=True) at dropout "
+          f"{cfg.dropout} / attention {cfg.attention_dropout}, "
+          f"AdamW(1e-4, weight_decay=0.01, grad_clip=ClipGradByGlobalNorm"
+          f"(1.0), fused=True), GPTPretrainingCriterion with the last "
+          f"{MASK_TAIL} tokens of each row masked, batch {B} x {S}; the "
+          f"eager run: {eager}")
+
+    losses, keys, first, steady, launches, model, step = _dropout_run(
+        "dropout train")
+    differ = [n for (n, a), b in zip(model.named_parameters(), eager_weights)
+              if not torch.equal(a.cpu(), b)]
+    if losses != eager or keys != eager_keys or differ:
+        raise AssertionError(f"captured and eager runs differ: losses "
+                             f"{losses} / {eager}, keys {keys} / "
+                             f"{eager_keys}, weights {differ}")
+    if len({tuple(k) for k in keys}) != TRAIN_STEPS:
+        raise AssertionError(f"the key did not advance every step: {keys}")
+    masks = [random.keep_mask(torch.tensor(k, device="cuda"), 1 - DROPOUT,
+                              (B, H, S, S), torch.bool)[0] for k in keys[:2]]
+    same = float((masks[0] == masks[1]).float().mean())
+    if bool(torch.equal(*masks)):
+        raise AssertionError("two steps' keys draw the same mask")
+    print(f"[dropout train] the captured run's {TRAIN_STEPS} losses, keys "
+          f"and {len(eager_weights)} final weights equal the eager run's bit "
+          f"for bit; the key advanced every step ({keys[0]} .. {keys[-1]}); "
+          f"masks of steps 1 and 2 agree on {same:.4f} of their elements")
+    del eager_weights, masks
+    profile_train_step(step, batch, steady, tag="dropout train")
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = {"plain": (losses, first, steady)}
+    for tag, remat, dropout in (("remat", True, DROPOUT),
+                                ("remat bf16", "bf16", DROPOUT),
+                                ("dropout 0", None, 0.0),
+                                ("remat, dropout 0", True, 0.0)):
+        got, got_keys, got_first, got_steady, got_launches, model, step = \
+            _dropout_run(f"dropout train, {tag}", remat, dropout)
+        runs[tag] = (got, got_first, got_steady)
+        if dropout:
+            tol = REMAT_TOL[remat]
+            worst = max(abs(a - b) for a, b in zip(got, losses))
+            print(f"[dropout train, {tag}] losses within {worst:.3g} of the "
+                  f"run without remat (limit {tol}); keys equal: "
+                  f"{got_keys == keys}")
+            if worst > tol or got_keys != keys:
+                raise AssertionError(f"{tag}: losses {got} against {losses}")
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[dropout train] {card_line()}: " + "; ".join(
+        f"{tag}: step {v[2] * 1e3:.1f} ms, {v[1]}" for tag, v in runs.items()))
+    print(f"[dropout train] {time.perf_counter() - t0:.1f} s in all")
+    return launches
+
+
+def phase_head_and_scaler():
+    """At depth 2 of GPT-1.3B's widths, f32, dropout 0: the untied head
+    with ``loss_with_fused_head`` (chunks of ``HEAD_CHUNK`` tokens)
+    against the same weights' logits + ``cross_entropy``, loss within
+    1e-5 relative and every gradient within 1e-4 of its tensor's largest
+    magnitude (f32 sums over 50304 classes and 4096 tokens in another
+    order), with each one's peak memory; then one eager ``GradScaler``
+    step (scale 2^15) against an unscaled step from the same weights."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.nn import functional as F
+    cfg = gpt3_1p3b(fused_ln=True, num_layers=2, dropout=0.0,
+                    attention_dropout=0.0, tie_word_embeddings=False)
+    fused = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(0))
+    plain = copy.deepcopy(fused)
+    ids, labels = _batch(cfg.vocab_size, 9)
+    peaks, losses = {}, {}
+    for tag, model in (("fused head", fused), ("logits + cross_entropy",
+                                                plain)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if model is fused:
+            loss = model.loss_with_fused_head(ids, labels,
+                                              chunk_size=HEAD_CHUNK)
+        else:
+            loss = F.cross_entropy(model(ids).reshape([-1, cfg.vocab_size]),
+                                   labels.reshape([-1]))
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks[tag] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        losses[tag] = loss.item()
+    a, b = losses.values()
+    if not abs(a - b) <= 1e-5 * abs(b):
+        raise AssertionError(f"fused head loss {a} against {b}")
+    worst = 0.0
+    for (name, p), q in zip(fused.named_parameters(), plain.parameters()):
+        top = q.grad.abs().max().item()
+        err = (p.grad - q.grad).abs().max().item()
+        worst = max(worst, err / max(top, 1e-30))
+        if err > 1e-4 * top:
+            raise AssertionError(f"fused head gradient {name}: {err} of "
+                                 f"{top}")
+    print(f"[head] untied head, depth 2, f32: loss_with_fused_head {a:.6f} "
+          f"against logits + cross_entropy {b:.6f}; gradients within "
+          f"{worst:.3g} of each tensor's largest magnitude (limit 1e-4); "
+          f"peak above the weights: " + ", ".join(
+              f"{k} {v:.2f} GiB" for k, v in peaks.items()))
+    del fused
+    for p in plain.parameters():
+        p.grad = None
+    twin = copy.deepcopy(plain)
+    stepped = []
+    for model, scaler in ((plain, pt.amp.GradScaler()), (twin, None)):
+        opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+        loss = F.cross_entropy(model(ids).reshape([-1, cfg.vocab_size]),
+                               labels.reshape([-1]))
+        if scaler is None:
+            loss.backward()
+            opt.step()
+        else:
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            found = scaler._found_inf
+            scale = scaler.get_init_loss_scaling()
+        stepped.append([p.detach() for p in model.parameters()])
+    worst = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(*stepped))
+    same = sum(torch.equal(a, b) for a, b in zip(*stepped))
+    print(f"[scaler] one eager GradScaler step (scale 2^15): found_inf "
+          f"{found}, scale after {scale}; {same} of {len(stepped[0])} "
+          f"weights bit-identical to the unscaled step's, the rest within "
+          f"{worst:.3g} of their largest magnitude")
+    if found or scale != 2.0 ** 15 or worst > 1e-6:
+        raise AssertionError("the scaled step differs from the unscaled one")
+    return peaks
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2582,37 +2959,45 @@ def main(argv=None):
     args = ap.parse_args(argv)
     # fails, and so does the run, outside a checkout of the repository
     from paddle_tpu_torch.core.device import device_name
-    phase_device()
-    phase_build()
-    max_err, timings = phase_kernels()
-    train_err, train_timings = phase_train_kernels()
-    adam_err, adam_timings, adam_per_step = phase_adam_kernels()
-    sparse_err, sparse_timings = phase_sparse_kernels()
-    phase_tiny()
-    phase_sampler()
-    serving = phase_serving(args.profile)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train, unfused_losses = phase_train()
-    gc.collect()
-    torch.cuda.empty_cache()
+    seconds = {}
+
+    def phase(name, fn, *a):
+        """Run one phase, freeing the card after it, and note its time."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"[phase] {name}: {seconds[name]} s")
+        return out
+
+    phase("device", phase_device)
+    phase("build", phase_build)
+    max_err, timings = phase("kernels", phase_kernels)
+    train_err, train_timings = phase("train kernels", phase_train_kernels)
+    adam_err, adam_timings, adam_per_step = phase("adam kernels",
+                                                  phase_adam_kernels)
+    sparse_err, sparse_timings = phase("sparse kernels",
+                                       phase_sparse_kernels)
+    keep_err, keep_timings = phase("keep mask", phase_keep_mask)
+    phase("tiny", phase_tiny)
+    phase("sampler", phase_sampler)
+    serving = phase("serving", phase_serving, args.profile)
+    train, unfused_losses = phase("train", phase_train)
     paths = {"serving": serving, "train": train,
-             "guarded_train": phase_train_guarded(unfused_losses)}
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths["fused_train"] = phase_fused_unguarded()
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths["lr_schedule"] = phase_lr_schedule()
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths["rollback"] = phase_rollback()
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths["sparse_block"] = phase_sparse_block()
+             "guarded_train": phase("guarded train", phase_train_guarded,
+                                    unfused_losses)}
+    paths["fused_train"] = phase("fused train", phase_fused_unguarded)
+    paths["dropout_train"] = phase("dropout train", phase_train_dropout)
+    phase("head and scaler", phase_head_and_scaler)
+    paths["lr_schedule"] = phase("lr schedule", phase_lr_schedule)
+    paths["rollback"] = phase("rollback", phase_rollback)
+    paths["sparse_block"] = phase("sparse block", phase_sparse_block)
+    print(f"[phase] seconds: {seconds}, {sum(seconds.values()):.1f} in all")
     max_err.update(train_err)
     max_err.update(adam_err)
     max_err.update(sparse_err)
+    max_err.update(keep_err)
     embedding = (50304, 2048)
     timed = {"ln_fwd": timings[("ln_fwd", TIMED_ROWS)],
              "ln_res_fwd": timings[("ln_res_fwd", TIMED_ROWS)],
@@ -2626,7 +3011,8 @@ def main(argv=None):
                 for name in ("adam_update", "adam_update_guard",
                              "adam_guard_sumsq")},
              "rms_fwd": sparse_timings[("rms_fwd", 8192)],
-             "bsa_fwd": sparse_timings[("bsa_fwd", "a")]}
+             "bsa_fwd": sparse_timings[("bsa_fwd", "a")],
+             "keep_mask": keep_timings["keep_mask"]}
     kernels = []
     for name, t in timed.items():
         shape = {k: v for k, v in t.items() if k not in (

@@ -13,7 +13,8 @@ import threading
 
 import torch
 
-__all__ = ["BLACK_LIST", "WHITE_LIST", "auto_cast", "downcast_inputs"]
+__all__ = ["BLACK_LIST", "WHITE_LIST", "auto_cast", "downcast_inputs",
+           "is_enabled"]
 
 # the ops of the reference's lists (paddle_tpu/amp/auto_cast.py) whose
 # functionals the port has: an op joins with the functional that calls
@@ -42,6 +43,11 @@ class auto_cast:
     def __exit__(self, *exc):
         _state.enabled = self._prev
         return False
+
+
+def is_enabled():
+    """True inside :class:`auto_cast` on this thread."""
+    return _state.enabled
 
 
 def downcast_inputs(*tensors, opname="matmul"):

@@ -45,11 +45,22 @@ it:
   ``.item()``) is baked into the graph or refuses capture.
 - **No fallback.** On CUDA a capture that fails raises with the step's
   name; nothing runs the step eagerly in its place. ``dygraph_function``
-  is the raw function, for the loops that must run eagerly (a fault
-  hook fires in Python, never in a replay).
+  is the raw function, for the loops that must run eagerly.
+- **Fault hooks** (:mod:`paddle_tpu_torch.resilience.faultinject`) fire
+  where the reference's fire, at its traces: while a signature is
+  built, twice when its first call registers state (the reference's
+  discovery trace, then the trace it compiles) and once otherwise, and
+  never on a cached call. On CUDA the first warm-up is the discovery
+  trace (its firings taken back when it registered nothing), the
+  second warm-up fires nothing, and the capture is the compiled trace:
+  a fault fired in the warm-up is undone by the restore, one fired in
+  the capture is baked into every replay, as in the reference's
+  program. ``dygraph_function`` fires once a call.
 
 On the CPU the same cache keys an entry without a graph, and every call
-runs the function eagerly.
+runs the function eagerly: a signature's first call runs once, or, when
+that call registered state, is undone and runs again (the reference's
+two traces); a cached call runs with the hooks silenced.
 
 ``amp_policy="bf16"`` pushes the bf16 activation policy
 (:mod:`paddle_tpu_torch.amp.policy`) around every call, warm-up and
@@ -59,7 +70,10 @@ inside the captured step and read on the host once after it, kept on
 ``last_guard`` (``values``, ``finite``, ``loss``, ``loss_finite``: the
 first output's) and handed to the ambient
 :class:`~paddle_tpu_torch.resilience.sentinel.TrainingSentinel`'s
-``note_probe``. ``remat`` is not ported yet.
+``note_probe``. ``remat=True`` or ``"bf16"`` adds the remat mode to
+that policy (with ``amp_policy=None``, a policy with remat alone): the
+model's recompute units (GPT's decoder blocks) are recompute regions in
+the step, ``"bf16"`` storing their saved f32 boundaries in bf16.
 """
 from __future__ import annotations
 
@@ -72,6 +86,7 @@ from paddle_tpu_torch.amp.policy import ActivationPolicy, activation_residency
 from paddle_tpu_torch.core import cuda_graph
 from paddle_tpu_torch.framework.state import (registry_version, state_init,
                                               state_tensors)
+from paddle_tpu_torch.resilience import faultinject
 
 __all__ = ["StaticFunction", "to_static"]
 
@@ -136,10 +151,12 @@ def _probe_stack(leaves):
 
 
 class _StateSnapshot:
-    """Every registered state tensor's value and ``.grad``, and the
-    random state (the CPU's, and ``device``'s when that is CUDA), copied
-    beside what they copy; :meth:`restore` puts them back in place and
-    fills a state tensor registered since with its init."""
+    """Every registered state tensor's value and ``.grad`` (the global
+    RNG key among them), and torch's random state (the CPU's, and
+    ``device``'s when that is CUDA), copied beside what they copy;
+    :meth:`restore` puts them back in place and fills a state tensor
+    registered since with its init (a number, or a tensor such as the
+    key's words)."""
 
     def __init__(self, device):
         self.device = device
@@ -167,7 +184,10 @@ class _StateSnapshot:
                     raise RuntimeError(
                         "to_static: a state tensor without an init was "
                         "registered during the step's discovery calls")
-                t.fill_(init)
+                if isinstance(init, torch.Tensor):
+                    t.copy_(init)
+                else:
+                    t.fill_(init)
                 t.grad = None
         torch.set_rng_state(self.rng)
         if self.cuda_rng is not None:
@@ -200,7 +220,8 @@ def changed_state(call, device):
     gradients and random state are put back after it."""
     snap = _StateSnapshot(device)
     marks = {id(t): _mark(t) for t in snap.tensors}
-    call()
+    with faultinject.quiet():
+        call()
     changed = [t for t in state_tensors()
                if id(t) not in marks or not _unchanged(marks[id(t)], t)]
     snap.restore()
@@ -274,10 +295,10 @@ class _CompiledEntry:
 class StaticFunction:
     """The callable :func:`to_static` returns."""
 
-    def __init__(self, function, amp_policy=None, guard=False):
+    def __init__(self, function, amp_policy=None, guard=False, remat=None):
         self._raw_function = function
-        self._policy = None if amp_policy is None else \
-            ActivationPolicy(amp_policy)
+        self._policy = None if amp_policy is None and not remat else \
+            ActivationPolicy(amp_policy, remat=remat or False)
         self._guard = bool(guard)
         self.last_guard = None
         self._compiled = {}
@@ -317,7 +338,8 @@ class StaticFunction:
             out, probe = self._build(sig, struct, leaves, tensors, args,
                                      kwargs)
         elif entry.graph is None:
-            out, probe = self._eager_step(args, kwargs)
+            with faultinject.quiet():
+                out, probe = self._eager_step(args, kwargs)
         else:
             out, probe = entry(tensors)
         if self._guard:
@@ -345,7 +367,15 @@ class StaticFunction:
         register state."""
         device = self._device(tensors, args, kwargs)
         if device.type != "cuda":
+            snap = _StateSnapshot(device)
+            version = registry_version()
             out = self._eager_step(args, kwargs)
+            if registry_version() != version:
+                # the reference's discovery trace registered state: it
+                # traces again, and so the call runs again
+                snap.restore()
+                del snap
+                out = self._eager_step(args, kwargs)
             self._keep(sig, _CompiledEntry())
             return out
         entry = self._capture(struct, leaves, tensors, device)
@@ -377,9 +407,14 @@ class StaticFunction:
 
         snap = _StateSnapshot(device)
         params = [t for t in state_tensors() if t.requires_grad]
+        version, fired = registry_version(), faultinject.mark()
         cuda_graph.warm_up(call, inputs.buffers, self._stream,
                            calls=cuda_graph.WARMUP_CALLS - 1)
-        with clears_watched(params) as cleared:
+        if registry_version() == version:
+            # nothing registered: the reference traces once, and that
+            # trace is the capture's
+            faultinject.rewind(fired)
+        with clears_watched(params) as cleared, faultinject.quiet():
             cuda_graph.warm_up(call, inputs.buffers, self._stream, calls=1)
         snap.restore()
         del snap
@@ -429,16 +464,14 @@ class StaticFunction:
 def to_static(function=None, amp_policy=None, remat=None, guard=False):
     """Wrap a train step: a bare decorator, a decorator with options, or
     ``to_static(fn, ...)``; returns a :class:`StaticFunction`.
-    ``amp_policy`` is None or "bf16"; ``remat`` raises
-    NotImplementedError until it is ported; ``guard=True`` keeps the
-    step's loss probe on ``fn.last_guard`` (None before the first
-    call)."""
-    if remat:
-        raise NotImplementedError("to_static(remat=...) is not ported yet")
-    if amp_policy is not None:
-        ActivationPolicy(amp_policy)            # raises on a bad name
+    ``amp_policy`` is None or "bf16"; ``remat`` None/False, True or
+    "bf16" (recompute the model's blocks in the step, "bf16" saving
+    their f32 boundaries in bf16); ``guard=True`` keeps the step's loss
+    probe on ``fn.last_guard`` (None before the first call)."""
+    ActivationPolicy(amp_policy, remat=remat or False)   # raises on bad ones
 
     def wrap(fn):
-        return StaticFunction(fn, amp_policy=amp_policy, guard=guard)
+        return StaticFunction(fn, amp_policy=amp_policy, guard=guard,
+                              remat=remat)
 
     return wrap(function) if function is not None else wrap

@@ -3,22 +3,32 @@
 Same configuration, module names and weight layouts as the reference,
 so a state dict crosses between the two packages by name
 (:mod:`paddle_tpu_torch.framework.io`). The LM head is tied to the word
-embedding. Weights are drawn from ``Normal(0, initializer_range)`` with
-one explicit ``torch.Generator`` in construction order.
+embedding, or, with ``tie_word_embeddings=False``, its own
+``lm_head_weight [hidden, vocab]``. Weights are drawn from
+``Normal(0, initializer_range)`` with one explicit ``torch.Generator``
+in construction order. Dropout draws its masks from the global key in
+the reference's order: the embeddings', then per layer the attention
+probabilities' and the two residual dropouts'. With ``use_recompute``,
+or under ``to_static(remat=...)``, each decoder block in training is a
+recompute region (:mod:`paddle_tpu_torch.distributed.recompute`).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from paddle_tpu_torch.amp.policy import remat_active
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.distributed.fleet.meta_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+from paddle_tpu_torch.distributed.recompute import recompute
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import Dropout, Embedding, LayerNorm
+from paddle_tpu_torch.nn.layer.common import normal_parameter
 
 __all__ = ["GPTAttention", "GPTConfig", "GPTDecoderLayer", "GPTEmbeddings",
-           "GPTForCausalLM", "GPTMLP", "GPTModel", "gpt3_1p3b", "gpt3_tiny"]
+           "GPTForCausalLM", "GPTMLP", "GPTModel", "GPTPretrainingCriterion",
+           "gpt3_1p3b", "gpt3_tiny"]
 
 
 class GPTConfig:
@@ -88,7 +98,7 @@ class GPTEmbeddings(nn.Module):
             config.vocab_size, config.hidden_size, **init)
         self.position_embeddings = Embedding(
             config.max_seq_len, config.hidden_size, **init)
-        self.dropout = Dropout(config.dropout, generator=generator)
+        self.dropout = Dropout(config.dropout)
 
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
@@ -118,10 +128,6 @@ class GPTAttention(nn.Module):
         self.attn_dropout_p = config.attention_dropout
 
     def forward(self, hidden, kv_ctx=None):
-        if self.training and self.attn_dropout_p > 0.0:
-            raise NotImplementedError(
-                "attention dropout (training) is not ported yet: call "
-                "model.eval(), or set attention_dropout=0")
         b, s = hidden.shape[0], hidden.shape[1]
         qkv = self.qkv_proj(hidden)
         qkv = qkv.reshape(b, s, self.num_heads, 3 * self.head_dim)
@@ -166,7 +172,7 @@ class GPTDecoderLayer(nn.Module):
         self.attn = GPTAttention(config, generator=generator, **factory)
         self.ln2 = _ln(config, factory)
         self.mlp = GPTMLP(config, generator=generator, **factory)
-        self.dropout = Dropout(config.dropout, generator=generator)
+        self.dropout = Dropout(config.dropout)
 
     def forward(self, x, kv_ctx=None):
         if self._fused_ln:
@@ -186,9 +192,6 @@ class GPTModel(nn.Module):
         if config.moe_num_experts > 0:
             raise NotImplementedError(
                 "GPT with MoE blocks (moe_num_experts > 0) is not ported yet")
-        if config.use_recompute:
-            raise NotImplementedError(
-                "use_recompute (recompute in training) is not ported yet")
         self.config = config
         factory = dict(device=device, dtype=dtype)
         self.embeddings = GPTEmbeddings(config, generator=generator,
@@ -200,18 +203,27 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, position_ids=None, kv_ctx=None):
         h = self.embeddings(input_ids, position_ids)
+        # the model's recompute units are its decoder blocks:
+        # config.use_recompute turns them on, an ambient
+        # to_static(remat=...) policy for that step alone
+        use_rc = (self.config.use_recompute or bool(remat_active())) \
+            and self.training
+        if kv_ctx is not None and use_rc:
+            raise RuntimeError(
+                "kv_ctx serving forward requires eval mode (recompute "
+                "is active): call model.eval() before serving")
         for layer in self.layers:
-            h = layer(h, kv_ctx=kv_ctx)
+            h = recompute(layer, h) if use_rc else layer(h, kv_ctx=kv_ctx)
         return self.final_ln(h)
 
 
 class GPTForCausalLM(nn.Module):
-    """GPT with the LM head tied to the word embedding
-    (``logits = h @ W_emb^T``).
+    """GPT with the LM head tied to the word embedding (``logits = h @
+    W_emb^T``), or untied (``logits = h @ lm_head_weight``, a ``[hidden,
+    vocab]`` weight drawn after the model's).
 
     Trains with f32 master weights under ``to_static(amp_policy="bf16")``
-    (bf16 activations, f32 gradients); attention dropout in training and
-    ``use_recompute`` raise NotImplementedError.
+    (bf16 activations, f32 gradients).
 
     Built on ``device`` (default CUDA; RuntimeError without it unless
     ``device="cpu"``) in ``dtype`` (default float32), its weights drawn
@@ -220,17 +232,48 @@ class GPTForCausalLM(nn.Module):
 
     def __init__(self, config, device=None, dtype=None, generator=None):
         super().__init__()
-        if not config.tie_word_embeddings:
-            raise NotImplementedError(
-                "an untied LM head is not ported yet (tie_word_embeddings)")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.config = config
         self.gpt = GPTModel(config, device=device, dtype=dtype,
                             generator=generator)
+        if not config.tie_word_embeddings:
+            self.lm_head_weight = normal_parameter(
+                (config.hidden_size, config.vocab_size),
+                config.initializer_range, device, dtype, generator)
+
+    def _head_weight(self):
+        """The head as ``[hidden, vocab]``."""
+        if self.config.tie_word_embeddings:
+            return self.gpt.embeddings.word_embeddings.weight.t()
+        return self.lm_head_weight
 
     def forward(self, input_ids, position_ids=None, kv_ctx=None):
         h = self.gpt(input_ids, position_ids, kv_ctx=kv_ctx)
-        w = self.gpt.embeddings.word_embeddings.weight
-        return F.matmul(h, w, transpose_y=True)
+        if self.config.tie_word_embeddings:
+            w = self.gpt.embeddings.word_embeddings.weight
+            return F.matmul(h, w, transpose_y=True)
+        return F.matmul(h, self.lm_head_weight)
+
+    def loss_with_fused_head(self, input_ids, labels, position_ids=None,
+                             chunk_size=8192):
+        """The mean cross entropy of the head's logits against ``labels``
+        with the head and the loss fused and chunked
+        (:func:`~paddle_tpu_torch.nn.functional.fused_linear_cross_entropy`):
+        the ``[tokens, vocab]`` logits never exist whole."""
+        h = self.gpt(input_ids, position_ids)
+        return F.fused_linear_cross_entropy(h, self._head_weight(), labels,
+                                            chunk_size=chunk_size)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """The masked LM loss: per-token cross entropy, averaged over the
+    tokens ``loss_mask`` keeps (all of them without one)."""
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = F.cross_entropy(logits, labels, reduction="none")
+        if loss_mask is not None:
+            mask = loss_mask.reshape(loss.shape).to(loss.dtype)
+            return (loss * mask).sum() / mask.sum().clamp(min=1.0)
+        return loss.mean()

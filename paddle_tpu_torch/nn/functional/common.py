@@ -5,8 +5,11 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.amp.auto_cast import downcast_inputs
+from paddle_tpu_torch.framework.state import key_tensor
+from paddle_tpu_torch.ops.cuda import random as _random
 
-__all__ = ["dropout", "linear", "matmul"]
+__all__ = ["alpha_dropout", "dropout", "dropout2d", "dropout3d", "linear",
+           "matmul"]
 
 
 def linear(x, weight, bias=None):
@@ -95,14 +98,68 @@ class _MatmulMaster(torch.autograd.Function):
         return torch.matmul(g, wc.t()), _mm_f32(a2.t(), g2), None, None
 
 
-def dropout(x, p=0.5, training=True, generator=None):
-    """Inverted dropout drawing its mask from ``generator`` (a
-    ``torch.Generator`` on x's device; None: a fresh one seeded 0)."""
+def _keep(shape, keep_prob, dtype, device):
+    """One draw of the global key (:func:`~paddle_tpu_torch.framework.
+    state.next_key`'s split): ``bernoulli(sub, keep_prob, shape)`` as 1/0
+    in ``dtype``, by the keep-mask kernel on CUDA."""
+    with torch.no_grad():
+        return _random.keep_mask(key_tensor(device), keep_prob, shape,
+                                 dtype)[0]
+
+
+def _scalar(value, x):
+    """A Python float as a 0-d tensor of x's type on x's device (filled
+    there: no host copy, so a capture takes it): the reference's weak
+    scalar, rounded to x's type before the op."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
+    """Paddle's dropout with the reference's masks: ``keep =
+    bernoulli(next_key(), 1 - p)`` over x's shape, or over the dims in
+    ``axis`` (the mask broadcast along the others). ``"upscale_in_train"``
+    returns ``x * keep / (1 - p)`` in training and x otherwise;
+    ``"downscale_in_infer"`` returns ``x * keep`` in training and ``x *
+    (1 - p)`` otherwise."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout mode must be 'upscale_in_train' or "
+                         f"'downscale_in_infer', got {mode!r}")
+    if not training or p == 0.0:
+        return x if mode == "upscale_in_train" else x * _scalar(1.0 - p, x)
+    if axis is None:
+        shape = tuple(x.shape)
+    else:
+        axes = {a % x.dim() for a in ((axis,) if isinstance(axis, int)
+                                      else axis)}
+        shape = tuple(n if i in axes else 1 for i, n in enumerate(x.shape))
+    keep = _keep(shape, 1.0 - p, x.dtype, x.device)
+    if mode == "upscale_in_train":
+        return x * keep / _scalar(1.0 - p, x)
+    return x * keep
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW"):
+    """Drops whole channels of ``[N, C, H, W]`` (or NHWC) maps."""
+    axis = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p, axis=axis, training=training)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW"):
+    """Drops whole channels of ``[N, C, D, H, W]`` (or NDHWC) volumes."""
+    axis = [0, 1] if data_format == "NCDHW" else [0, 4]
+    return dropout(x, p, axis=axis, training=training)
+
+
+def alpha_dropout(x, p=0.5, training=True):
+    """SELU's dropout: dropped elements take SELU's negative saturation,
+    and an affine map keeps the mean and variance."""
     if not training or p == 0.0:
         return x
-    if p >= 1.0:
-        return torch.zeros_like(x)
-    if generator is None:
-        generator = torch.Generator(device=x.device).manual_seed(0)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return x * keep.to(x.dtype) / (1.0 - p)
+    alpha = 1.6732632423543772
+    scale = 1.0507009873554805
+    alpha_p = -alpha * scale
+    a = ((1 - p) * (1 + p * alpha_p ** 2)) ** -0.5
+    b = -a * alpha_p * p
+    keep = _keep(tuple(x.shape), 1.0 - p, torch.bool, x.device)
+    return _scalar(a, x) * torch.where(keep, x, _scalar(alpha_p, x)) \
+        + _scalar(b, x)

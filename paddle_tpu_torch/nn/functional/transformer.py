@@ -9,7 +9,9 @@ they compute their plain version. Other shapes and types go, before any
 launch, to autograd through flash's plain forward (counted in
 ``flash_attention.ROUTED``), so every head_dim returns what the
 reference's Pallas kernel returns, causal mask top-left aligned. With a
-mask it is the plain composition of the reference's ``_sdpa_ref``.
+mask, or with dropout in training, it is the plain composition of the
+reference's ``_sdpa_ref``, whose dropout mask comes from the keep-mask
+kernel (:mod:`paddle_tpu_torch.ops.cuda.random`).
 Serving does not run this function (its attention goes through the
 engine's KV context).
 
@@ -34,6 +36,7 @@ import weakref
 import numpy as np
 import torch
 
+from paddle_tpu_torch.nn.functional.common import _keep, _scalar
 from paddle_tpu_torch.ops.cuda.block_sparse_attention import (
     block_sparse_flash_attention, prepare_block_mask)
 from paddle_tpu_torch.ops.cuda import flash_attention as _flash
@@ -50,17 +53,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     Without a mask the causal mask is top-left aligned (the flash
     kernels' and their plain forward's), with one bottom-right (the
     reference's ``_sdpa_ref``): they agree when the sequences have one
-    length."""
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "attention dropout in training is not ported yet")
-    if attn_mask is None:
+    length. Dropout in training (``dropout_p > 0``) leaves flash for
+    ``_sdpa_ref``, as the reference does, and drops probabilities with a
+    mask from the global key."""
+    apply_dropout = dropout_p > 0.0 and training
+    if attn_mask is None and not apply_dropout:
         if _flash.kernel_takes(query, key, value):
             return _flash.flash_attention_bshd(query, key, value,
                                                causal=is_causal, scale=scale)
         _flash.ROUTED["flash_attention"] += 1
         return _flash_composition(query, key, value, is_causal, scale)
-    return _sdpa_ref(query, key, value, attn_mask, is_causal, scale)
+    return _sdpa_ref(query, key, value, attn_mask, is_causal, scale,
+                     dropout_p if apply_dropout else 0.0)
 
 
 def _flash_composition(query, key, value, is_causal, scale):
@@ -72,9 +76,13 @@ def _flash_composition(query, key, value, is_causal, scale):
                                  _flash._scale_of(query, scale))[0]
 
 
-def _sdpa_ref(query, key, value, attn_mask, is_causal, scale):
+def _sdpa_ref(query, key, value, attn_mask, is_causal, scale,
+              dropout_p=0.0):
     """Softmax in f32; bf16/fp16 inputs accumulate both contractions in
-    f32 and round once at the output."""
+    f32 and round once at the output. With ``dropout_p`` the
+    probabilities, rounded to the value type, are multiplied by a keep
+    mask drawn from the global key (the keep-mask kernel on CUDA) and
+    divided by ``1 - dropout_p``, as the reference's are."""
     narrow = query.dtype in (torch.bfloat16, torch.float16)
     s = 1.0 / math.sqrt(query.shape[-1]) if scale is None else scale
     q, k, v = (t.transpose(1, 2) for t in (query, key, value))  # [b,h,s,d]
@@ -87,11 +95,15 @@ def _sdpa_ref(query, key, value, attn_mask, is_causal, scale):
         keep = torch.ones(ql, kl, dtype=torch.bool,
                           device=logits.device).tril(diagonal=kl - ql)
         logits = logits.masked_fill(~keep, -1e30)
-    if attn_mask.dtype == torch.bool:
+    if attn_mask is not None and attn_mask.dtype == torch.bool:
         logits = logits.masked_fill(~attn_mask, -1e30)
-    else:
+    elif attn_mask is not None:
         logits = logits + attn_mask.to(logits.dtype)
     probs = torch.softmax(logits.float(), dim=-1).to(query.dtype)
+    if dropout_p > 0.0:
+        keep = _keep(tuple(probs.shape), 1.0 - dropout_p, probs.dtype,
+                     probs.device)
+        probs = probs * keep / _scalar(1.0 - dropout_p, probs)
     if narrow:
         out = torch.matmul(probs.float(), v.float()).to(query.dtype)
     else:

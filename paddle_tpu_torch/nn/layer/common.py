@@ -4,7 +4,8 @@
 Weights keep the reference's layout and names: Linear holds
 ``weight [in, out]`` and ``bias [out]``, Embedding ``weight
 [num, dim]``. Weights are drawn from ``Normal(0, std)`` with an explicit
-``torch.Generator``; biases start at zero.
+``torch.Generator``; biases start at zero. Dropout draws from the global
+key (:mod:`paddle_tpu_torch.framework.state`), as the reference's does.
 """
 from __future__ import annotations
 
@@ -53,14 +54,15 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Inverted dropout; its mask comes from ``generator`` (see
-    :func:`paddle_tpu_torch.nn.functional.dropout`). A no-op in eval
-    mode, which is how serving runs it."""
+    """Dropout (see :func:`paddle_tpu_torch.nn.functional.dropout`): its
+    masks come from the global key. A no-op in eval mode, which is how
+    serving runs it."""
 
-    def __init__(self, p=0.5, generator=None):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
         super().__init__()
         self.p = float(p)
-        self.generator = generator
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training, self.generator)
+        return F.dropout(x, self.p, self.axis, self.training, self.mode)

@@ -15,6 +15,10 @@ reference. ``moment_dtype="bfloat16"`` stores the moments in bf16 (the
 math stays f32). Every update reads the lr from the optimizer's lr
 tensor on the device, and AdamW's factor ``1 - lr * coeff`` is f32 math
 on it, made once a step, as the reference computes it from its f32 lr.
+A parameter's lr multiplier (its ``optimize_attr["learning_rate"]``,
+times AdamW's ``lr_ratio(p)``) scales that lr on every path, the fused
+kernel's ``sc`` and the decay factor included, as the reference passes
+``lr_mult``.
 """
 from __future__ import annotations
 
@@ -31,9 +35,11 @@ _MOMENT_DTYPES = {None: torch.float32, "float32": torch.float32,
 
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-08, parameters=None, moment_dtype=None,
-                 fused=False, guard=False):
-        super().__init__(learning_rate, parameters, guard=guard)
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, moment_dtype=None, fused=False,
+                 guard=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         guard=guard)
         if moment_dtype not in _MOMENT_DTYPES:
             raise ValueError(f"moment_dtype must be float32 or bfloat16, "
                              f"got {moment_dtype!r}")
@@ -48,14 +54,15 @@ class Adam(Optimizer):
         Adam has none."""
         return 0.0, True
 
-    def _update_param(self, p, g):
+    def _update_param(self, p, g, lr_mult=1.0):
         mdt = self._moment_dtype
         m = self._acc("moment1", p, dtype=mdt)
         v = self._acc("moment2", p, dtype=mdt)
         b1p = self._acc("beta1_pow", p, init=1.0, shape=())
         b2p = self._acc("beta2_pow", p, init=1.0, shape=())
+        lr = self._lr(lr_mult)
         if self._will_fuse(p):
-            self._fused_update(p, g, m, v, b1p, b2p)
+            self._fused_update(p, g, m, v, b1p, b2p, lr)
             return
         b1p.mul_(self._beta1)
         b2p.mul_(self._beta2)
@@ -64,14 +71,14 @@ class Adam(Optimizer):
         vf = v if v.dtype == torch.float32 else v.float()
         mf.mul_(self._beta1).add_(g, alpha=1 - self._beta1)
         vf.mul_(self._beta2).add_((1 - self._beta2) * g * g)
-        upd = (mf / (1 - b1p)).mul_(self._lr_tensor)        # lr * mhat
+        upd = (mf / (1 - b1p)).mul_(lr)                     # lr * mhat
         upd.div_((vf / (1 - b2p)).sqrt_().add_(self._epsilon))
         if mf is not m:
             m.copy_(mf)
             v.copy_(vf)
         p.copy_(p.float() - upd)
 
-    def _fused_update(self, p, g, m, v, b1p, b2p):
+    def _fused_update(self, p, g, m, v, b1p, b2p, lr):
         """Kernel #9 on one rank-2 parameter. The bias-correction powers
         advance only on a committed step: under guard their update is
         gated on this parameter's whole-parameter verdict, while the
@@ -84,7 +91,7 @@ class Adam(Optimizer):
         coeff, decay_on = self._fused_decay(p)
         b1_new = b1p * self._beta1
         b2_new = b2p * self._beta2
-        sc = torch.stack([self._lr_tensor, 1 - b1_new, 1 - b2_new,
+        sc = torch.stack([lr, 1 - b1_new, 1 - b2_new,
                           torch.full((), float(decay_on), device=p.device)])
         parts = fused_adam_update(
             p, g, m, v, sc, beta1=self._beta1, beta2=self._beta2,
@@ -106,16 +113,19 @@ class Adam(Optimizer):
 class AdamW(Adam):
     """Adam with decoupled weight decay ``weight_decay`` (0.01 unless a
     float is given), applied to the parameters for whose name
-    ``apply_decay_param_fun`` is true (all of them when it is None)."""
+    ``apply_decay_param_fun`` is true (all of them when it is None).
+    ``lr_ratio`` (a function of the parameter) multiplies each
+    parameter's lr, decay included."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=0.01,
-                 apply_decay_param_fun=None, moment_dtype=None, fused=False,
-                 guard=False):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 moment_dtype=None, fused=False, guard=False):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         moment_dtype, fused, guard)
+                         None, grad_clip, moment_dtype, fused, guard)
         self._coeff = weight_decay if isinstance(weight_decay, float) \
             else 0.01
+        self._lr_ratio = lr_ratio
         if apply_decay_param_fun is not None and \
                 None in self._names.values():
             raise ValueError("apply_decay_param_fun needs named parameters "
@@ -132,8 +142,12 @@ class AdamW(Adam):
     def _begin_step(self):
         self._decay_factor = 1.0 - self._lr_tensor * self._coeff
 
-    def _update_param(self, p, g):
+    def _update_param(self, p, g, lr_mult=1.0):
+        if self._lr_ratio is not None:
+            lr_mult = lr_mult * self._lr_ratio(p)
         if not self._will_fuse(p) and self._decays(p):
             # the fused kernel folds the decay in, in the same order
-            p.copy_(p.float() * self._decay_factor)
-        super()._update_param(p, g)
+            factor = self._decay_factor if lr_mult == 1.0 else \
+                1.0 - self._lr(lr_mult) * self._coeff
+            p.copy_(p.float() * factor)
+        super()._update_param(p, g, lr_mult)

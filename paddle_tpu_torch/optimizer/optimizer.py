@@ -18,6 +18,16 @@ verdict is concretely good, the port always selects on the device, as
 the reference's traced step does: reading the verdict would cost a host
 sync per parameter.
 
+A step runs the reference's order (``paddle_tpu/optimizer/
+optimizer.py:170-192``): the fault hooks, ``grad_clip`` over every
+``(parameter, gradient)`` pair, then per parameter the gradient raised
+to f32 (unless the fused kernel takes it as it is), the coupled decay
+(the parameter's own ``regularizer`` first, else ``weight_decay``: a
+float or an :class:`~paddle_tpu_torch.regularizer.L2Decay` adds
+``coeff * p``, an :class:`~paddle_tpu_torch.regularizer.L1Decay`
+``coeff * sign(p)``), and the update at ``lr`` times the parameter's
+``optimize_attr["learning_rate"]`` (1 without one).
+
 Everything a step changes lives in tensors that it changes in place and
 that register with :mod:`paddle_tpu_torch.framework.state`: the
 parameters, the accumulators (each with its init), the learning rate (a
@@ -48,7 +58,8 @@ class Optimizer:
     :class:`~paddle_tpu_torch.optimizer.lr.LRScheduler`, which then owns
     the lr."""
 
-    def __init__(self, learning_rate=0.001, parameters=None, guard=False):
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, guard=False):
         from paddle_tpu_torch.optimizer.lr import LRScheduler
         if parameters is None:
             raise ValueError("optimizer constructed without parameters")
@@ -72,6 +83,8 @@ class Optimizer:
         register_state_tensor(self._lr_tensor)
         if self._lr_scheduler is not None:
             self._lr_scheduler._bind(self._lr_tensor)
+        self._weight_decay = weight_decay
+        self._grad_clip = grad_clip
         self._accumulators = {}
         self._inits = {}
         self._acc_keys = {}         # id(p) -> its accumulators' keys
@@ -139,23 +152,56 @@ class Optimizer:
         spec = faultinject.fire("optimizer.grads")
         if spec is not None and spec.kind in ("bitflip", "nan_grad"):
             self._inject_grad_fault(spec)
+        pg = self._params_grads()
+        if self._grad_clip is not None:
+            pg = self._grad_clip(pg)
         if self._guard:
             self._guard_parts = []
             self._guard_bad = []
             self._guard_regions = 0
         self._begin_step()
-        for p, g in self._params_grads():
+        for p, g in pg:
+            lr_mult = getattr(p, "optimize_attr", {}).get("learning_rate",
+                                                          1.0)
+            if g.dtype != p.dtype and not self._will_fuse(p):
+                # the fused kernel reads a narrow gradient itself
+                g = g.float()
+            g = self._apply_decay(p, g)
             if self._guard and not self._will_fuse(p):
-                self._guarded_update(p, g)
+                self._guarded_update(p, g, lr_mult)
             else:
-                self._update_param(p, g)
+                self._update_param(p, g, lr_mult)
         if self._guard:
             self._commit_guard_summary()
+
+    def _apply_decay(self, p, g):
+        """The gradient with the coupled decay added: the parameter's own
+        ``regularizer`` wins, applied even without ``weight_decay``."""
+        from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+        reg = getattr(p, "regularizer", None)
+        if reg is None:
+            reg = self._weight_decay
+        if reg is None:
+            return g
+        if isinstance(reg, float):
+            return g + reg * p
+        if isinstance(reg, L2Decay):
+            return g + reg._coeff * p
+        if isinstance(reg, L1Decay):
+            return g + reg._coeff * torch.sign(p)
+        return g
+
+    def _lr(self, lr_mult):
+        """The lr tensor times a parameter's multiplier (the tensor
+        itself at 1)."""
+        if lr_mult == 1.0:
+            return self._lr_tensor
+        return self._lr_tensor * lr_mult
 
     def _begin_step(self):
         """Device scalars a step's updates share, made once a step."""
 
-    def _update_param(self, p, g):
+    def _update_param(self, p, g, lr_mult=1.0):
         raise NotImplementedError
 
     def clear_grad(self):
@@ -193,7 +239,7 @@ class Optimizer:
         return [(None, p)] + [(k, self._accumulators[k])
                               for k in self._acc_keys.get(id(p), ())]
 
-    def _guarded_update(self, p, g):
+    def _guarded_update(self, p, g, lr_mult=1.0):
         """Zero-update gate around any update rule: the gradient's f32
         sum of squares (one reduction serves the finite verdict and the
         grad-norm probe), the update, then every tensor it changed
@@ -205,7 +251,7 @@ class Optimizer:
         self._guard_bad.append(torch.logical_not(good).float())
         self._guard_regions += 1
         before = {k: t.clone() for k, t in self._param_state(p)}
-        self._update_param(p, g)
+        self._update_param(p, g, lr_mult)
         for k, t in self._param_state(p):
             old = before.get(k)
             if old is None:

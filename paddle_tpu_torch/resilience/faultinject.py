@@ -26,6 +26,14 @@ site                   where / kinds
                        occurrence counter)
 =====================  ====================================================
 
+Under ``to_static`` the hooks fire as the reference's trace-time hooks
+do: only while a signature is built, as often as the reference traces
+it (twice when its first call registers state, such as lazy
+accumulators or the RNG key, else once), and never on a cached call or
+a replay. ``jit/api.py`` silences the other calls with :func:`quiet`
+and takes a discovery call's firings back with :func:`mark` and
+:func:`rewind`. ``dygraph_function`` fires once a call.
+
 The process kinds (``preempt``, ``rank_kill``, ``wedge``, ``slow``)
 raise NotImplementedError when they fire: their slices of the port come
 later. The reference's spans and counters of injections and recoveries
@@ -41,6 +49,7 @@ Usage::
 """
 from __future__ import annotations
 
+import contextlib
 import random
 import threading
 
@@ -48,8 +57,8 @@ import torch
 
 __all__ = [
     "FaultInjector", "FaultPlan", "FaultSpec", "WorkerFault",
-    "active_plan", "corrupt_array", "fire", "install", "note_recovery",
-    "uninstall",
+    "active_plan", "corrupt_array", "fire", "install", "mark",
+    "note_recovery", "quiet", "rewind", "uninstall",
 ]
 
 KINDS = ("torn_write", "exception", "preempt", "pool_exhaust", "slow",
@@ -162,6 +171,38 @@ class FaultInjector:
 
 _active = None
 _active_lock = threading.Lock()
+_quiet = threading.local()
+
+
+@contextlib.contextmanager
+def quiet():
+    """No hook fires, or counts, on this thread in the block."""
+    _quiet.depth = getattr(_quiet, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _quiet.depth -= 1
+
+
+def mark():
+    """Where the installed injector's counters and log stand (None
+    without one), for :func:`rewind`."""
+    inj = _active
+    if inj is None:
+        return None
+    with inj._lock:
+        return inj, dict(inj._counts), len(inj.injected)
+
+
+def rewind(where):
+    """Take back every firing since :func:`mark` gave ``where``: the
+    counters and the log go back to it."""
+    if where is None:
+        return
+    inj, counts, logged = where
+    with inj._lock:
+        inj._counts = counts
+        del inj.injected[logged:]
 
 
 def install(injector):
@@ -194,7 +235,7 @@ def fire(site, **ctx):
     a site-specific kind (``bitflip``, ``nan_grad``, ``torn_write``, ...)
     for the caller to apply."""
     inj = _active
-    if inj is None:
+    if inj is None or getattr(_quiet, "depth", 0):
         return None
     spec = inj.poll(site)
     if spec is None:

@@ -9,20 +9,10 @@ request's tokens. The noise is the reference's (its bits exactly, its
 values within the bound below) and one function on every device, so
 sampled tokens equal the reference's on the same logits.
 
-The port carries its own copy of jax's threefry-2x32 path (the jax
-release the reference is tested with, 0.9.0), in torch integer ops on
-the logits' device:
+The threefry-2x32 path (the key, ``fold_in`` and the bits) is
+:mod:`paddle_tpu_torch.framework.random`, the port's one copy of jax's,
+which the global RNG key shares; on top of it:
 
-- :func:`threefry2x32` is ``jax._src.prng._threefry2x32_lowering`` (20
-  rounds, key schedule ``k1 ^ k2 ^ 0x1BD11BDA``);
-- :func:`prng_key` is ``threefry_seed`` of a 32-bit seed: the seed is
-  padded with a zero high word, ``(0, seed)``;
-- :func:`fold_in` is ``threefry_fold_in``: the hash of the counter pair
-  ``(0, data)`` under the key;
-- :func:`random_bits` follows ``jax_threefry_partitionable``, which is
-  True in that release: ``_threefry_random_bits_partitionable``, counter
-  words ``iota_2x32_shape`` (high, low) of the flat index and 32-bit bits
-  ``bits1 ^ bits2``;
 - :func:`uniform` is ``random._uniform`` for f32: the top 23 bits as the
   mantissa of a float in [1, 2), minus 1, scaled to [tiny, 1);
 - :func:`gumbel` is ``random._gumbel`` in its default mode ``"low"``
@@ -48,71 +38,26 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.framework.random import (fold_in, prng_key,
+                                               random_bits, threefry2x32,
+                                               uniform01)
+
 __all__ = ["fold_in", "gumbel", "gumbel_noise", "prng_key", "random_bits",
            "sample_tokens", "threefry2x32", "uniform"]
 
 _NEG_INF = torch.finfo(torch.float32).min
 _TINY = torch.finfo(torch.float32).tiny
-_M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_KS_PARITY = 0x1BD11BDA
 
 
 # ------------------------------------------------------------ threefry
-def _u32(x, device=None):
-    """Integers (or an integer tensor) as int64 uint32 words: the low 32
-    bits, as an int32 cast followed by a bit cast to uint32 gives them."""
-    return torch.as_tensor(x, dtype=torch.int64, device=device) & _M32
-
-
-def threefry2x32(k1, k2, x1, x2):
-    """Threefry-2x32 of the counter words ``(x1, x2)`` under the key
-    ``(k1, k2)``: int64 tensors of uint32 values that broadcast together.
-    Returns the two output words.
-
-    Only the word that is rotated must hold 32 clean bits; the other
-    carries its sums' high bits (below 2^38 after all 20 rounds, far from
-    overflow) until the end, which saves a mask a round."""
-    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
-    a, b = x1 + ks[0], (x2 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            a = a + b
-            b = (((b << r) | (b >> (32 - r))) ^ a) & _M32
-        a = a + ks[(i + 1) % 3]
-        b = (b + (ks[(i + 2) % 3] + (i + 1))) & _M32
-    return a & _M32, b
-
-
-def prng_key(seed, device=None):
-    """``PRNGKey(seed)`` of a 32-bit seed (an int or an integer tensor of
-    any shape, cast to int32): the key words ``(0, seed)``."""
-    k2 = _u32(seed, device)
-    return torch.zeros_like(k2), k2
-
-
-def fold_in(key, data):
-    """``jax.random.fold_in(key, data)``: a new key from a key and 32-bit
-    data (broadcast together)."""
-    k1, k2 = key
-    d = _u32(data, k1.device)
-    return threefry2x32(k1, k2, torch.zeros_like(d), d)
-
-
-def random_bits(key, n):
-    """``jax.random.bits(key, (n,), uint32)``: ``[..., n]`` uint32 words
-    (int64) for keys of shape ``[...]``."""
-    k1, k2 = (k[..., None] for k in key)
-    lo = torch.arange(n, dtype=torch.int64, device=k1.device)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return b1 ^ b2
+# the threefry path itself lives in framework/random.py, shared with
+# the global RNG key; these names stay importable from here
 
 
 def uniform(key, n):
     """``jax.random.uniform(key, (n,), float32, minval=tiny)``: f32 in
     [tiny, 1), ``[..., n]``."""
-    mant = (random_bits(key, n) >> 9) | 0x3F800000          # < 2^31
-    f = mant.to(torch.int32).view(torch.float32) - 1.0
+    f = uniform01(random_bits(key, n))
     # (maxval - minval) is 1.0 in f32, so the scale is exact
     return torch.clamp_min(f * 1.0 + _TINY, _TINY)
 

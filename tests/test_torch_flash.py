@@ -20,9 +20,11 @@ import jax
 import jax.numpy as jnp
 
 import paddle_tpu as P
+from paddle_tpu.framework import state as ref_state
 from paddle_tpu.nn import functional as PF
 from paddle_tpu.ops.pallas import flash_attention as pallas_flash
 
+import paddle_tpu_torch as T
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.cuda import build
 from paddle_tpu_torch.ops.cuda import flash_attention as flash
@@ -145,9 +147,27 @@ def test_functional_mask_and_dropout():
     masked = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
     causal = F.scaled_dot_product_attention(q, k, v, is_causal=True)
     np.testing.assert_allclose(masked.numpy(), causal.numpy(), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        F.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
-    F.scaled_dot_product_attention(q, k, v, dropout_p=0.1, training=False)
+    # dropout in training leaves flash for _sdpa_ref in both packages,
+    # its mask drawn from the global key: the same seed, the same result
+    # and the same key after it
+    T.seed(11)
+    P.seed(11)
+    got = F.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                         is_causal=True)
+    want = PF.scaled_dot_product_attention(
+        *(P.to_tensor(t.numpy()) for t in (q, k, v)), dropout_p=0.1,
+        is_causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want._value),
+                               rtol=1e-6, atol=1e-6)
+    assert T.get_rng_state().tolist() == \
+        np.asarray(ref_state.get_rng_state()).astype(np.int64).tolist()
+    assert not np.allclose(got.numpy(), causal.numpy())
+    off = F.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                         training=False)
+    assert T.get_rng_state().tolist() == \
+        np.asarray(ref_state.get_rng_state()).astype(np.int64).tolist()
+    np.testing.assert_allclose(
+        off.numpy(), F.scaled_dot_product_attention(q, k, v).numpy())
 
 
 def test_cuda_request_raises_without_toolkit(monkeypatch, tmp_path):

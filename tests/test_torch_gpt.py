@@ -101,10 +101,26 @@ def test_init_is_seeded_normal():
 
 
 def test_unported_configs_raise():
+    """MoE blocks still raise; the untied head is ported: its weight
+    crosses by the reference's name and its logits are the reference's
+    (f32, atol = rtol = 1e-4)."""
     with pytest.raises(NotImplementedError, match="MoE"):
         GPTForCausalLM(gpt3_tiny(moe_num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="untied"):
-        GPTForCausalLM(gpt3_tiny(tie_word_embeddings=False), device="cpu")
+    P.seed(0)
+    ref = RefGPT(ref_tiny(tie_word_embeddings=False))
+    ref.eval()
+    sd = _shared_weights(ref, seed=3)
+    ref.set_state_dict(sd)
+    port = GPTForCausalLM(gpt3_tiny(tie_word_embeddings=False), device="cpu")
+    port.eval()
+    load_numpy_state_dict(port, sd)
+    assert list(numpy_state_dict(port)) == list(sd)
+    assert tuple(port.lm_head_weight.shape) == (64, 256)
+    ids = np.random.default_rng(4).integers(0, 256, (2, 16))
+    with torch.no_grad():
+        got = port(torch.tensor(ids)).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref(P.to_tensor(ids))._value),
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

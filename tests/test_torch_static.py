@@ -566,19 +566,23 @@ def test_grads_accumulate_without_clear_as_reference(linear_init):
                                    rtol=1e-6, atol=1e-7)
 
 
-def test_fault_hooks_and_dygraph_function(linear_init):
+@pytest.mark.parametrize("plan", ["none", "exception_at_3"])
+def test_fault_hooks_and_dygraph_function(linear_init, plan):
     """``optimizer.step``'s hook over: a first call, two more, a new
-    batch shape, ``set_lr`` and a call. The reference fires at trace
-    time only (2, 2, 2, 3, 3); the port's CPU path runs every call
-    eagerly, once; ``dygraph_function`` fires once a call and adds no
-    entry."""
+    batch shape, ``set_lr`` and a call. Both packages fire it only while
+    a signature is built, as often as the reference traces it (2, 2, 2,
+    3, 3: the first call's discovery registers the accumulators, so it
+    runs twice), never on a cached call; ``dygraph_function`` fires once
+    a call and adds no entry. An exception planted at the fourth
+    occurrence fires in neither package's five calls."""
     _, opt, step = _linear_port(linear_init)
     _, ref_opt, ref_step = _linear_ref(linear_init)
-    plan = faultinject.FaultPlan([])
+    faults = [] if plan == "none" else [("optimizer.step", "exception", 3)]
     counts, ref_counts, entries = [], [], []
-    with faultinject.FaultInjector(plan) as inj, \
-            ref_faultinject.FaultInjector(
-                ref_faultinject.FaultPlan([])) as ref_inj:
+    with faultinject.FaultInjector(faultinject.FaultPlan(
+            [faultinject.FaultSpec(*f) for f in faults])) as inj, \
+            ref_faultinject.FaultInjector(ref_faultinject.FaultPlan(
+                [ref_faultinject.FaultSpec(*f) for f in faults])) as ref_inj:
         for i, n in enumerate((8, 8, 8, 5, 5)):
             if i == 4:
                 opt.set_lr(0.01)
@@ -589,17 +593,24 @@ def test_fault_hooks_and_dygraph_function(linear_init):
             counts.append(inj.occurrences("optimizer.step"))
             ref_counts.append(ref_inj.occurrences("optimizer.step"))
             entries.append(len(step._compiled))
-        step.dygraph_function(*(torch.tensor(a) for a in _batch(9)))
-        assert inj.occurrences("optimizer.step") == counts[-1] + 1
+        assert inj.injected == [] and ref_inj.injected == []
+        if plan == "none":
+            step.dygraph_function(*(torch.tensor(a) for a in _batch(9)))
+            assert inj.occurrences("optimizer.step") == counts[-1] + 1
+        else:
+            with pytest.raises(faultinject.WorkerFault):
+                step.dygraph_function(*(torch.tensor(a) for a in _batch(9)))
     assert ref_counts == [2, 2, 2, 3, 3]
     assert entries == [1, 1, 1, 2, 2]
-    assert counts == [1, 2, 3, 4, 5]
+    assert counts == ref_counts
     assert len(step._compiled) == 2
 
 
 def test_unported_and_bad_arguments_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        T.jit.to_static(lambda: None, remat=True)
+    with pytest.raises(ValueError, match="remat"):
+        T.jit.to_static(lambda: None, remat="f16")
+    assert T.jit.to_static(lambda: None, remat="bf16")._policy.remat == \
+        "bf16"
     step = T.jit.to_static(lambda x, opts: x)
     with pytest.raises(TypeError, match="neither a tensor nor hashable"):
         step(torch.zeros(2), np.zeros(2))

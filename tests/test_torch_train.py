@@ -179,8 +179,19 @@ def test_policy_casts_module_inputs_only_inside_the_step():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        T.jit.to_static(lambda: None, remat=True)
+    """Bad options raise; remat is ported: a remat step pushes a policy
+    whose remat mode the model reads (``remat_active``), with or without
+    a residency dtype."""
+    with pytest.raises(ValueError, match="remat"):
+        T.jit.to_static(lambda: None, remat="yes")
+    seen = []
+    for policy, remat in ((None, True), ("bf16", "bf16")):
+        step = T.jit.to_static(lambda: seen.append(
+            (T.amp.remat_active(), T.amp.current_policy().dtype)),
+            amp_policy=policy, remat=remat)
+        step()
+    assert seen == [(True, None), ("bf16", torch.bfloat16)]
+    assert T.amp.remat_active() is False
     with pytest.raises(ValueError, match="bf16"):
         T.jit.to_static(lambda: None, amp_policy="bp16")
     p = [torch.nn.Parameter(torch.zeros(2))]

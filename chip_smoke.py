@@ -152,7 +152,33 @@ Phases, in order (any failure raises and exits non-zero):
    ``loss_with_fused_head`` (chunks of 1024 tokens) against logits +
    ``cross_entropy`` from the same weights (loss within 1e-5 relative,
    every gradient within 1e-4 of its tensor's largest magnitude), with
-   both peaks; one eager ``GradScaler`` step against an unscaled one.
+   both peaks; one eager ``GradScaler`` step against an unscaled one;
+18. (run after phase 4) quantized, guarded serving: the same model and
+   requests with ``EngineConfig(kv_cache_dtype="int8", guard=True)``:
+   10 graphs at ``warmup()`` and none after, 64 tokens a request, finite
+   logits, the LayerNorm launches of every forward, no anomaly,
+   continuous == sequential, the decode graph's logits and flags
+   bit-identical to the uncaptured program's on copies of the
+   ``(codes, scales)`` pools, the pools at half phase 4's bytes plus
+   their scales; a ``serving.logits`` NaN at decode step 2 and a
+   ``serving.decode`` exception at step 4 each evict the latest request
+   once (1 anomaly, 1 recovery), every other request's tokens and the
+   victim's before its eviction equal the clean run's, and a second run
+   of each plan gives the same tokens (the replay re-quantizes the
+   victim's pages at once, the reference's documented tolerance);
+   ``guard_scale_limit=1e-6`` finishes every request as "anomaly";
+   ``fp8_e4m3`` pools serve 64 tokens a request, continuous ==
+   sequential; printed, not gated: the greedy requests' agreement with
+   phase 4's tokens, and int8's tokens/s, decode step, TTFT and peak
+   beside bf16's (``--profile``: a profiled decode step of each);
+19. at depth 2 (f32 masters, ``to_static(amp_policy="bf16")``, 4 x 1024
+   tokens a step): SGD, Momentum (Nesterov), LarsMomentum, RMSProp
+   (centered), Adagrad, Adadelta, Adamax, Lamb, 3 steps each, and
+   ``GradientMergeOptimizer(AdamW(fused=True), k_steps=2)``, 4 steps,
+   moving the weights at steps 2 and 4 only: each captured run equal to
+   its ``dygraph_function`` twin bit for bit (losses and weights),
+   launches exact; then ``SGD(guard=True)`` with a planted ``nan_grad``
+   keeps exactly that parameter.
 
 The phases print their seconds as they end.
 
@@ -664,7 +690,8 @@ def _watch_finite(eng, finite):
     def watched(prog):
         def call(*args):
             out = prog(*args)
-            finite.append(torch.isfinite(out).all())
+            logits = out[0] if isinstance(out, tuple) else out
+            finite.append(torch.isfinite(logits).all())
             return out
         return call
 
@@ -674,11 +701,24 @@ def _watch_finite(eng, finite):
     return originals
 
 
+def _pool_bits(pools):
+    """Every tensor of a list of pools (plain, or ``(codes, scales)``
+    pairs), one-byte codes as uint8 (``torch.equal`` takes no fp8)."""
+    flat = [t for p in pools for t in (p if isinstance(p, tuple) else (p,))]
+    return [t.view(torch.uint8) if t.element_size() == 1 else t
+            for t in flat]
+
+
+def _clone_pool(p):
+    return tuple(t.clone() for t in p) if isinstance(p, tuple) else p.clone()
+
+
 def check_decode_graph(eng, prompts, sps):
-    """One decode step at full width: the decode graph's logits against
-    one uncaptured call of the same ``_decode_program()`` function on
-    copies of the same pools, tables, lengths and tokens. Returns the
-    max abs error."""
+    """One decode step at full width: the decode graph's outputs (logits;
+    and the guard's flags) against one uncaptured call of the same
+    ``_decode_program()`` function on copies of the same pools (plain or
+    ``(codes, scales)``), tables, lengths and tokens (and a zero poison).
+    Returns the max abs error."""
     for p, sp in zip(prompts, sps):
         eng.add_request(p, sp)
     eng.step()                         # admits and prefills all 8
@@ -692,51 +732,84 @@ def check_decode_graph(eng, prompts, sps):
             eng._tables[slot, pos] = pg
         tokens[slot, 0] = req.output_token_ids[-1]
     args = [torch.from_numpy(a) for a in (eng._tables, eng._lens, tokens)]
-    copies = ([p.clone() for p in eng._k_pools],
-              [p.clone() for p in eng._v_pools])
-    replayed = eng._get_decode()(*args).clone()
+    if eng.config.guard:
+        args.append(torch.zeros(eng.config.max_num_seqs, 1))
+    copies = ([_clone_pool(p) for p in eng._k_pools],
+              [_clone_pool(p) for p in eng._v_pools])
+    out = eng._get_decode()(*args)
+    replayed = [o.clone() for o in (out if isinstance(out, tuple)
+                                    else (out,))]
     fn, _ = eng._decode_program(pools=copies)
     eager = fn(*(a.cuda() for a in args))
+    eager = eager if isinstance(eager, tuple) else (eager,)
     torch.cuda.synchronize()
     # bf16 products upcast: compared at bf16, check_close's bf16 limit
-    err = check_close("serving decode graph logits bf16",
-                      replayed.bfloat16(), eager.bfloat16())
-    same = torch.equal(replayed, eager)
+    tag = "serving decode graph logits bf16" + (
+        f", {eng.config.kv_cache_dtype} pools" if eng.config.kv_cache_dtype
+        else "")
+    err = check_close(tag, replayed[0].bfloat16(), eager[0].bfloat16())
+    same = all(torch.equal(a, b) for a, b in zip(replayed, eager))
     pools_same = all(torch.equal(a, b) for a, b in zip(
-        eng._k_pools + eng._v_pools, copies[0] + copies[1]))
+        _pool_bits(eng._k_pools + eng._v_pools),
+        _pool_bits(copies[0] + copies[1])))
     print(f"[serving] decode graph vs the uncaptured decode program at "
-          f"lens {eng._lens.tolist()}: max abs err {err}, bit-identical "
-          f"{same}, pools after bit-identical {pools_same}")
+          f"lens {eng._lens.tolist()}: max abs err {err}, outputs "
+          f"({len(replayed)}) bit-identical {same}, pools after "
+          f"bit-identical {pools_same}")
     if not pools_same:
         raise AssertionError("decode graph: the pools differ from the "
                              "uncaptured program's")
+    if eng.config.guard and not same:
+        raise AssertionError("guarded decode graph: logits or flags differ "
+                             "from the uncaptured program's")
     eng.shutdown()
     return err
 
 
-def phase_serving(profile):
+def _serving_model(tag):
+    """GPT-1.3B (``fused_ln=True``) in bf16 from seed 0, the serving
+    phases' model."""
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_1p3b
-    from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
-                                          SamplingParams)
     cfg = gpt3_1p3b(fused_ln=True)
     t0 = time.perf_counter()
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                            generator=torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[serving] gpt3_1p3b(fused_ln=True): {n_params / 1e9:.3f} B "
+    print(f"[{tag}] gpt3_1p3b(fused_ln=True): {n_params / 1e9:.3f} B "
           f"params in bf16, built in {time.perf_counter() - t0:.1f} s")
+    return cfg, model
 
-    def engine():
-        return LLMEngine(model, EngineConfig(
-            max_num_seqs=8, page_size=16, max_model_len=1024,
-            dtype=torch.bfloat16))
 
-    prompts = _prompts(0, cfg.vocab_size)
+def _serving_engine(model, **options):
+    """The serving phases' engine: 8 slots, pages of 16, 1024 tokens,
+    bf16, with ``options`` of ``EngineConfig``."""
+    from paddle_tpu_torch.serving import EngineConfig, LLMEngine
+    return LLMEngine(model, EngineConfig(
+        max_num_seqs=8, page_size=16, max_model_len=1024,
+        dtype=torch.bfloat16, **options))
+
+
+def _serving_requests(vocab):
+    """8 prompts of 64-900 tokens and their sampling: even requests
+    greedy, odd ones sampled; 64 new tokens each."""
+    from paddle_tpu_torch.serving import SamplingParams
+    prompts = _prompts(0, vocab)
     sps = [SamplingParams(max_new_tokens=64,
                           temperature=0.0 if i % 2 == 0 else 0.8,
                           top_k=0 if i % 2 == 0 else 50, seed=100 + i)
            for i in range(len(prompts))]
+    return prompts, sps
+
+
+def phase_serving(profile):
+    from paddle_tpu_torch.serving import SamplingParams
+    cfg, model = _serving_model("serving")
+
+    def engine():
+        return _serving_engine(model)
+
+    prompts, sps = _serving_requests(cfg.vocab_size)
 
     eng = engine()
     bound = eng.config.compile_bound
@@ -757,6 +830,7 @@ def phase_serving(profile):
     launches = read_launches("serving")
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
+    pool_bytes = (eng.kv_pool_bytes, eng.kv_bytes_per_token)
     m = eng.metrics
     if m.compile_count != bound:
         raise AssertionError(f"generate captured {m.compile_count - bound} "
@@ -818,6 +892,12 @@ def phase_serving(profile):
 
     snap = m.snapshot()
     card = card_line()
+    bf16 = {"tokens": [r.output_token_ids for r in results],
+            "tokens_per_s": m.generated_tokens / wall,
+            "decode_ms": snap["decode_step_ms"]["mean"],
+            "ttft_p50_ms": snap["ttft_ms"]["p50"], "peak": peak,
+            "kv_pool_bytes": pool_bytes[0],
+            "kv_bytes_per_token": pool_bytes[1]}
     print(f"[serving] {card}: {m.generated_tokens / wall:.1f} tokens/s "
           f"({m.generated_tokens} tokens in {wall:.2f} s), mean decode "
           f"step {snap['decode_step_ms']['mean']:.2f} ms, mean prefill "
@@ -828,7 +908,7 @@ def phase_serving(profile):
           f"reserved (the graphs' pool is reserved, not allocated)")
     if profile:
         profile_decode(engine(), prompts, sps)
-    return launches
+    return launches, bf16
 
 
 def profile_decode(eng, prompts, sps):
@@ -854,6 +934,179 @@ def profile_decode(eng, prompts, sps):
     print(f"[serving] profiled: 10 decode steps in {wall * 1e3:.1f} ms of "
           f"host time")
     eng.shutdown()
+
+
+def _serve(model, prompts, sps, plan=None, **options):
+    """Serve the batch on a fresh engine with ``options``, under the
+    fault plan ``plan``: (tokens, finish reasons, metrics)."""
+    from paddle_tpu_torch.resilience import FaultInjector
+    eng = _serving_engine(model, **options)
+    try:
+        if plan is None:
+            res = eng.generate(prompts, sps)
+        else:
+            with FaultInjector(plan):
+                res = eng.generate(prompts, sps)
+        return ([r.output_token_ids for r in res],
+                [r.finish_reason for r in res], eng.metrics)
+    finally:
+        eng.shutdown()
+
+
+def _check_sequential(model, prompts, sps, tokens, tag, **options):
+    """Each request alone on a fresh engine draws the batch's tokens."""
+    seq = _serving_engine(model, **options)
+    for i, (p, sp) in enumerate(zip(prompts, sps)):
+        (one,) = seq.generate([p], [sp])
+        if one.output_token_ids != tokens[i]:
+            raise AssertionError(f"{tag}: request {i} served alone differs "
+                                 f"from the batch")
+    seq.shutdown()
+
+
+QUANT_SERVING = dict(kv_cache_dtype="int8", guard=True)
+
+
+def phase_quant_serving(bf16, profile=False):
+    """GPT-1.3B served over int8 KV pools with the guard: 10 graphs at
+    ``warmup()`` and none after, 64 tokens a request with finite logits,
+    the LayerNorm launches of every forward, continuous == sequential,
+    the decode graph (logits and flags) bit-identical to its uncaptured
+    program, the pools at half the bf16 pools' bytes plus the scales;
+    then the fault plans (a NaN logits row, a crashed decode step) back to
+    the clean run's tokens, an absurd scale limit finishing every request
+    as "anomaly", and fp8_e4m3 pools continuous == sequential. Prints,
+    ungated, the greedy requests' agreement with the bf16 pools' tokens
+    (``bf16``: phase_serving's run) and int8's serving numbers beside
+    bf16's."""
+    from paddle_tpu_torch.resilience import FaultPlan, FaultSpec
+    cfg, model = _serving_model("quantized serving")
+    prompts, sps = _serving_requests(cfg.vocab_size)
+    eng = _serving_engine(model, **QUANT_SERVING)
+    bound = eng.config.compile_bound
+    boot = eng.warmup()
+    print(f"[quantized serving] {QUANT_SERVING}: warmup captured "
+          f"{boot['programs']} programs in {boot['boot_ms']:.1f} ms "
+          f"(compile bound {bound})")
+    if not boot["programs"] == boot["compiled"] == bound == 10:
+        raise AssertionError(f"warmup built {boot}, bound {bound}")
+    finite = []
+    originals = _watch_finite(eng, finite)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, sps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches("quantized serving")
+    peak = torch.cuda.max_memory_allocated()
+    m = eng.metrics
+    if m.compile_count != bound:
+        raise AssertionError(f"generate captured {m.compile_count - bound} "
+                             f"more programs")
+    forwards = m.prefill_steps + m.decode_steps
+    expect = {k: 0 for k in launches}
+    expect.update(ln_fwd=forwards * (cfg.num_layers + 1),
+                  ln_res_fwd=forwards * cfg.num_layers)
+    print(f"[quantized serving] {m.prefill_steps} prefills + "
+          f"{m.decode_steps} decode steps, all graph replays; launches "
+          f"{launches}")
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} != {expect}")
+    if len(finite) != forwards or not bool(torch.stack(finite).all()):
+        raise AssertionError("non-finite logits (or a forward not seen)")
+    tokens = [r.output_token_ids for r in results]
+    if any(len(t) != 64 for t in tokens) or m.guard_anomalies \
+            or {r.finish_reason for r in results} != {"length"}:
+        raise AssertionError("a request without 64 tokens, or flagged")
+    pool_bytes = eng.kv_pool_bytes
+    scales = 2 * cfg.num_layers * eng.config.num_pages * cfg.num_heads * 4
+    print(f"[quantized serving] pools {pool_bytes} B (codes + scales, "
+          f"{eng.kv_bytes_per_token:.2f} B a token) against bf16's "
+          f"{bf16['kv_pool_bytes']} B ({bf16['kv_bytes_per_token']:.2f} B a "
+          f"token): {pool_bytes / bf16['kv_pool_bytes']:.5f}")
+    if pool_bytes != bf16["kv_pool_bytes"] // 2 + scales:
+        raise AssertionError("int8 pools are not half the bf16 pools' "
+                             "bytes plus their scales")
+    eng._programs.update(originals)
+    snap = m.snapshot()
+    eng.shutdown()
+    _check_sequential(model, prompts, sps, tokens, "int8, guarded",
+                      **QUANT_SERVING)
+    print("[quantized serving] continuous == sequential for all 8 requests")
+    check_decode_graph(_serving_engine(model, **QUANT_SERVING), prompts, sps)
+
+    # each plan evicts the latest-arrived request at decode step `at`,
+    # after its 1 + at tokens; its replay prefill re-quantizes prompt and
+    # tokens at once where the clean run grew its pages' scales, so from
+    # there its tokens may drift (the reference's documented tolerance):
+    # the other requests and its tokens before the eviction must match,
+    # and two runs of the plan must agree
+    plans = {"nan logits": FaultSpec("serving.logits", "nan_grad", at=2),
+             "decode fault": FaultSpec("serving.decode", "exception", at=4)}
+    victim = len(prompts) - 1
+    for tag, spec in plans.items():
+        (got, fins, mm), (again, _, _) = (
+            _serve(model, prompts, sps, FaultPlan([spec]), **QUANT_SERVING)
+            for _ in range(2))
+        counts = (mm.guard_anomalies, mm.decode_fault_recoveries,
+                  mm.requests_evicted)
+        differ = [i for i, (a, b) in enumerate(zip(got, tokens)) if a != b]
+        first = next((j for j, (a, b) in enumerate(zip(got[victim],
+                                                       tokens[victim]))
+                      if a != b), 64)
+        plain, _, _ = _serve(model, prompts, sps, FaultPlan([spec]),
+                             guard=True)
+        plain_differ = [i for i, (a, b) in enumerate(zip(plain,
+                                                         bf16["tokens"]))
+                        if a != b]
+        print(f"[quantized serving] {tag} ({spec}): anomalies, recoveries, "
+              f"evictions {counts}, finish {set(fins)}; requests with other "
+              f"tokens than the clean run {differ} (the evicted request "
+              f"{victim} from token {first}, its replay from token "
+              f"{1 + spec.at}), a second run the same {again == got}; on "
+              f"bf16 pools, requests with other tokens {plain_differ}")
+        want = (1, 0, 1) if tag == "nan logits" else (0, 1, 1)
+        if counts != want or set(differ) - {victim} or first < 1 + spec.at \
+                or again != got or set(fins) != {"length"}:
+            raise AssertionError(f"{tag}: did not recover to the clean run")
+    _, fins, mm = _serve(model, prompts, sps, guard_scale_limit=1e-6,
+                         **QUANT_SERVING)
+    print(f"[quantized serving] guard_scale_limit=1e-6: finish {set(fins)}, "
+          f"{mm.guard_anomalies} anomalies")
+    if set(fins) != {"anomaly"}:
+        raise AssertionError("an overflowing scale did not finish every "
+                             "request as an anomaly")
+    fp8, fins, _ = _serve(model, prompts, sps, kv_cache_dtype="fp8_e4m3")
+    if any(len(t) != 64 for t in fp8):
+        raise AssertionError("fp8_e4m3: a request without 64 tokens")
+    _check_sequential(model, prompts, sps, fp8, "fp8_e4m3",
+                      kv_cache_dtype="fp8_e4m3")
+    print("[quantized serving] fp8_e4m3 pools: 64 tokens a request, "
+          "continuous == sequential")
+
+    for tag, run in (("int8", tokens), ("fp8_e4m3", fp8)):
+        agree = []
+        for i, sp in enumerate(sps):
+            if sp.temperature == 0.0:
+                a, b = run[i], bf16["tokens"][i]
+                first = next((j for j, (x, y) in enumerate(zip(a, b))
+                              if x != y), len(a))
+                agree.append((i, first, sum(x == y for x, y in zip(a, b))))
+        print(f"[quantized serving] {tag} against bf16 pools, greedy "
+              f"requests (request, first differing token, equal tokens of "
+              f"64): {agree} (random weights: not gated)")
+    tps = m.generated_tokens / wall
+    print(f"[quantized serving] {card_line()}: int8 {tps:.1f} tokens/s, "
+          f"mean decode step {snap['decode_step_ms']['mean']:.2f} ms, TTFT "
+          f"p50 {snap['ttft_ms']['p50']:.1f} ms, peak {peak / 2**30:.2f} GiB;"
+          f" bf16 {bf16['tokens_per_s']:.1f} tokens/s, "
+          f"{bf16['decode_ms']:.2f} ms, {bf16['ttft_p50_ms']:.1f} ms, "
+          f"{bf16['peak'] / 2**30:.2f} GiB")
+    if profile:
+        profile_decode(_serving_engine(model, **QUANT_SERVING), prompts, sps)
+    return launches
 
 
 # ------------------------------------------------------ training kernels
@@ -2952,6 +3205,143 @@ def phase_head_and_scaler():
     return peaks
 
 
+OPT_STEPS = 3                        # captured steps of each optimizer
+MERGE_STEPS = 4                      # the merge (k = 2) fires at 2 and 4
+
+
+def _not_decayed(p):
+    return "bias" in p.name or "ln" in p.name
+
+
+def _optimizers():
+    """name -> (a factory of the optimizer over named parameters, steps,
+    whether it runs the fused AdamW kernel)."""
+    import paddle_tpu_torch as pt
+    o = pt.optimizer
+    return {
+        "SGD": (lambda ps: o.SGD(1e-3, parameters=ps), OPT_STEPS, False),
+        "Momentum(use_nesterov=True)": (lambda ps: o.Momentum(
+            1e-4, momentum=0.9, parameters=ps, use_nesterov=True),
+            OPT_STEPS, False),
+        "LarsMomentum": (lambda ps: o.LarsMomentum(
+            1e-2, parameters=ps, exclude_from_weight_decay=["bias", "ln"]),
+            OPT_STEPS, False),
+        "RMSProp(centered=True)": (lambda ps: o.RMSProp(
+            1e-5, momentum=0.5, centered=True, parameters=ps),
+            OPT_STEPS, False),
+        "Adagrad": (lambda ps: o.Adagrad(
+            1e-3, parameters=ps, initial_accumulator_value=0.1),
+            OPT_STEPS, False),
+        "Adadelta": (lambda ps: o.Adadelta(1.0, parameters=ps), OPT_STEPS,
+                     False),
+        "Adamax": (lambda ps: o.Adamax(1e-4, parameters=ps), OPT_STEPS,
+                   False),
+        "Lamb": (lambda ps: o.Lamb(1e-3, parameters=ps,
+                                   exclude_from_weight_decay_fn=_not_decayed),
+                 OPT_STEPS, False),
+        "GradientMergeOptimizer(AdamW(fused=True), k_steps=2)": (
+            lambda ps: o.GradientMergeOptimizer(
+                o.AdamW(1e-4, parameters=ps, fused=True), k_steps=2),
+            MERGE_STEPS, True),
+    }
+
+
+def phase_optimizers():
+    """At depth 2 of GPT-1.3B's widths (f32 masters,
+    ``to_static(amp_policy="bf16")``, one seeded batch of 4 x 1024 a
+    step), each optimizer of ``_optimizers()``: its steps through
+    ``dygraph_function`` first, then captured, losses and final weights
+    bit for bit, one capture, finite losses, launches exact (the merge's
+    inner fused AdamW launches its kernel every step, and its weights
+    move only on the firing steps); then ``SGD(guard=True)`` with a
+    planted ``nan_grad``: that parameter kept, every other one moved."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
+    from paddle_tpu_torch.resilience import (FaultInjector, FaultPlan,
+                                             FaultSpec)
+    total = None
+    for name, (make, steps, fused) in _optimizers().items():
+        cfg, twin = _gpt(num_layers=2)
+        vocab = cfg.vocab_size
+        batches = [(_batch(vocab, 3000 + i)) for i in range(steps)]
+        twin_step = _train_step(twin, make(twin.named_parameters()), vocab,
+                                guard=False)
+        reset_launches()
+        eager = []
+        for batch in batches:
+            with pt.amp.activation_residency("bf16"):
+                eager.append(twin_step.dygraph_function(*batch).item())
+        eager_launches = read_launches(f"{name}, dygraph_function")
+        if eager_launches != step_launches(cfg, steps, fused=fused,
+                                           guard=False):
+            raise AssertionError(f"{name}: dygraph launches "
+                                 f"{eager_launches}")
+        eager_weights = [p.detach() for p in twin.parameters()]
+        del twin, twin_step
+        gc.collect()
+        _, model = _gpt(num_layers=2)
+        step = _train_step(model, make(model.named_parameters()), vocab,
+                           guard=False)
+        reset_launches()
+        losses, moved, step_s = [], [], []
+        for batch in batches:
+            before = [p.detach().clone() for p in model.parameters()]
+            t0 = time.perf_counter()
+            losses.append(step(*batch).item())
+            step_s.append(time.perf_counter() - t0)
+            moved.append(any(not torch.equal(a, p) for a, p in
+                             zip(before, model.parameters())))
+            del before
+        launches = read_launches(name)
+        expect = step_launches(cfg, steps + WARMUP_CALLS, fused=fused,
+                               guard=False)
+        differ = sum(not torch.equal(a, b)
+                     for a, b in zip(model.parameters(), eager_weights))
+        print(f"[optimizers] {name}: captured losses {losses}, eager "
+              f"{eager}; {differ} of {len(eager_weights)} weights differ; "
+              f"weights moved at steps "
+              f"{[i + 1 for i, m in enumerate(moved) if m]}; "
+              f"{len(step._compiled)} capture(s); replayed step "
+              f"{statistics.median(step_s[1:]) * 1e3:.1f} ms")
+        if launches != expect:
+            raise AssertionError(f"{name}: launches {launches} != {expect}")
+        if losses != eager or differ or len(step._compiled) != 1:
+            raise AssertionError(f"{name}: the captured steps differ from "
+                                 f"the eager ones")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: non-finite loss {losses}")
+        want_moved = [fused and i % 2 == 0 or not fused
+                      for i in range(1, steps + 1)]
+        if moved != want_moved:
+            raise AssertionError(f"{name}: weights moved {moved}, expected "
+                                 f"{want_moved}")
+        total = launches if total is None else {
+            k: total[k] + v for k, v in launches.items()}
+        del model, step, eager_weights
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg, model = _gpt(num_layers=2)
+    opt = pt.optimizer.SGD(1e-3, parameters=model.named_parameters(),
+                           guard=True)
+    step = _train_step(model, opt, cfg.vocab_size, guard=True)
+    target = "gpt.layers.0.attn.qkv_proj.weight"
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    plan = FaultPlan([FaultSpec("optimizer.grads", "nan_grad", at=0,
+                                payload={"param": target})])
+    with FaultInjector(plan), pt.amp.activation_residency("bf16"):
+        step.dygraph_function(*_batch(cfg.vocab_size, 3000))
+    summary = opt.guard_summary()
+    kept = [n for n, p in model.named_parameters()
+            if torch.equal(p, before[n])]
+    print(f"[optimizers] SGD(guard=True), nan_grad in {target}: kept "
+          f"{kept}, {summary}")
+    if kept != [target] or summary.good or summary.bad_regions != 1:
+        raise AssertionError("the guarded SGD step did not hold exactly the "
+                             "faulted parameter")
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2982,9 +3372,12 @@ def main(argv=None):
     keep_err, keep_timings = phase("keep mask", phase_keep_mask)
     phase("tiny", phase_tiny)
     phase("sampler", phase_sampler)
-    serving = phase("serving", phase_serving, args.profile)
+    serving, bf16_serving = phase("serving", phase_serving, args.profile)
+    quant_serving = phase("quantized serving", phase_quant_serving,
+                          bf16_serving, args.profile)
     train, unfused_losses = phase("train", phase_train)
-    paths = {"serving": serving, "train": train,
+    paths = {"serving": serving, "quant_serving": quant_serving,
+             "train": train,
              "guarded_train": phase("guarded train", phase_train_guarded,
                                     unfused_losses)}
     paths["fused_train"] = phase("fused train", phase_fused_unguarded)
@@ -2993,6 +3386,7 @@ def main(argv=None):
     paths["lr_schedule"] = phase("lr schedule", phase_lr_schedule)
     paths["rollback"] = phase("rollback", phase_rollback)
     paths["sparse_block"] = phase("sparse block", phase_sparse_block)
+    paths["optimizers"] = phase("optimizers", phase_optimizers)
     print(f"[phase] seconds: {seconds}, {sum(seconds.values()):.1f} in all")
     max_err.update(train_err)
     max_err.update(adam_err)

@@ -1,4 +1,5 @@
-"""Adam and AdamW (counterpart of ``paddle_tpu/optimizer/adam.py``).
+"""Adam, AdamW, Adamax and Lamb (counterpart of
+``paddle_tpu/optimizer/adam.py``).
 
 The unfused update is the reference's loop, step for step: moments in
 f32 math, the bias correction divides (``mhat = m / (1 - beta1^t)``),
@@ -19,6 +20,10 @@ A parameter's lr multiplier (its ``optimize_attr["learning_rate"]``,
 times AdamW's ``lr_ratio(p)``) scales that lr on every path, the fused
 kernel's ``sc`` and the decay factor included, as the reference passes
 ``lr_mult``.
+
+Adamax and Lamb are the reference's loops, with their beta powers in
+registered device tensors. Lamb's trust ratio ``||p|| / ||update||``
+(1 where either norm is 0) is ``torch.where`` on the device.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import torch
 from paddle_tpu_torch.ops.cuda.optim import fused_adam_update
 from paddle_tpu_torch.optimizer.optimizer import Optimizer
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["Adam", "AdamW", "Adamax", "Lamb"]
 
 _MOMENT_DTYPES = {None: torch.float32, "float32": torch.float32,
                   "bfloat16": torch.bfloat16}
@@ -151,3 +156,87 @@ class AdamW(Adam):
                 1.0 - self._lr(lr_mult) * self._coeff
             p.copy_(p.float() * factor)
         super()._update_param(p, g, lr_mult)
+
+
+class Adamax(Optimizer):
+    """``m = beta1 * m + (1 - beta1) * g``, ``u = max(beta2 * u, |g|)``,
+    ``p -= lr * m / ((1 - beta1^t) * (u + eps))``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+
+    def _update_param(self, p, g, lr_mult=1.0):
+        lr = self._lr(lr_mult)
+        g = g.float()
+        m = self._acc("moment", p)
+        u = self._acc("inf_norm", p)
+        b1p = self._acc("beta1_pow", p, init=1.0, shape=())
+        b1p.mul_(self._beta1)
+        m.copy_(self._beta1 * m + (1 - self._beta1) * g)
+        u.copy_(torch.maximum(self._beta2 * u, torch.abs(g)))
+        upd = lr * m / ((1 - b1p) * (u + self._epsilon))
+        p.copy_(p.float() - upd)
+
+
+class _Named:
+    """A parameter as the reference's ``exclude_from_weight_decay_fn``
+    sees it: the tensor's attributes, and its ``name`` (a torch tensor's
+    own ``name`` is a read-only None)."""
+
+    __slots__ = ("name", "_tensor")
+
+    def __init__(self, tensor, name):
+        self.name = name
+        self._tensor = tensor
+
+    def __getattr__(self, attr):
+        return getattr(self._tensor, attr)
+
+
+class Lamb(Optimizer):
+    """Adam's moments and bias correction, then ``r = mhat / (sqrt(vhat)
+    + eps) + wd * p`` scaled by the trust ratio ``||p|| / ||r||``:
+    ``p -= lr * trust * r``. ``wd`` is 0 for a parameter for which
+    ``exclude_from_weight_decay_fn`` is true; it is given the parameter
+    with its name as ``.name``, as the reference's parameters carry
+    theirs."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-06, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self._lamb_wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _update_param(self, p, g, lr_mult=1.0):
+        lr = self._lr(lr_mult)
+        g = g.float()
+        m = self._acc("moment1", p)
+        v = self._acc("moment2", p)
+        b1p = self._acc("beta1_pow", p, init=1.0, shape=())
+        b2p = self._acc("beta2_pow", p, init=1.0, shape=())
+        b1p.mul_(self._beta1)
+        b2p.mul_(self._beta2)
+        m.copy_(self._beta1 * m + (1 - self._beta1) * g)
+        v.copy_(self._beta2 * v + (1 - self._beta2) * g * g)
+        mhat = m / (1 - b1p)
+        vhat = v / (1 - b2p)
+        r = mhat / (torch.sqrt(vhat) + self._epsilon)
+        fn = self._exclude_fn
+        wd = 0.0 if fn is not None and fn(_Named(p, self._names[id(p)])) \
+            else self._lamb_wd
+        pf = p.float()
+        update = r + wd * pf
+        w_norm = torch.sqrt(torch.sum(torch.square(pf)))
+        u_norm = torch.sqrt(torch.sum(torch.square(update)))
+        trust = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
+                            1.0)
+        p.copy_(pf - lr * trust * update)

@@ -81,6 +81,9 @@ class Optimizer:
         self._lr_tensor = torch.tensor(float(learning_rate),
                                        dtype=torch.float32, device=dev)
         register_state_tensor(self._lr_tensor)
+        # the key of accumulators made for the lr tensor (the gradient
+        # merge's counter), the reference's name for it
+        self._keys[id(self._lr_tensor)] = "learning_rate"
         if self._lr_scheduler is not None:
             self._lr_scheduler._bind(self._lr_tensor)
         self._weight_decay = weight_decay

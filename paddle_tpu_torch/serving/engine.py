@@ -32,9 +32,25 @@ deterministically preempted (replayed later by prefilling prompt +
 generated tokens; the (seed, position) sampler makes the replay
 token-identical).
 
-Not ported yet: tensor-parallel meshes, quantized KV pools, the serving
-guard, the AOT program cache, crash-safe decode, the router, fleet and
-traffic hooks, and tracing spans.
+Options, as in the reference: ``kv_cache_dtype`` stores the pools as
+per-page-scaled ``(codes, scales)`` pairs
+(:mod:`paddle_tpu_torch.quantization.kv_cache`); ``guard`` makes the
+decode program also return ``[B, 2]`` anomaly flags (a non-finite
+logits row; a non-finite or too large page scale), read after the
+sampler's tokens, and a flagged request is evicted and requeued (its
+token dropped), or finished with ``"anomaly"`` past
+``guard_requeue_limit``; with
+``crash_safe_decode`` an exception at a decode step evicts the offending
+request instead of raising. The fault sites ``serving.pool``,
+``serving.decode`` and ``serving.logits`` fire where the reference's do.
+``serving.decode`` fires on the host before the replay, so a faulted
+step has written nothing; a decode step that does run is idempotent
+anyway (it writes position ``lens[s]`` of each row, which advances only
+after it, and a quantized append that repeats sees the grown scale and
+re-grids by exactly 1.0).
+
+Not ported yet: tensor-parallel meshes, the AOT program cache, the
+router, fleet and traffic hooks, named metrics and tracing spans.
 """
 from __future__ import annotations
 
@@ -49,7 +65,12 @@ from paddle_tpu_torch.core import cuda_graph
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.incubate.nn.paged_attention import (
     PageAllocator, paged_decode_step, paged_prefill_append)
+from paddle_tpu_torch.quantization.kv_cache import (
+    quantized_decode_step, quantized_prefill_append, resolve_kv_cache_dtype)
+from paddle_tpu_torch.resilience.faultinject import fire as _fire
+from paddle_tpu_torch.resilience.faultinject import note_recovery
 from paddle_tpu_torch.resilience.health import HealthMonitor
+from paddle_tpu_torch.resilience.sentinel import note_anomaly
 from paddle_tpu_torch.serving.metrics import EngineMetrics
 from paddle_tpu_torch.serving.request import (GenerationResult, Request,
                                               RequestState, SamplingParams)
@@ -75,27 +96,36 @@ class EngineConfig:
     - `dtype`: the KV pools' dtype.
     - `max_queue_depth`: bounded admission — `add_request` past this
       waiting-queue depth raises :class:`AdmissionRejected`.
+    - `crash_safe_decode`: a decode-step exception evicts and requeues
+      the offending request (replayed from its prompt and tokens)
+      instead of raising.
     - `health_*`: thresholds for the HEALTHY→DEGRADED→DRAINING state
       machine driven by live page-pool occupancy; DRAINING rejects new
       admissions until pressure falls.
+    - `kv_cache_dtype`: None (pools at `dtype`) or "int8", "fp8_e4m3",
+      "fp8_e5m2": per-page-scaled ``(codes, scales)`` pools; activations
+      and logits stay at `dtype`. An unknown name raises ValueError.
+    - `guard`: the decode program also returns per-slot anomaly flags;
+      a flagged request is evicted and requeued, and finishes with
+      ``"anomaly"`` after `guard_requeue_limit` guard evictions.
+      `guard_scale_limit` bounds quantized page scales (None: finite
+      only).
 
-    `mesh`, `kv_cache_dtype` and `guard` are not ported yet and raise
-    NotImplementedError when set.
+    `mesh` is not ported yet and raises NotImplementedError when set.
     """
 
     def __init__(self, max_num_seqs=8, page_size=16, max_model_len=256,
                  num_pages=None, prefill_buckets=None,
                  growth_reserve_pages=1, eos_token_id=None,
                  dtype=torch.float32, finished_retention=1024,
-                 max_queue_depth=None, health_degraded_at=0.85,
-                 health_drain_at=0.97, health_recover_at=0.70, mesh=None,
-                 kv_cache_dtype=None, guard=False):
-        for name, value, unset in (("mesh", mesh, None),
-                                   ("kv_cache_dtype", kv_cache_dtype, None),
-                                   ("guard", guard, False)):
-            if value != unset:
-                raise NotImplementedError(
-                    f"EngineConfig({name}=...) is not ported yet")
+                 max_queue_depth=None, crash_safe_decode=True,
+                 health_degraded_at=0.85, health_drain_at=0.97,
+                 health_recover_at=0.70, mesh=None, kv_cache_dtype=None,
+                 guard=False, guard_scale_limit=None,
+                 guard_requeue_limit=2):
+        if mesh is not None:
+            raise NotImplementedError(
+                "EngineConfig(mesh=...) is not ported yet")
         if max_num_seqs < 1:
             raise ValueError("max_num_seqs must be >= 1")
         self.max_num_seqs = int(max_num_seqs)
@@ -119,9 +149,17 @@ class EngineConfig:
         self.finished_retention = int(finished_retention)
         self.max_queue_depth = (int(max_queue_depth)
                                 if max_queue_depth is not None else None)
+        self.crash_safe_decode = bool(crash_safe_decode)
         self.health_degraded_at = float(health_degraded_at)
         self.health_drain_at = float(health_drain_at)
         self.health_recover_at = float(health_recover_at)
+        self.kv_cache_dtype = (None if kv_cache_dtype is None
+                               else resolve_kv_cache_dtype(
+                                   kv_cache_dtype).name)
+        self.guard = bool(guard)
+        self.guard_scale_limit = (float(guard_scale_limit)
+                                  if guard_scale_limit is not None else None)
+        self.guard_requeue_limit = int(guard_requeue_limit)
 
     @property
     def compile_bound(self):
@@ -142,16 +180,21 @@ class PagedKVContext:
     - mode "decode": one-token append + attention over the row's pages
       at its own length (ragged).
 
-    Pool writes are in place.
+    Pool writes are in place. ``quant`` (a
+    :class:`~paddle_tpu_torch.quantization.kv_cache.KVQuantSpec`, None for
+    plain pools) makes each pool a ``(codes, scales)`` pair written and
+    read through the quantized step functions.
     """
 
-    def __init__(self, k_pools, v_pools, tables, lens, page_size, mode):
+    def __init__(self, k_pools, v_pools, tables, lens, page_size, mode,
+                 quant=None):
         self.k_pools = k_pools
         self.v_pools = v_pools
         self.tables = tables
         self.lens = lens
         self.page_size = page_size
         self.mode = mode
+        self.quant = quant
         self._layer = 0
 
     def attend(self, q, k, v):
@@ -164,14 +207,19 @@ class PagedKVContext:
                 f"model has more attention layers ({li + 1}+) than the "
                 f"engine allocated pools for ({len(self.k_pools)})")
         qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))   # [b,h,s,d]
+        kp, vp = self.k_pools[li], self.v_pools[li]
+        rows = (self.tables, self.lens, self.page_size)
         if self.mode == "prefill":
             out = _dense_causal_attention(qT, kT, vT)
-            paged_prefill_append(kT, vT, self.k_pools[li], self.v_pools[li],
-                                 self.tables, self.lens, self.page_size)
+            if self.quant is None:
+                paged_prefill_append(kT, vT, kp, vp, *rows)
+            else:
+                quantized_prefill_append(kT, vT, kp, vp, *rows, self.quant)
+        elif self.quant is None:
+            out, _, _ = paged_decode_step(qT, kT, vT, kp, vp, *rows)
         else:
-            out, _, _ = paged_decode_step(
-                qT, kT, vT, self.k_pools[li], self.v_pools[li], self.tables,
-                self.lens, self.page_size)
+            out, _, _ = quantized_decode_step(qT, kT, vT, kp, vp, *rows,
+                                              self.quant)
         return out.transpose(1, 2)                              # [b,s,h,d]
 
 
@@ -207,25 +255,35 @@ class _Graph:
     example (a graph's first replay uploads it, and should not fall on a
     request). The example's tables are zeros, so these calls write only
     the garbage page 0. The captured region ends by copying the result
-    into an output buffer allocated outside the pool, so no tensor of
-    the pool outlives a replay: the engine's graphs share one pool and
-    replay in any order.
+    (a tensor, or a tuple of them) into output buffers allocated outside
+    the pool, so no tensor of the pool outlives a replay: the engine's
+    graphs share one pool and replay in any order.
     """
 
     def __init__(self, fn, example, pool, stream):
         inputs = cuda_graph.StaticInputs(example, stream.device)
         out = cuda_graph.warm_up(fn, inputs.buffers, stream)
-        self.out = torch.empty_like(out)
+        single = isinstance(out, torch.Tensor)
+        bufs = tuple(torch.empty_like(o) for o in ((out,) if single
+                                                   else out))
         del out
-        self._graph = cuda_graph.CapturedGraph(
-            lambda *a: self.out.copy_(fn(*a)), inputs, pool, stream)
+
+        def captured(*a):
+            res = fn(*a)
+            for buf, o in zip(bufs, (res,) if single else res):
+                buf.copy_(o)
+
+        self.out = bufs[0] if single else bufs
+        self._graph = cuda_graph.CapturedGraph(captured, inputs, pool,
+                                               stream)
         self._graph.replay()
 
     def __call__(self, *args):
         """Copy ``args`` (CPU or CUDA tensors) into the input buffers,
-        replay, and return the output buffer, which the next call
+        replay, and return the output buffers, which the next call
         overwrites."""
-        return self._graph(args)
+        self._graph(args)
+        return self.out
 
     def release(self):
         self._graph.release()
@@ -244,15 +302,20 @@ class LLMEngine:
 
     The engine runs on ``device`` (default CUDA; RuntimeError without it
     unless ``device="cpu"``), where the model must already live.
+    ``clock`` (default the host's perf_counter) is the engine's whole
+    timebase: arrival stamps, deadlines and latency histograms.
 
     Public surface: :meth:`add_request`, :meth:`step`, :meth:`generate`,
     :meth:`warmup`, :attr:`metrics`, :meth:`shutdown`.
     """
 
-    def __init__(self, model, config=None, device=None, program_cache=None):
-        if program_cache is not None:
-            raise NotImplementedError(
-                "LLMEngine(program_cache=...) is not ported yet")
+    def __init__(self, model, config=None, device=None, program_cache=None,
+                 metrics_name=None, clock=None):
+        for name, value in (("program_cache", program_cache),
+                            ("metrics_name", metrics_name)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"LLMEngine({name}=...) is not ported yet")
         self.config = config or EngineConfig()
         cfg = self.config
         self.device = resolve_device(device)
@@ -276,12 +339,19 @@ class LLMEngine:
         B, P = cfg.max_num_seqs, cfg.max_pages_per_seq
         pool_shape = (cfg.num_pages, self._num_heads, cfg.page_size,
                       self._head_dim)
-        self._k_pools = [torch.zeros(pool_shape, dtype=cfg.dtype,
-                                     device=self.device)
-                         for _ in range(self._num_layers)]
-        self._v_pools = [torch.zeros(pool_shape, dtype=cfg.dtype,
-                                     device=self.device)
-                         for _ in range(self._num_layers)]
+        # kv_cache_dtype narrows the pools' storage only: (codes, scales)
+        # pairs with one f32 scale per (page, head)
+        self._kv_quant = resolve_kv_cache_dtype(cfg.kv_cache_dtype)
+
+        def pool():
+            if self._kv_quant is None:
+                return self._zeros(*pool_shape, dtype=cfg.dtype)
+            return (self._zeros(*pool_shape,
+                                dtype=self._kv_quant.code_dtype),
+                    self._zeros(*pool_shape[:2], dtype=torch.float32))
+
+        self._k_pools = [pool() for _ in range(self._num_layers)]
+        self._v_pools = [pool() for _ in range(self._num_layers)]
         self._tables = np.zeros((B, P), np.int64)      # host-canonical
         self._lens = np.zeros((B,), np.int64)          # host-canonical
         self._alloc = PageAllocator(cfg.num_pages, B, P)
@@ -290,7 +360,7 @@ class LLMEngine:
         self.scheduler = Scheduler(cfg.prefill_buckets, cfg.page_size,
                                    cfg.growth_reserve_pages,
                                    max_queue_depth=cfg.max_queue_depth)
-        self.metrics = EngineMetrics()
+        self.metrics = EngineMetrics(clock or time.perf_counter)
         self.metrics.compile_bound = cfg.compile_bound
         self.metrics.pages_total = cfg.num_pages - 1   # page 0 reserved
         self._programs = {}          # key -> built program (_compile)
@@ -300,6 +370,7 @@ class LLMEngine:
             degraded_at=cfg.health_degraded_at,
             drain_at=cfg.health_drain_at,
             recover_at=cfg.health_recover_at)
+        self._decode_fault_streak = 0
         self._requests = {}          # live (queued or running) only
         self.finished_requests = OrderedDict()
         self._next_id = 0
@@ -446,6 +517,22 @@ class LLMEngine:
             "boot_ms": (time.perf_counter() - t0) * 1e3,
         }
 
+    @property
+    def kv_pool_bytes(self):
+        """Bytes of every layer's K and V pools, quantized pools' scales
+        included."""
+        def nbytes(pool):
+            parts = pool if isinstance(pool, tuple) else (pool,)
+            return sum(t.numel() * t.element_size() for t in parts)
+        return sum(nbytes(p) for p in self._k_pools + self._v_pools)
+
+    @property
+    def kv_bytes_per_token(self):
+        """Pool bytes per token of KV capacity across all layers (page 0's
+        bytes and capacity cancel)."""
+        return self.kv_pool_bytes / (self.config.num_pages
+                                     * self.config.page_size)
+
     def shutdown(self):
         """Release the KV pools and the programs (each CUDA graph gives
         its memory back); the engine serves nothing after this."""
@@ -527,6 +614,18 @@ class LLMEngine:
     def _decode_step(self, events):
         cfg = self.config
         t0 = self.metrics.clock()
+        # fault site: injected pool exhaustion drives one preemption
+        # round through the real victim selection
+        spec = _fire("serving.pool", step=self.metrics.decode_steps)
+        if spec is not None and spec.kind == "pool_exhaust":
+            for _ in range(int(spec.payload.get("victims", 1))):
+                victim = self.scheduler.select_victim(
+                    [r for r in self._slots if r is not None])
+                if victim is None:
+                    break
+                self._evict(victim, events)
+                note_recovery("serving.pool", "pool_exhaust",
+                              victim=victim.request_id)
         # capacity pass: every live row must fit one more token; the
         # pool running dry preempts the latest-arrived running request
         for slot in range(cfg.max_num_seqs):
@@ -557,10 +656,31 @@ class LLMEngine:
         for s, r in live:
             tokens[s, 0] = r.output_token_ids[-1]
 
-        logits = self._get_decode()(*_tensors(self._tables, self._lens,
-                                              tokens))
+        fn = self._get_decode()
+        args = _tensors(self._tables, self._lens, tokens)
+        if cfg.guard:
+            args += _tensors(self._poison_vector(live))
+        try:
+            # fault site: an `exception` here is a crashed decode step
+            # (payload `request_id` names the offender)
+            _fire("serving.decode", step=self.metrics.decode_steps)
+            out = fn(*args)
+        except Exception as e:
+            if not cfg.crash_safe_decode:
+                raise
+            self._recover_decode_fault(e, events)
+            return
+        logits, flags = out if cfg.guard else (out, None)
+        self._decode_fault_streak = 0
+        # flagged rows are sampled too and their tokens dropped: sampling
+        # is per row, so the others' tokens are those the reference draws
+        # with the flagged rows cleared first, and the flags' read comes
+        # after the tokens', which waited for the device already
         toks = self._sample(logits, list(self._slots),
                             width=cfg.max_num_seqs)
+        if flags is not None:
+            live = self._quarantine_flagged(live, flags.cpu().numpy(),
+                                            events)
         for s, r in live:
             self._lens[s] += 1
         now = self.metrics.clock()
@@ -572,6 +692,74 @@ class LLMEngine:
             r.append_token(toks[s], now=now)
             self.metrics.generated_tokens += 1
             self._post_token(r, events, now)
+
+    def _poison_vector(self, live):
+        """The guarded decode's ``[B, 1]`` poison operand: zeros, unless a
+        ``serving.logits`` fault poisons its victim's row (``nan_grad``
+        NaN, ``bitflip`` +inf), so detection runs through the real
+        program and injection never changes it."""
+        poison = np.zeros((self.config.max_num_seqs, 1), np.float32)
+        spec = _fire("serving.logits", step=self.metrics.decode_steps)
+        if spec is not None and spec.kind in ("bitflip", "nan_grad") \
+                and live:
+            rid = spec.payload.get("request_id")
+            if rid is not None:
+                # a targeted fault whose target is gone is spent
+                victim = next((r for _s, r in live
+                               if r.request_id == rid), None)
+            else:
+                victim = max((r for _s, r in live),
+                             key=lambda r: r.arrival_index)
+            if victim is not None:
+                poison[victim.slot, 0] = (np.nan if spec.kind == "nan_grad"
+                                          else np.inf)
+        return poison
+
+    def _quarantine_flagged(self, live, flags, events):
+        """Guard verdicts (``flags`` ``[B, 2]`` on the host) -> evictions:
+        a flagged live request is evicted and requeued (its replay
+        prefill rebuilds its pages), unless it was guard-evicted
+        ``guard_requeue_limit`` times already: then it finishes with
+        ``"anomaly"``. Returns the surviving live rows."""
+        flagged = [(s, r) for s, r in live if flags[s].any()]
+        if not flagged:
+            return live
+        now = self.metrics.clock()
+        for s, r in flagged:
+            kind = "nan_logits" if flags[s, 0] else "scale_overflow"
+            note_anomaly(kind, "serving.decode",
+                         step=self.metrics.decode_steps,
+                         request=r.request_id)
+            r.num_guard_evictions += 1
+            self.metrics.guard_anomalies += 1
+            if r.num_guard_evictions > self.config.guard_requeue_limit:
+                self._finish(r, "anomaly", now)
+                r.deliver(finished=True)
+                events.append((r.request_id, None, True))
+            else:
+                self._evict(r, events)
+            note_recovery("serving.decode", kind, request=r.request_id)
+        return [(s, r) for s, r in live if self._slots[s] is r]
+
+    def _recover_decode_fault(self, exc, events):
+        """Crash-safe decode: the failed step left nothing to undo (it
+        fired before the replay; pages grown for it are kept), so the
+        offending request (the exception's ``request_id``, else the
+        latest-arrived live one) is evicted and requeued, and serving goes
+        on. More consecutive faults than slots re-raise: the fault is not
+        the request's."""
+        live = [r for r in self._slots if r is not None]
+        self._decode_fault_streak += 1
+        if not live or self._decode_fault_streak > self.config.max_num_seqs:
+            raise exc
+        rid = getattr(exc, "request_id", None)
+        offender = next((r for r in live if r.request_id == rid), None)
+        if offender is None:
+            offender = max(live, key=lambda r: r.arrival_index)
+        self._evict(offender, events)
+        self.metrics.decode_fault_recoveries += 1
+        note_recovery("serving.decode", "exception",
+                      request=offender.request_id, exc=type(exc).__name__)
 
     # ------------------------------------------------------ sampling
     def _sample(self, logits, reqs, width):
@@ -665,7 +853,8 @@ class LLMEngine:
 
         def prefill(row_table, ids, pos_ids, length):
             ctx = PagedKVContext(k_pools, v_pools, row_table, length,
-                                 cfg.page_size, "prefill")
+                                 cfg.page_size, "prefill",
+                                 quant=self._kv_quant)
             logits = self._forward(ids, pos_ids, ctx)       # [1, bucket, V]
             last = (length - 1)[:, None, None].expand(-1, 1,
                                                       logits.shape[-1])
@@ -676,22 +865,57 @@ class LLMEngine:
                          torch.ones(1, dtype=torch.int64,
                                     device=self.device))
 
+    def _guard_flags(self, logits, k_pools, v_pools, tables, lens):
+        """Per-slot anomaly flags ``[B, 2]`` f32: column 0 a non-finite
+        value in the row's logits, column 1 (quantized pools) a
+        non-finite page scale, or one above ``guard_scale_limit``, on a
+        page the row uses, in any layer."""
+        cfg = self.config
+        bad_logits = (~torch.isfinite(logits)).any(dim=-1)          # [B]
+        bad_scale = torch.zeros_like(bad_logits)
+        if self._kv_quant is not None:
+            P = tables.shape[1]
+            used = (torch.arange(P, device=tables.device) * cfg.page_size
+                    )[None, :] < (lens + 1)[:, None]                 # [B, P]
+            limit = cfg.guard_scale_limit
+            for kq, vq in zip(k_pools, v_pools):
+                for _codes, scales in (kq, vq):
+                    sc = scales[tables]                             # [B,P,h]
+                    bad = ~torch.isfinite(sc)
+                    if limit is not None:
+                        bad = bad | (sc > limit)
+                    bad_scale = bad_scale | (bad & used[:, :, None]).any(
+                        dim=2).any(dim=1)
+        return torch.stack([bad_logits, bad_scale], dim=-1).float()
+
     def _decode_program(self, pools=None):
         """(fn, example inputs) of the decode program: ``fn(tables [B, P],
         lens [B], tokens [B, 1])`` -> logits ``[B, V]`` f32; each row's
         token goes into ``pools`` (``(k_pools, v_pools)``, default the
-        engine's) in place at its length, which is also its position."""
+        engine's) in place at its length, which is also its position.
+        With ``guard`` it takes a ``[B, 1]`` f32 poison added to the
+        logits (zeros but under a ``serving.logits`` fault) and returns
+        ``(logits, flags [B, 2])``: still one program."""
         cfg = self.config
         k_pools, v_pools = pools or (self._k_pools, self._v_pools)
 
-        def decode(tables, lens, tokens):
+        def decode(tables, lens, tokens, *poison):
             ctx = PagedKVContext(k_pools, v_pools, tables, lens,
-                                 cfg.page_size, "decode")
-            return self._forward(tokens, lens[:, None], ctx)[:, 0].float()
+                                 cfg.page_size, "decode",
+                                 quant=self._kv_quant)
+            logits = self._forward(tokens, lens[:, None], ctx)[:, 0].float()
+            if not cfg.guard:
+                return logits
+            logits = logits + poison[0]
+            return logits, self._guard_flags(logits, k_pools, v_pools,
+                                             tables.long(), lens.long())
 
         B = cfg.max_num_seqs
-        return decode, (self._zeros(B, cfg.max_pages_per_seq),
-                        self._zeros(B), self._zeros(B, 1))
+        example = (self._zeros(B, cfg.max_pages_per_seq), self._zeros(B),
+                   self._zeros(B, 1))
+        if cfg.guard:
+            example += (self._zeros(B, 1, dtype=torch.float32),)
+        return decode, example
 
     def _sampler_program(self, width):
         """(fn, example inputs) of the sampler at ``width``: ``fn(logits

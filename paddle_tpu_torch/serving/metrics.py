@@ -56,13 +56,14 @@ class Histogram:
 
 class EngineMetrics:
     """All engine counters in one place; `snapshot()` is the contract.
-    ``clock`` (the host's perf_counter) is the engine's whole timebase:
-    arrival stamps, deadlines, latency histograms."""
+    ``clock`` (default the host's perf_counter; a virtual clock makes
+    latency accounting deterministic) is the engine's whole timebase:
+    arrival stamps, deadlines, latency histograms. It is this instance's
+    own, so one engine's clock never reaches another's."""
 
-    clock = staticmethod(time.perf_counter)
-
-    def __init__(self):
-        self.started_t = self.clock()
+    def __init__(self, clock=time.perf_counter):
+        self.clock = clock
+        self.started_t = clock()
         # counters
         self.requests_received = 0
         self.requests_admitted = 0
@@ -70,6 +71,8 @@ class EngineMetrics:
         self.requests_evicted = 0
         self.requests_rejected = 0   # backpressure (queue_full/draining)
         self.requests_expired = 0    # deadline enforcement
+        self.decode_fault_recoveries = 0
+        self.guard_anomalies = 0     # guard-flagged requests
         self.prefill_steps = 0
         self.decode_steps = 0
         self.prompt_tokens = 0
@@ -116,6 +119,8 @@ class EngineMetrics:
             "queue_depth": self.queue_depth,
             "running": self.running,
             "health": self.health,
+            "decode_fault_recoveries": self.decode_fault_recoveries,
+            "guard_anomalies": self.guard_anomalies,
             "steps": {
                 "prefill": self.prefill_steps,
                 "decode": self.decode_steps,

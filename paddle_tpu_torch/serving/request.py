@@ -103,7 +103,9 @@ class Request:
         self._stream_done = False   # final last=True signal sent
         self.slot = None            # decode batch slot while running
         self.num_evictions = 0
-        self.finish_reason = None   # "stop" | "length" | "deadline"
+        self.num_guard_evictions = 0    # evictions by the serving guard
+        # "stop" | "length" | "deadline" | "anomaly"
+        self.finish_reason = None
         # metrics timestamps (host clocks; filled by the engine)
         self.deadline_t = None      # arrive_t + deadline_s, or None
         self.arrive_t = None

@@ -307,13 +307,18 @@ def test_preemption_replays_token_identically(shared_models):
 
 def test_engine_contract_errors(shared_models, monkeypatch):
     port, prompts, _, _ = shared_models
-    for kw in ({"mesh": {"tp": 2}}, {"kv_cache_dtype": "int8"},
-               {"guard": True}):
-        with pytest.raises(NotImplementedError):
-            serving.EngineConfig(**kw)
     with pytest.raises(NotImplementedError):
-        serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
-                          device="cpu", program_cache="cache")
+        serving.EngineConfig(mesh={"tp": 2})
+    for kw in ({"kv_cache_dtype": "int8"}, {"kv_cache_dtype": "fp8_e4m3"},
+               {"kv_cache_dtype": "fp8_e5m2"}, {"guard": True},
+               {"crash_safe_decode": False}):
+        serving.EngineConfig(**kw)
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        serving.EngineConfig(kv_cache_dtype="int4")
+    for kw in ({"program_cache": "cache"}, {"metrics_name": "engine-a"}):
+        with pytest.raises(NotImplementedError):
+            serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
+                              device="cpu", **kw)
     eng = serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
                             device="cpu")
     with pytest.raises(ValueError, match="max_model_len"):

@@ -178,7 +178,31 @@ Phases, in order (any failure raises and exits non-zero):
    moving the weights at steps 2 and 4 only: each captured run equal to
    its ``dygraph_function`` twin bit for bit (losses and weights),
    launches exact; then ``SGD(guard=True)`` with a planted ``nan_grad``
-   keeps exactly that parameter.
+   keeps exactly that parameter;
+20. observability and resilience: GPT-1.3B serves phase 4's 8 requests
+   on an engine named ``smoke`` inside a telemetry spool: ``warmup()``
+   is exactly 10 ``serving-aot`` events of the recompile log and
+   ``serving_compile_total{engine="smoke"}`` 10; after a warm-up run
+   of it, eight runs in turns (``OBS_PLAN``) with spans on (under a
+   ``TraceContext``) and the spool armed, spans on alone, and spans
+   off: one ``serving.prefill`` span a prefill, one
+   ``serving.decode`` a decode step, one ``serving.finish`` a request,
+   the same tokens in every run, the LayerNorm launches of every
+   forward; a scrape of ``serve_prometheus`` on 127.0.0.1 returns the
+   engine's series; the spool merges into a Chrome trace with the spans
+   and a request's timeline; each run's tokens/s and mean decode step,
+   and an empty span's host µs, are printed beside the card. Then at
+   depth 2 (``to_static(amp_policy="bf16", guard=True)``,
+   ``AdamW(fused=True, guard=True)``): the recompile log's causes of a
+   first call, a halved
+   sequence and a new registry version; six captured steps, and the
+   same six with a ``preempt`` fault at the third ``optimizer.step``
+   under a ``PreemptionHandler``: it drains a checkpoint of step 3 and
+   a fresh model and optimizer resumed from it take steps 4-6 captured,
+   losses bit for bit, the parameters' ``tree_digest`` equal before the
+   save and after the load; and ``localize_poison`` over a
+   ``BatchLineage`` (a checkpoint at step 2, a ``nan_grad`` planted at
+   step 5 of 8) names step 5.
 
 The phases print their seconds as they end.
 
@@ -781,13 +805,13 @@ def _serving_model(tag):
     return cfg, model
 
 
-def _serving_engine(model, **options):
+def _serving_engine(model, metrics_name=None, **options):
     """The serving phases' engine: 8 slots, pages of 16, 1024 tokens,
     bf16, with ``options`` of ``EngineConfig``."""
     from paddle_tpu_torch.serving import EngineConfig, LLMEngine
     return LLMEngine(model, EngineConfig(
         max_num_seqs=8, page_size=16, max_model_len=1024,
-        dtype=torch.bfloat16, **options))
+        dtype=torch.bfloat16, **options), metrics_name=metrics_name)
 
 
 def _serving_requests(vocab):
@@ -3342,6 +3366,472 @@ def phase_optimizers():
     return total
 
 
+# serving runs of one engine after a warm-up: spans on with a spool
+# armed, spans on, spans off, in turns
+OBS_PLAN = ("on+spool", "off", "on", "off", "off", "on", "off", "on+spool")
+OBS_STEPS = 6                        # uninterrupted preempt-phase steps
+OBS_PREEMPT = 3                      # the step the preempt fault drains at
+OBS_LAST_GOOD, OBS_POISON, OBS_TOTAL = 2, 5, 8    # localize_poison's run
+
+
+def _spans_by_name():
+    from paddle_tpu_torch import observability as obs
+    return {k: v["count"] for k, v in obs.recorder().aggregates().items()}
+
+
+def _spans_since(before):
+    return {k: n - before.get(k, 0) for k, n in _spans_by_name().items()
+            if n != before.get(k, 0)}
+
+
+def _obs_serve(eng, prompts, sps, spans_on):
+    """One generate() of the batch with spans on or off, under a fresh
+    TraceContext: (tokens, tokens/s, mean decode step ms, the spans the
+    run should record by name)."""
+    from paddle_tpu_torch import observability as obs
+    m = eng.metrics
+    gen0, n0, s0 = (m.generated_tokens, m.decode_step_s.count,
+                    m.decode_step_s.sum)
+    p0, f0 = m.prefill_steps, m.requests_finished
+    prev = obs.set_enabled(spans_on)
+    try:
+        t0 = time.perf_counter()
+        with obs.use_context(obs.TraceContext.new("smoke")):
+            res = eng.generate(prompts, sps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        obs.set_enabled(prev)
+    spans = {"serving.prefill": m.prefill_steps - p0,
+             "serving.decode": m.decode_step_s.count - n0,
+             "serving.finish": m.requests_finished - f0}
+    return ([r.output_token_ids for r in res],
+            (m.generated_tokens - gen0) / wall,
+            (m.decode_step_s.sum - s0) / (m.decode_step_s.count - n0) * 1e3,
+            spans if spans_on else {})
+
+
+def _span_cost(n=100_000):
+    """Host µs of one empty span: off, on, on under a TraceContext, and
+    that with Python's cyclic collector off (no spool armed); with the
+    process's tracked objects and one full collection's ms."""
+    from paddle_tpu_torch import observability as obs
+    out = {}
+    for tag, on, ctx in (("off", False, None), ("on", True, None),
+                         ("on+trace", True, obs.TraceContext("cost")),
+                         ("on+trace, gc off", True,
+                          obs.TraceContext("cost"))):
+        prev = obs.set_enabled(on)
+        if tag.endswith("gc off"):
+            gc.disable()
+        try:
+            with obs.use_context(ctx):
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    with obs.span("obs.cost"):
+                        pass
+                out[tag] = (time.perf_counter() - t0) / n * 1e6
+        finally:
+            obs.set_enabled(prev)
+            gc.enable()
+    t0 = time.perf_counter()
+    gc.collect()
+    out["gc_collect_ms"] = (time.perf_counter() - t0) * 1e3
+    out["tracked_objects"] = len(gc.get_objects())
+    return out
+
+
+def _per_call_us(fn, n=200_000):
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def span_overhead(rounds=3):
+    """What the spans cost on the serving path, outside the phases (run
+    after ``phase_device()`` and ``phase_build()``): one engine of
+    ``_obs_serving``'s setup serves the batch once to warm up, then
+    ``rounds`` times with spans on and off in turns; then the host µs of
+    a span's pieces (a clock read, ``os.getpid``,
+    ``threading.get_ident``, a lock, the profiler flag) and of an empty
+    span, and one run with spans on and one off under ``cProfile`` (each
+    run's profiled seconds and its ten functions of most own time).
+    Prints and returns one dict."""
+    import cProfile
+    import os
+    import pstats
+    import threading
+
+    cfg, model = _serving_model("span overhead")
+    prompts, sps = _serving_requests(cfg.vocab_size)
+    eng = _serving_engine(model, metrics_name="span-overhead")
+    eng.warmup()
+    _obs_serve(eng, prompts, sps, False)             # warm-up, not counted
+    runs = {"on": [], "off": []}
+    for i in range(rounds):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            _, tps, decode_ms, _ = _obs_serve(eng, prompts, sps, on)
+            runs["on" if on else "off"].append((tps, decode_ms))
+    lock = threading.Lock()
+
+    def lock_cycle():
+        with lock:
+            pass
+
+    pieces = {"perf_counter_ns": _per_call_us(time.perf_counter_ns),
+              "os.getpid": _per_call_us(os.getpid),
+              "threading.get_ident": _per_call_us(threading.get_ident),
+              "lock": _per_call_us(lock_cycle),
+              "profiler_enabled": _per_call_us(
+                  torch._C._autograd._profiler_enabled)}
+    profiles = {}
+    for on in (True, False):
+        prof = cProfile.Profile()
+        prof.enable()
+        _obs_serve(eng, prompts, sps, on)
+        prof.disable()
+        stats = pstats.Stats(prof)
+        rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:10]
+        profiles["on" if on else "off"] = {
+            "profiled_s": stats.total_tt,
+            "top": [(f"{Path(f).name}:{line}({name})", v[1],
+                     round(v[2] * 1e3, 3)) for (f, line, name), v in rows]}
+    eng.shutdown()
+    out = {"card": card_line(), "runs": runs, "pieces_us": pieces,
+           "span_us": _span_cost(), "profiles": profiles}
+    print(f"[span overhead] {json.dumps(out)}")
+    return out
+
+
+def _obs_serving():
+    """GPT-1.3B serving under the observability plane: the smoke engine
+    (``metrics_name="smoke"``) built inside a telemetry spool, its
+    programs as ``serving-aot`` events, its span counts, a scrape, the
+    spool merged into a Chrome trace. After a warm-up run, the same
+    requests with spans on and the spool armed, with spans on alone, and
+    with spans off, in turns (``OBS_PLAN``), give the same tokens. Then
+    an empty span's host cost. Returns (launches, numbers)."""
+    import urllib.request
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import export, fleettrace
+    cfg, model = _serving_model("observability")
+    prompts, sps = _serving_requests(cfg.vocab_size)
+    log = obs.recompile_log()
+    since = log.count
+    runs = {tag: [] for tag in OBS_PLAN}
+    with tempfile.TemporaryDirectory() as spool_dir:
+        fleettrace.arm_spool(spool_dir, rank=0, metrics_interval_s=0.5)
+        try:
+            eng = _serving_engine(model, metrics_name="smoke")
+            bound = eng.config.compile_bound
+            eng.warmup()
+            aot = [e for e in log.events() if e.seq > since
+                   and e.kind == "serving-aot"
+                   and e.attrs.get("engine") == "smoke"]
+            compiles = obs.registry().counter(
+                "serving_compile_total", labels={"engine": "smoke"}).value
+            print(f"[observability] warmup: {len(aot)} serving-aot events "
+                  f"of the smoke engine ({[e.fn for e in aot]}), "
+                  f"serving_compile_total {compiles}, build ms "
+                  f"{[e.compile_ms for e in aot]}")
+            if len(aot) != bound or compiles != bound or bound != 10:
+                raise AssertionError(f"{len(aot)} serving-aot events, "
+                                     f"{compiles} compiles, bound {bound}")
+            m = eng.metrics
+            _obs_serve(eng, prompts, sps, False)     # warm-up, not counted
+            f0 = m.requests_finished
+            spans0 = _spans_by_name()
+            torch.cuda.synchronize()
+            reset_launches()
+            forwards = m.prefill_steps + m.decode_steps
+            for tag in OBS_PLAN:
+                spooled = fleettrace.active_spool() is not None
+                if tag == "on+spool" and not spooled:
+                    fleettrace.arm_spool(spool_dir, rank=0,
+                                         metrics_interval_s=0.5)
+                elif tag != "on+spool" and spooled:
+                    fleettrace.disarm()
+                runs[tag].append(_obs_serve(eng, prompts, sps,
+                                            tag != "off"))
+            launches = read_launches("observability serving")
+            spans = _spans_since(spans0)
+            forwards = m.prefill_steps + m.decode_steps - forwards
+            expect = {k: 0 for k in launches}
+            expect.update(ln_fwd=forwards * (cfg.num_layers + 1),
+                          ln_res_fwd=forwards * cfg.num_layers)
+            if launches != expect:
+                raise AssertionError(f"launches {launches} != {expect}")
+            want = {}
+            for rs in runs.values():
+                for r in rs:
+                    for name, n in r[3].items():
+                        want[name] = want.get(name, 0) + n
+            print(f"[observability] spans of the runs with spans on: "
+                  f"{spans}; their prefills, decode steps and finished "
+                  f"requests: {want}")
+            if any(spans.get(name) != n for name, n in want.items()):
+                raise AssertionError("a span count differs from its "
+                                     "engine count")
+            if m.requests_finished - f0 != len(OBS_PLAN) * len(prompts) \
+                    or m.compile_count != bound:
+                raise AssertionError("the engine built past warmup() or "
+                                     "lost a request")
+            first = runs["on+spool"][0][0]
+            if any(r[0] != first for rs in runs.values() for r in rs):
+                raise AssertionError("spans on and off serve other tokens")
+            with export.serve_prometheus(port=0) as server:
+                with urllib.request.urlopen(server.url, timeout=10) as r:
+                    body = r.read().decode()
+            series = [ln for ln in body.splitlines()
+                      if 'engine="smoke"' in ln]
+            print(f"[observability] scrape of {server.url}: {len(series)} "
+                  f"series of the smoke engine, e.g. "
+                  f"{[s for s in series if 'compile' in s]}")
+            if f'serving_compile_total{{engine="smoke"}} {bound}' not in \
+                    body or 'serving_ttft_seconds_count{engine="smoke"}' \
+                    not in body:
+                raise AssertionError("the scrape lacks the smoke engine")
+            eng.shutdown()
+        finally:
+            fleettrace.disarm()
+        fleet = fleettrace.merge_spools(spool_dir)
+        trace = fleet.chrome_trace()
+        names = {e["name"] for e in trace["traceEvents"]}
+        # the first request after the warm-up run
+        first_req = f"req-{len(prompts)}"
+        line = fleet.timeline(first_req)
+        print(f"[observability] spool merged: {fleet.summary()}; its "
+              f"Chrome trace holds {len(trace['traceEvents'])} events; "
+              f"request {first_req}'s timeline stages {line['stages']}")
+        if not {"serving.prefill", "serving.decode", "serving.finish",
+                "recompile:decode"} <= names or \
+                "prefill_s" not in line["stages"]:
+            raise AssertionError(f"the merged trace lacks spans: {names}")
+    card = card_line()
+    numbers = {}
+    for tag, rs in runs.items():
+        numbers[tag] = {"tokens_per_s": [r[1] for r in rs],
+                        "decode_ms": [r[2] for r in rs]}
+        print(f"[observability] {card}: spans {tag}: tokens/s by run "
+              f"{numbers[tag]['tokens_per_s']}, mean decode step ms by run "
+              f"{numbers[tag]['decode_ms']}")
+    numbers["span_us"] = _span_cost()
+    print(f"[observability] an empty span's host µs: {numbers['span_us']}")
+    return launches, numbers
+
+
+def _obs_model():
+    """A depth-2 GPT-1.3B (f32 masters), ``AdamW(1e-4, fused=True,
+    guard=True)`` and its captured guarded step."""
+    import paddle_tpu_torch as pt
+    cfg, model = _gpt(num_layers=2)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.named_parameters(),
+                             fused=True, guard=True)
+    return cfg, model, opt, _train_step(model, opt, cfg.vocab_size,
+                                         guard=True)
+
+
+def _eager(step_fn, batch):
+    import paddle_tpu_torch as pt
+    with pt.amp.activation_residency("bf16"):
+        return step_fn.dygraph_function(*batch).item()
+
+
+def _captured(step_fn, batch):
+    step_fn(*batch)
+    return step_fn.last_guard["loss"]
+
+
+def _obs_recompiles():
+    """The recompile log's causes for a first call, a changed batch
+    shape and a new registry version of the captured step; (the first
+    call's ms, the attribution's ms a build)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.jit.api import StaticFunction
+    cfg, model, opt, step_fn = _obs_model()
+    vocab = cfg.vocab_size
+    since = obs.recompile_log().count
+    noted = []
+    note_build = StaticFunction._note_build
+
+    def timed(self, *args):
+        t0 = time.perf_counter()
+        event = note_build(self, *args)
+        noted.append((time.perf_counter() - t0) * 1e3)
+        return event
+
+    StaticFunction._note_build = timed
+    try:
+        _captured(step_fn, _batch(vocab, 4000))
+        ids, labels = _batch(vocab, 4001)
+        _captured(step_fn, (ids[:, :S // 2], labels[:, :S // 2]))
+        pt.optimizer.SGD(0.1, parameters=[torch.nn.Parameter(
+            torch.zeros(2, device="cuda"))])
+        _captured(step_fn, _batch(vocab, 4002))
+    finally:
+        StaticFunction._note_build = note_build
+    events = [e for e in obs.recompile_log().events() if e.seq > since]
+    got = [(e.fn, e.kind, e.cause) for e in events]
+    print(f"[observability] recompile events: "
+          f"{[(e.cause, e.changes, e.trace_ms, e.compile_ms) for e in events]}"
+          f"; attribution ms a build {noted}")
+    want = [("train_step", "jit", "first compile of this function"),
+            ("train_step", "jit", "shape change in ids, labels"),
+            ("train_step", "jit", "state change in <state-registry>")]
+    if got != want or events[1].changes[0]["after"] != [B, S // 2]:
+        raise AssertionError(f"recompile events {got}")
+    first_ms = events[0].trace_ms + events[0].compile_ms
+    del model, opt, step_fn
+    return first_ms, noted
+
+
+def _obs_preempt(ckpt_dir):
+    """Six captured steps; then the same six with a ``preempt`` fault at
+    the third ``optimizer.step`` (eager steps, under a PreemptionHandler):
+    it drains a checkpoint of step 3, and a fresh model and optimizer
+    resumed from it take steps 4-6 captured: losses bit for bit, the
+    parameters' digest equal before the save and after the load."""
+    from paddle_tpu_torch.framework.io import numpy_state_dict
+    from paddle_tpu_torch.resilience import (Checkpointer, FaultInjector,
+                                             FaultPlan, FaultSpec,
+                                             PreemptionHandler, auto_resume,
+                                             tree_digest)
+    cfg, model, _, step_fn = _obs_model()
+    vocab = cfg.vocab_size
+    batches = {s: _batch(vocab, 5000 + s) for s in range(1, OBS_STEPS + 1)}
+    clean = [_captured(step_fn, batches[s]) for s in range(1, OBS_STEPS + 1)]
+    del model, step_fn
+    gc.collect()
+    cfg, model, opt, step_fn = _obs_model()
+    ck = Checkpointer(ckpt_dir, keep=1)
+    plan = FaultPlan([FaultSpec("optimizer.step", "preempt",
+                                at=OBS_PREEMPT - 1)], name="smoke-preempt")
+    losses, digest = [], None
+    with PreemptionHandler(checkpointer=ck) as pre, FaultInjector(plan):
+        for s in range(1, OBS_STEPS + 1):
+            losses.append(_eager(step_fn, batches[s]))
+
+            def state(s=s):
+                nonlocal digest
+                weights = numpy_state_dict(model)
+                digest = tree_digest(weights)
+                return {"step": s, "model": weights,
+                        "optimizer": opt.state_dict()}
+
+            if pre.check(s, state):
+                break
+    drain_ms = pre.drain_ms
+    del model, opt, step_fn
+    gc.collect()
+    cfg, model, opt, step_fn = _obs_model()
+    start, _ = auto_resume(ck, model, opt)
+    loaded = tree_digest(numpy_state_dict(model))
+    losses += [_captured(step_fn, batches[s])
+               for s in range(start, OBS_STEPS + 1)]
+    print(f"[observability] preempt fault at step {OBS_PREEMPT}: drained "
+          f"at step {pre.drain_step} ({pre.reason}) in {drain_ms} ms; "
+          f"resumed at step {start}; digest before the save {digest}, "
+          f"after the load {loaded}")
+    print(f"[observability] uninterrupted losses {clean}")
+    print(f"[observability] resumed losses       {losses}")
+    if pre.drain_step != OBS_PREEMPT or start != OBS_PREEMPT + 1:
+        raise AssertionError(f"drained at {pre.drain_step}, resumed at "
+                             f"{start}")
+    if digest != loaded:
+        raise AssertionError("the parameters' digest changed through the "
+                             "checkpoint")
+    if losses != clean:
+        raise AssertionError("the resumed run's losses differ from the "
+                             "uninterrupted run's")
+    return drain_ms
+
+
+def _obs_localize(ckpt_dir):
+    """localize_poison over a BatchLineage: 8 guarded steps, a checkpoint
+    at step 2, a nan_grad planted at step 5 (that step eager under its
+    plan, the others captured); bisecting replays from the checkpoint
+    name step 5."""
+    from paddle_tpu_torch.resilience import (BatchLineage, Checkpointer,
+                                             FaultInjector, FaultPlan,
+                                             FaultSpec, auto_resume,
+                                             localize_poison)
+    cfg, model, opt, step_fn = _obs_model()
+    vocab = cfg.vocab_size
+    ck = Checkpointer(ckpt_dir, keep=1)
+    lineage = BatchLineage()
+
+    def run(step):
+        e = lineage.get(step)
+        batch = _batch(vocab, e["seed"])
+        if not e["faults"]:
+            _captured(step_fn, batch)
+        else:
+            with FaultInjector(FaultPlan([FaultSpec(*f)
+                                          for f in e["faults"]])):
+                _eager(step_fn, batch)
+        return opt.guard_summary().good
+
+    flagged = None
+    for s in range(1, OBS_TOTAL + 1):
+        lineage.record(s, seed=6000 + s, faults=[
+            ("optimizer.grads", "nan_grad", 0)] if s == OBS_POISON else [])
+        if not run(s) and flagged is None:
+            flagged = s
+        if s == OBS_LAST_GOOD:
+            ck.save_train_state(s, model, opt)
+    replays = []
+
+    def replay(upto):
+        replays.append(upto)
+        auto_resume(ck, model, opt, step=OBS_LAST_GOOD)
+        good = [run(s) for s in range(OBS_LAST_GOOD + 1, upto + 1)]
+        return not all(good)
+
+    found = localize_poison(replay, OBS_LAST_GOOD, OBS_TOTAL)
+    print(f"[observability] nan_grad planted at step {OBS_POISON}: flagged "
+          f"at step {flagged}, localize_poison names step {found} after "
+          f"replays to {replays}")
+    if found != OBS_POISON or flagged != OBS_POISON:
+        raise AssertionError(f"localize_poison named {found}")
+
+
+def phase_observability():
+    """The observability and resilience slice on the main paths: GPT-1.3B
+    serving with spans, the recompile log, a scrape and a spool, spans
+    on and off; a depth-2 GPT-1.3B guarded, fused train step's
+    recompile causes, a preempt-and-resume bit for bit, and a poison
+    step localized. Prints the numbers as JSON; returns the launches of
+    both drives."""
+    launches, numbers = _obs_serving()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_launches()
+    first_ms, attribution_ms = _obs_recompiles()
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        drain_ms = _obs_preempt(str(Path(tmp) / "preempt"))
+        gc.collect()
+        _obs_localize(str(Path(tmp) / "localize"))
+    train = read_launches("observability train")
+    path = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_fwd",
+            "ln_res_fwd", "ln_bwd", "ln_bwd_res", "adam_update_guard",
+            "adam_guard_sumsq")
+    if not all(train[k] for k in path):
+        raise AssertionError(f"a train kernel never launched: {train}")
+    print(f"[observability] train drives in {time.perf_counter() - t0:.1f} "
+          f"s: first call (discovery, capture, first replay) {first_ms} ms, "
+          f"its attribution {attribution_ms[0]} ms, drain {drain_ms} ms; "
+          f"launches {train}")
+    numbers.update(first_call_ms=first_ms, attribution_ms=attribution_ms,
+                   drain_ms=drain_ms)
+    print(f"[observability] {card_line()}: {json.dumps(numbers)}")
+    return {k: launches[k] + train[k] for k in launches}
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3387,6 +3877,7 @@ def main(argv=None):
     paths["rollback"] = phase("rollback", phase_rollback)
     paths["sparse_block"] = phase("sparse block", phase_sparse_block)
     paths["optimizers"] = phase("optimizers", phase_optimizers)
+    paths["observability"] = phase("observability", phase_observability)
     print(f"[phase] seconds: {seconds}, {sum(seconds.values()):.1f} in all")
     max_err.update(train_err)
     max_err.update(adam_err)

@@ -62,6 +62,19 @@ runs the function eagerly: a signature's first call runs once, or, when
 that call registered state, is undone and runs again (the reference's
 two traces); a cached call runs with the hooks silenced.
 
+Observability (:mod:`paddle_tpu_torch.observability`), as the
+reference's: every call runs in a ``jit.<name>`` span; spans and counter
+increments inside the step (``optimizer.step``, an injected fault's)
+follow the fault hooks' rules above, through ``spans.quiet`` and
+``spans.held``; and every cache miss is a ``jit`` event of the recompile
+log (``note_jit_compile``), its cause found by diffing the new key
+against the nearest key built before, named by the reference's leaf
+names (``ids``, ``arg1['mask']``). The keys of every entry built stay
+for that (not their graphs, which ``_keep`` releases). ``trace_ms`` is
+the discovery and capture (on the CPU, the calls before the last),
+``compile_ms`` the first replay's host time (on the CPU, the last eager
+call).
+
 ``amp_policy="bf16"`` pushes the bf16 activation policy
 (:mod:`paddle_tpu_torch.amp.policy`) around every call, warm-up and
 capture. ``guard=True`` adds the training sentinel's loss probe: each
@@ -78,6 +91,8 @@ the step, ``"bf16"`` storing their saved f32 boundaries in bf16.
 from __future__ import annotations
 
 import contextlib
+import inspect
+import time
 import weakref
 
 import torch
@@ -86,6 +101,7 @@ from paddle_tpu_torch.amp.policy import ActivationPolicy, activation_residency
 from paddle_tpu_torch.core import cuda_graph
 from paddle_tpu_torch.framework.state import (registry_version, state_init,
                                               state_tensors)
+from paddle_tpu_torch.observability import note_jit_compile, span, spans
 from paddle_tpu_torch.resilience import faultinject
 
 __all__ = ["StaticFunction", "to_static"]
@@ -124,6 +140,31 @@ def _unflatten(struct, leaves):
     if kind in (tuple, list):
         return kind(items)
     return kind(*items) if hasattr(kind, "_fields") else kind(items)
+
+
+def _leaf_names(tree, base, names):
+    """One name per leaf of ``tree`` in :func:`_flatten`'s order,
+    ``base`` followed by the reference's path spelling (``[0]``,
+    ``['mask']``, ``.field``)."""
+    if isinstance(tree, (tuple, list)):
+        fields = getattr(tree, "_fields", None)
+        for i, t in enumerate(tree):
+            _leaf_names(t, base + (f".{fields[i]}" if fields else f"[{i}]"),
+                        names)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            _leaf_names(v, f"{base}[{k!r}]", names)
+    else:
+        names.append(base)
+    return names
+
+
+@contextlib.contextmanager
+def _silenced():
+    """No fault hook, span or counter increment fires on this thread in
+    the block."""
+    with faultinject.quiet(), spans.quiet():
+        yield
 
 
 def _static_leaf(x):
@@ -220,7 +261,7 @@ def changed_state(call, device):
     gradients and random state are put back after it."""
     snap = _StateSnapshot(device)
     marks = {id(t): _mark(t) for t in snap.tensors}
-    with faultinject.quiet():
+    with _silenced():
         call()
     changed = [t for t in state_tensors()
                if id(t) not in marks or not _unchanged(marks[id(t)], t)]
@@ -302,9 +343,12 @@ class StaticFunction:
         self._guard = bool(guard)
         self.last_guard = None
         self._compiled = {}
+        self._keys = []              # every entry's key, in build order
         self._stream = None
         self.__name__ = getattr(function, "__name__", "static_fn")
         self.__doc__ = getattr(function, "__doc__", None)
+        self._span_name = f"jit.{self.__name__}"
+        self._param_names = None     # resolved at the first build
 
     @property
     def dygraph_function(self):
@@ -327,6 +371,10 @@ class StaticFunction:
         return out, _probe_stack(leaves)
 
     def __call__(self, *args, **kwargs):
+        with span(self._span_name):
+            return self._call(args, kwargs)
+
+    def _call(self, args, kwargs):
         leaves = []
         struct = _flatten((args, kwargs), leaves)
         statics = tuple(_static_leaf(x) for x in leaves)
@@ -338,7 +386,7 @@ class StaticFunction:
             out, probe = self._build(sig, struct, leaves, tensors, args,
                                      kwargs)
         elif entry.graph is None:
-            with faultinject.quiet():
+            with _silenced():
                 out, probe = self._eager_step(args, kwargs)
         else:
             out, probe = entry(tensors)
@@ -364,34 +412,69 @@ class StaticFunction:
     def _build(self, sig, struct, leaves, tensors, args, kwargs):
         """(CUDA) discovery, capture and one replay, or (CPU) one eager
         call; the entry is keyed after discovery, whose calls may
-        register state."""
+        register state. Either way one ``jit`` recompile event."""
+        t0 = time.perf_counter()
+        prior = list(self._keys)
         device = self._device(tensors, args, kwargs)
         if device.type != "cuda":
             snap = _StateSnapshot(device)
             version = registry_version()
+            t_run = time.perf_counter()
             out = self._eager_step(args, kwargs)
             if registry_version() != version:
                 # the reference's discovery trace registered state: it
                 # traces again, and so the call runs again
                 snap.restore()
                 del snap
+                t_run = time.perf_counter()
                 out = self._eager_step(args, kwargs)
-            self._keep(sig, _CompiledEntry())
+            done = time.perf_counter()
+            event = self._note_build(self._keep(sig, _CompiledEntry()),
+                                     prior, args, kwargs, t_run - t0)
+            event.compile_ms = round((done - t_run) * 1e3, 3)
             return out
         entry = self._capture(struct, leaves, tensors, device)
-        self._keep(sig, entry)
-        return entry(tensors, loaded=True)
+        event = self._note_build(self._keep(sig, entry), prior, args,
+                                 kwargs, time.perf_counter() - t0)
+        t_run = time.perf_counter()
+        out = entry(tensors, loaded=True)
+        event.compile_ms = round((time.perf_counter() - t_run) * 1e3, 3)
+        return out
+
+    def _note_build(self, key, prior, args, kwargs, trace_s):
+        """The recompile event of the entry ``key``: why it was built
+        (against ``prior``, the keys built before), by leaf name."""
+        if self._param_names is None:
+            try:
+                self._param_names = [
+                    p.name for p in inspect.signature(
+                        self._raw_function).parameters.values()
+                    if p.kind in (p.POSITIONAL_ONLY,
+                                  p.POSITIONAL_OR_KEYWORD)]
+            except (TypeError, ValueError):
+                self._param_names = []
+        names = []
+        for i, a in enumerate(args):
+            _leaf_names(a, self._param_names[i]
+                        if i < len(self._param_names) else f"arg{i}", names)
+        for k, v in kwargs.items():
+            _leaf_names(v, str(k), names)
+        return note_jit_compile(self.__name__, key, prior, names, _TENSOR,
+                                trace_ms=round(trace_s * 1e3, 3))
 
     def _keep(self, sig, entry):
         """Key ``entry`` on the registry version after its discovery, and
         release the entries of older versions: the version only grows,
-        so no call can reach them again."""
+        so no call can reach them again. Returns the key."""
         version = registry_version()
         for key in [k for k in self._compiled if k[-1] != version]:
             stale = self._compiled.pop(key)
             if stale.graph is not None:
                 stale.graph.release()
-        self._compiled[sig + (version,)] = entry
+        key = sig + (version,)
+        self._compiled[key] = entry
+        self._keys.append(key)
+        return key
 
     def _capture(self, struct, leaves, tensors, device):
         if self._stream is None or self._stream.device != device:
@@ -408,13 +491,16 @@ class StaticFunction:
         snap = _StateSnapshot(device)
         params = [t for t in state_tensors() if t.requires_grad]
         version, fired = registry_version(), faultinject.mark()
-        cuda_graph.warm_up(call, inputs.buffers, self._stream,
-                           calls=cuda_graph.WARMUP_CALLS - 1)
+        with spans.held() as kept:
+            cuda_graph.warm_up(call, inputs.buffers, self._stream,
+                               calls=cuda_graph.WARMUP_CALLS - 1)
         if registry_version() == version:
             # nothing registered: the reference traces once, and that
-            # trace is the capture's
+            # trace is the capture's (the spans kept back are dropped)
             faultinject.rewind(fired)
-        with clears_watched(params) as cleared, faultinject.quiet():
+        else:
+            kept.commit()
+        with clears_watched(params) as cleared, _silenced():
             cuda_graph.warm_up(call, inputs.buffers, self._stream, calls=1)
         snap.restore()
         del snap

@@ -73,7 +73,7 @@ class GradientMergeOptimizer:
                 old = before.get(k)
                 if old is None:
                     # made by this update: its prior value is its init
-                    old = torch.full_like(t, inner._inits[k])
+                    old = inner._init_like(k, t)
                 torch.where(fire, t, old, out=t)
             acc.copy_(new_acc.masked_fill_(fire, 0.0))
         counter.copy_(new_count)

@@ -26,7 +26,9 @@ to f32 (unless the fused kernel takes it as it is), the coupled decay
 float or an :class:`~paddle_tpu_torch.regularizer.L2Decay` adds
 ``coeff * p``, an :class:`~paddle_tpu_torch.regularizer.L1Decay`
 ``coeff * sign(p)``), and the update at ``lr`` times the parameter's
-``optimize_attr["learning_rate"]`` (1 without one).
+``optimize_attr["learning_rate"]`` (1 without one). The update runs in
+an ``optimizer.step`` span (``cls=`` the optimizer's class), as the
+reference's; its ``layer_scope`` waits for the port's roofline profiler.
 
 Everything a step changes lives in tensors that it changes in place and
 that register with :mod:`paddle_tpu_torch.framework.state`: the
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.framework.state import register_state_tensor
+from paddle_tpu_torch.observability import span
 from paddle_tpu_torch.ops.cuda.optim import supports_fused
 from paddle_tpu_torch.resilience import faultinject
 
@@ -91,6 +94,7 @@ class Optimizer:
         self._accumulators = {}
         self._inits = {}
         self._acc_keys = {}         # id(p) -> its accumulators' keys
+        self._restored = {}         # state-dict key -> value not made yet
         # subclasses with a fused single-pass update kernel set this
         self._fused = False
         self._guard = bool(guard)
@@ -129,11 +133,20 @@ class Optimizer:
     # ---- accumulators ----
     def _acc(self, name, p, init=0.0, shape=None, dtype=torch.float32):
         """The accumulator ``name`` of ``p`` (p's shape unless ``shape``
-        is given), filled with ``init`` when first asked for."""
+        is given), filled with ``init`` when first asked for, or with
+        the value :meth:`set_state_dict` kept for it (which is then its
+        init)."""
         key = (name, id(p))
         if key not in self._accumulators:
             shape = tuple(p.shape) if shape is None else tuple(shape)
             t = torch.full(shape, init, dtype=dtype, device=p.device)
+            kept = self._restored.pop(f"{self._keys[id(p)]}_{name}", None)
+            if kept is not None:
+                # the init stays on the host: a restore copies it in
+                if not isinstance(kept, torch.Tensor):
+                    kept = torch.from_numpy(np.asarray(kept))
+                init = kept.reshape(shape).to(dtype)
+                t.copy_(init)
             register_state_tensor(t, init=init)
             self._accumulators[key] = t
             self._inits[key] = init
@@ -155,27 +168,31 @@ class Optimizer:
         spec = faultinject.fire("optimizer.grads")
         if spec is not None and spec.kind in ("bitflip", "nan_grad"):
             self._inject_grad_fault(spec)
-        pg = self._params_grads()
-        if self._grad_clip is not None:
-            pg = self._grad_clip(pg)
-        if self._guard:
-            self._guard_parts = []
-            self._guard_bad = []
-            self._guard_regions = 0
-        self._begin_step()
-        for p, g in pg:
-            lr_mult = getattr(p, "optimize_attr", {}).get("learning_rate",
-                                                          1.0)
-            if g.dtype != p.dtype and not self._will_fuse(p):
-                # the fused kernel reads a narrow gradient itself
-                g = g.float()
-            g = self._apply_decay(p, g)
-            if self._guard and not self._will_fuse(p):
-                self._guarded_update(p, g, lr_mult)
-            else:
-                self._update_param(p, g, lr_mult)
-        if self._guard:
-            self._commit_guard_summary()
+        # under to_static this span fires as the reference's trace-time
+        # span does (jit/api.py); eagerly it times every update pass's
+        # launches
+        with span("optimizer.step", cls=type(self).__name__):
+            pg = self._params_grads()
+            if self._grad_clip is not None:
+                pg = self._grad_clip(pg)
+            if self._guard:
+                self._guard_parts = []
+                self._guard_bad = []
+                self._guard_regions = 0
+            self._begin_step()
+            for p, g in pg:
+                lr_mult = getattr(p, "optimize_attr", {}).get(
+                    "learning_rate", 1.0)
+                if g.dtype != p.dtype and not self._will_fuse(p):
+                    # the fused kernel reads a narrow gradient itself
+                    g = g.float()
+                g = self._apply_decay(p, g)
+                if self._guard and not self._will_fuse(p):
+                    self._guarded_update(p, g, lr_mult)
+                else:
+                    self._update_param(p, g, lr_mult)
+            if self._guard:
+                self._commit_guard_summary()
 
     def _apply_decay(self, p, g):
         """The gradient with the coupled decay added: the parameter's own
@@ -259,8 +276,15 @@ class Optimizer:
             old = before.get(k)
             if old is None:
                 # made during this update: its prior value is its init
-                old = torch.full_like(t, self._inits[k])
+                old = self._init_like(k, t)
             torch.where(good, t, old, out=t)
+
+    def _init_like(self, key, t):
+        """The init of the accumulator ``key`` as a tensor like ``t``."""
+        init = self._inits[key]
+        if isinstance(init, torch.Tensor):
+            return init.to(t.device, copy=True)
+        return torch.full_like(t, init)
 
     def _commit_guard_summary(self):
         """Fold the step's per-region probes into the (4,) summary
@@ -292,18 +316,27 @@ class Optimizer:
         return sd
 
     def set_state_dict(self, state_dict):
-        """Copy the accumulators that exist and appear in ``state_dict``
-        (tensors or arrays) back in, each in its own type and device, and
-        a bound scheduler's ``last_epoch`` (the reference restores only
-        that: the lr follows at the scheduler's next step)."""
+        """Copy the accumulators that appear in ``state_dict`` (tensors or
+        arrays) back in, each in its own type and device, and a bound
+        scheduler's ``last_epoch`` (the reference restores only that:
+        the lr follows at the scheduler's next step). An entry whose
+        accumulator is not made yet (a fresh optimizer resuming from a
+        checkpoint) is kept, and the accumulator starts from it when the
+        first step makes it; the reference drops such entries."""
+        made = set()
         with torch.no_grad():
             for (name, pid), t in self._accumulators.items():
                 key = f"{self._keys[pid]}_{name}"
+                made.add(key)
                 if key in state_dict:
                     v = state_dict[key]
                     if not isinstance(v, torch.Tensor):
                         v = torch.from_numpy(np.asarray(v))
                     t.copy_(v)
+        self._restored = {k: v.detach().cpu().clone()
+                          if isinstance(v, torch.Tensor) else v
+                          for k, v in state_dict.items()
+                          if k != "LR_Scheduler" and k not in made}
         sched = state_dict.get("LR_Scheduler")
         if sched and self._lr_scheduler is not None:
             self._lr_scheduler.last_epoch = sched.get("last_epoch", 0)

@@ -20,6 +20,11 @@ Payloads hold numpy copies of the state (tensors are copied to the host
 when ``save`` is called), so a file pins no device and restores onto
 whatever device the model lives on. ``async_save=True`` moves the disk
 write and the manifest update to one background writer thread.
+
+The ``resilience.checkpoint.save`` / ``.load`` spans and the
+``resilience_checkpoint_writes_total`` / ``_corrupt_total`` counters
+(:mod:`paddle_tpu_torch.observability`) make checkpoint health visible
+in the same telemetry stream as everything else.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import queue
 import threading
 import time
 
+from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.framework.io import (load_numpy_state_dict,
                                            numpy_state_dict, to_numpy,
                                            write_atomic)
@@ -106,6 +112,7 @@ class Checkpointer:
         """Checkpoint ``state`` (picklable; tensors become numpy copies)
         at ``step``. Returns the payload's path (under ``async_save`` the
         write may still be in flight)."""
+        t0 = time.perf_counter()
         data = pickle.dumps(to_numpy(state), protocol=4)
         entry = {
             "step": int(step),
@@ -120,6 +127,14 @@ class Checkpointer:
             self._q.put((data, entry))
         else:
             self._commit(data, entry)
+        obs.registry().counter(
+            "resilience_checkpoint_writes_total",
+            help="checkpoint save() calls").inc()
+        with obs.span("resilience.checkpoint.save", step=int(step),
+                      bytes=len(data), async_save=self.async_save,
+                      serialize_ms=round(
+                          (time.perf_counter() - t0) * 1e3, 3)):
+            pass
         return os.path.join(self.directory, entry["file"])
 
     def _commit(self, data, entry):
@@ -208,11 +223,17 @@ class Checkpointer:
             data = self.verify(entry)
             if data is None:
                 skipped += 1
+                obs.registry().counter(
+                    "resilience_checkpoint_corrupt_total",
+                    help="checkpoints that failed digest verification"
+                ).inc()
                 continue
             if skipped:
                 note_recovery("io.save", "torn_write",
                               fallback_step=entry["step"], skipped=skipped)
-            return entry["step"], pickle.loads(data)
+            with obs.span("resilience.checkpoint.load",
+                          step=entry["step"], skipped=skipped):
+                return entry["step"], pickle.loads(data)
         if strict and entries:
             raise CheckpointCorruption(
                 f"all {len(entries)} manifest entries under "

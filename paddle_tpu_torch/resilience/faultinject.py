@@ -34,11 +34,20 @@ a replay. ``jit/api.py`` silences the other calls with :func:`quiet`
 and takes a discovery call's firings back with :func:`mark` and
 :func:`rewind`. ``dygraph_function`` fires once a call.
 
-The process kinds (``preempt``, ``rank_kill``, ``wedge``, ``slow``)
-raise NotImplementedError when they fire: their slices of the port come
-later. The reference's spans and counters of injections and recoveries
-wait for the port's observability; an injector keeps its own log
-(``injected``, ``recovered``).
+Generic kinds execute in :func:`fire` itself, as the reference's do:
+``exception`` raises :class:`WorkerFault`, ``slow`` sleeps
+``payload["sleep_s"]`` (default 0.01) and ``preempt`` calls
+:func:`~paddle_tpu_torch.resilience.preemption.request_preemption` on
+the installed handler. ``rank_kill`` (a real SIGKILL) and ``wedge`` (a
+SIGSTOP) raise NotImplementedError until the port has the fleet whose
+watchdog they test (ROADMAP A.4).
+
+Every injection records a ``resilience.fault`` span and bumps
+``resilience_faults_injected_total{site,kind}``; every recovery
+(:func:`note_recovery`) a ``resilience.recovery`` span and
+``resilience_recoveries_total{site,kind}``, in
+:mod:`paddle_tpu_torch.observability`. An injector also keeps its own
+log (``injected``, ``recovered``).
 
 Usage::
 
@@ -52,8 +61,11 @@ from __future__ import annotations
 import contextlib
 import random
 import threading
+import time
 
 import torch
+
+from paddle_tpu_torch import observability as obs
 
 __all__ = [
     "FaultInjector", "FaultPlan", "FaultSpec", "WorkerFault",
@@ -63,7 +75,7 @@ __all__ = [
 
 KINDS = ("torn_write", "exception", "preempt", "pool_exhaust", "slow",
          "rank_kill", "wedge", "bitflip", "nan_grad", "qps_surge")
-_NOT_PORTED = ("preempt", "rank_kill", "wedge", "slow")
+_NOT_PORTED = ("rank_kill", "wedge")
 
 
 class WorkerFault(RuntimeError):
@@ -145,15 +157,21 @@ class FaultInjector:
 
     def poll(self, site):
         """Advance the site's occurrence counter; return the matching
-        FaultSpec (logged) or None."""
+        FaultSpec (logged and recorded) or None."""
+        hit = None
         with self._lock:
             occ = self._counts.get(site, 0)
             self._counts[site] = occ + 1
             for spec in self.plan.faults_for(site):
                 if spec.matches(occ):
                     self.injected.append((site, spec, occ))
-                    return spec
-        return None
+                    hit = spec
+                    break
+        if hit is not None:
+            # telemetry outside the lock: spans and counters take their
+            # own locks
+            _record_injection(self.plan, site, hit, occ)
+        return hit
 
     def occurrences(self, site):
         """How often ``site``'s hook has fired under this injector."""
@@ -231,9 +249,10 @@ def active_plan():
 def fire(site, **ctx):
     """The one-line hook of a call site. Returns None when no plan is
     installed or no fault is due at this occurrence; raises
-    :class:`WorkerFault` for an ``exception`` fault; returns the spec of
-    a site-specific kind (``bitflip``, ``nan_grad``, ``torn_write``, ...)
-    for the caller to apply."""
+    :class:`WorkerFault` for an ``exception`` fault; sleeps for ``slow``
+    and requests a preemption for ``preempt`` (returning the spec);
+    returns the spec of a site-specific kind (``bitflip``, ``nan_grad``,
+    ``torn_write``, ...) for the caller to apply."""
     inj = _active
     if inj is None or getattr(_quiet, "depth", 0):
         return None
@@ -242,9 +261,15 @@ def fire(site, **ctx):
         return None
     if spec.kind == "exception":
         raise WorkerFault(site, spec, **ctx)
-    if spec.kind in _NOT_PORTED:
+    if spec.kind == "slow":
+        time.sleep(float(spec.payload.get("sleep_s", 0.01)))
+    elif spec.kind == "preempt":
+        from paddle_tpu_torch.resilience import preemption
+        preemption.request_preemption(reason=f"injected at {site}")
+    elif spec.kind in _NOT_PORTED:
         raise NotImplementedError(
-            f"fault kind {spec.kind!r} is not ported yet")
+            f"fault kind {spec.kind!r} needs the fleet, not ported yet "
+            f"(ROADMAP A.4)")
     return spec
 
 
@@ -284,10 +309,37 @@ def corrupt_array(spec, value, seed=0, occurrence=0):
     return out
 
 
+def _record_injection(plan, site, spec, occurrence):
+    try:
+        with obs.span("resilience.fault", site=site, kind=spec.kind,
+                      occurrence=occurrence, plan=plan.name,
+                      seed=plan.seed):
+            pass
+        obs.registry().counter(
+            "resilience_faults_injected_total",
+            labels={"site": site, "kind": spec.kind},
+            help="faults injected by the chaos harness").inc()
+    except Exception:
+        # fault injection must never be broken by telemetry teardown
+        # ordering (e.g. interpreter shutdown)
+        pass
+
+
 def note_recovery(site, kind, **attrs):
-    """Record a recovery from a (possibly injected) fault on the active
-    injector's ``recovered`` log (a no-op without one)."""
+    """Record a recovery from a (possibly injected) fault: a
+    ``resilience.recovery`` span, ``resilience_recoveries_total
+    {site,kind}``, and the active injector's ``recovered`` log."""
     inj = _active
     if inj is not None:
         with inj._lock:
             inj.recovered.append((site, kind, dict(attrs)))
+    try:
+        with obs.span("resilience.recovery", site=site, kind=kind,
+                      **attrs):
+            pass
+        obs.registry().counter(
+            "resilience_recoveries_total",
+            labels={"site": site, "kind": kind},
+            help="successful recoveries from faults").inc()
+    except Exception:
+        pass

@@ -11,21 +11,42 @@ anomaly is an :class:`AnomalyDetected` record and a SKIP; ``skip_limit``
 anomalies in a row roll the model and the optimizer back to the last
 good checkpoint with an LR cooldown.
 
-Not ported yet: the reference's gauges, counters and spans (they wait
-for the port's observability), and its localisation (``BatchLineage``,
-``replay_bisect``, ``localize_poison``) and cross-rank digest vote.
+Localization: :class:`BatchLineage` records each step's (seed, batch)
+lineage, and :func:`replay_bisect` / :func:`localize_poison` binary-
+search a deterministic replay from the last good checkpoint to name the
+poison step in ``O(log n)`` replays.
+
+Digests: :func:`tree_digest` is the reference's sha256 over a tree of
+tensors and arrays, byte for byte (a bf16 leaf is spelled ``bfloat16``
+with its 2-byte payload, as numpy's bf16 extension type writes it), so
+ranks of both packages can compare digests. :func:`digest_vote` votes
+in a world of one; a vote across ranks needs the fleet's coordination
+KV and raises until that is ported (ROADMAP A.4).
+
+Telemetry (:mod:`paddle_tpu_torch.observability`), as the reference's:
+``sentinel_anomaly_total{kind,site}`` and the
+``resilience.sentinel.anomaly`` span for every anomaly any detector
+notes, ``sentinel_skips_total``, ``sentinel_rollbacks_total`` and the
+``resilience.sentinel.rollback`` span, the ``sentinel_last_good_step``
+gauge, and the vote's span and counters.
 """
 from __future__ import annotations
 
 import enum
+import hashlib
 import threading
-from collections import deque
+import time
+from collections import OrderedDict, deque
 
 import numpy as np
+import torch
 
-__all__ = ["AnomalyDetected", "GuardSummary", "SentinelAction",
-           "TrainingSentinel", "current", "install", "note_anomaly",
-           "uninstall"]
+from paddle_tpu_torch import observability as obs
+
+__all__ = ["AnomalyDetected", "BatchLineage", "DigestVote", "GuardSummary",
+           "SentinelAction", "TrainingSentinel", "current", "digest_vote",
+           "install", "localize_poison", "note_anomaly", "replay_bisect",
+           "tree_digest", "uninstall"]
 
 class AnomalyDetected(RuntimeError):
     """A machine-readable anomaly: WHEN (step), WHAT (kind), WHERE
@@ -48,9 +69,22 @@ class AnomalyDetected(RuntimeError):
 
 
 def note_anomaly(kind, site, step=None, **ctx):
-    """The one place every detector records an anomaly through; returns
-    the :class:`AnomalyDetected` record."""
-    return AnomalyDetected(step, kind, site, **ctx)
+    """The one place every detector records an anomaly through (so
+    ``sentinel_anomaly_total{kind,site}`` and the
+    ``resilience.sentinel.anomaly`` spans are complete); returns the
+    :class:`AnomalyDetected` record."""
+    evt = AnomalyDetected(step, kind, site, **ctx)
+    try:
+        with obs.span("resilience.sentinel.anomaly", step=evt.step,
+                      kind=evt.kind, site=evt.site):
+            pass
+        obs.registry().counter(
+            "sentinel_anomaly_total",
+            labels={"kind": evt.kind, "site": evt.site},
+            help="anomalies detected by the training sentinel").inc()
+    except Exception:
+        pass
+    return evt
 
 
 class GuardSummary:
@@ -140,6 +174,15 @@ class TrainingSentinel:
         self.resume_step = None      # set by rollback()
         self._recent = deque(maxlen=max(1, self.spike_window))
         self.last_probe = None
+        self._gauge("sentinel_last_good_step", -1)
+
+    @staticmethod
+    def _gauge(name, value):
+        try:
+            obs.registry().gauge(
+                name, help="training-sentinel state").set(value)
+        except Exception:
+            pass
 
     def _classify(self, step, loss, summary):
         """(kind, ctx) of the worst anomaly of this step, or (None, {})."""
@@ -187,6 +230,12 @@ class TrainingSentinel:
         # back into observe() must not deadlock
         evt = note_anomaly(kind, site, step=step, streak=streak, **ctx)
         self.anomalies.append(evt)
+        try:
+            obs.registry().counter(
+                "sentinel_skips_total",
+                help="training steps skipped by the sentinel").inc()
+        except Exception:
+            pass
         if self.on_anomaly is not None:
             try:
                 self.on_anomaly(evt)
@@ -209,6 +258,8 @@ class TrainingSentinel:
         with self._lock:
             if self.skip_streak == 0:
                 self.last_good_step = int(step)
+        if self.last_good_step == int(step):
+            self._gauge("sentinel_last_good_step", int(step))
 
     def rollback(self, reason=None):
         """Restore the model and the optimizer from the
@@ -220,6 +271,7 @@ class TrainingSentinel:
             return None
         from paddle_tpu_torch.resilience.checkpoint import auto_resume
         from paddle_tpu_torch.resilience.faultinject import note_recovery
+        t0 = time.perf_counter()
         start = 0
         if self.last_good_step is not None:
             start, _extra = auto_resume(self.checkpointer, self.model,
@@ -245,6 +297,18 @@ class TrainingSentinel:
             self.rollbacks += 1
             self.resume_step = start
             self._recent.clear()
+        try:
+            with obs.span("resilience.sentinel.rollback",
+                          resume_step=self.resume_step,
+                          kind=getattr(reason, "kind", None),
+                          restore_ms=round(
+                              (time.perf_counter() - t0) * 1e3, 3)):
+                pass
+            obs.registry().counter(
+                "sentinel_rollbacks_total",
+                help="sentinel-triggered checkpoint rollbacks").inc()
+        except Exception:
+            pass
         note_recovery("optimizer.grads", "rollback",
                       resume_step=self.resume_step,
                       anomaly=getattr(reason, "kind", None))
@@ -276,3 +340,180 @@ def uninstall(sentinel=None):
 
 def current():
     return _current
+
+
+# ------------------------------------------------- lineage + bisection
+class BatchLineage:
+    """Bounded (step -> microbatch identity) recorder for deterministic
+    replay: ``record(step, seed=..., batch=...)`` at every step, and
+    after an anomaly the localizer replays the entries between the last
+    good checkpoint and the flagged step. ``batch`` may be the batch
+    itself (kept by reference) or any identity (ids, a digest); other
+    keywords (a step's fault plan, say) ride along."""
+
+    def __init__(self, capacity=256):
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self.capacity = int(capacity)
+        self._lock = threading.Lock()
+        self._entries = OrderedDict()    # step -> dict
+
+    def record(self, step, seed=None, batch=None, **meta):
+        e = {"step": int(step), "seed": seed, "batch": batch, **meta}
+        with self._lock:
+            self._entries[int(step)] = e
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+        return e
+
+    def get(self, step):
+        with self._lock:
+            return self._entries.get(int(step))
+
+    def steps(self):
+        with self._lock:
+            return list(self._entries)
+
+    def __len__(self):
+        with self._lock:
+            return len(self._entries)
+
+
+def replay_bisect(predicate, lo, hi):
+    """Minimal step ``k`` in ``[lo, hi]`` with ``predicate(k)`` true;
+    ``predicate(k)`` must mean "replaying steps lo..k from the last good
+    state trips the guard", which is monotone in ``k``. None when even
+    ``predicate(hi)`` is clean (the anomaly does not reproduce: a
+    transient, not a data fault). ``O(log(hi - lo))`` predicate calls."""
+    lo, hi = int(lo), int(hi)
+    if lo > hi:
+        raise ValueError(f"need lo <= hi, got {lo} > {hi}")
+    if not predicate(hi):
+        return None
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if predicate(mid):
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def localize_poison(replay, last_good_step, bad_step):
+    """Name the poison step: ``replay(upto)`` restores the last good
+    checkpoint and re-runs steps ``last_good_step+1 .. upto`` with the
+    guard armed, returning True iff any step tripped. The poison step is
+    strictly after the last good checkpoint."""
+    return replay_bisect(replay, int(last_good_step) + 1, int(bad_step))
+
+
+# ------------------------------------------------------------- digests
+def _leaf_bytes(v):
+    """``(header, payload)`` of one leaf as the reference hashes it:
+    numpy's ``f"{shape}:{dtype}|"`` and the raw bytes. A tensor whose
+    dtype numpy lacks (bf16, fp8) is read as an integer of its width
+    and spelled by torch's name, which is the reference's spelling."""
+    if isinstance(v, torch.Tensor):
+        t = v.detach().cpu().contiguous()
+        try:
+            a = t.numpy()
+        except TypeError:
+            ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                    8: torch.int64}[t.element_size()]
+            name = str(t.dtype).replace("torch.", "")
+            return (f"{tuple(t.shape)}:{name}|",
+                    t.view(ints).numpy().tobytes())
+    else:
+        a = np.asarray(v)
+    return f"{a.shape}:{a.dtype}|", a.tobytes()
+
+
+def tree_digest(tree):
+    """Deterministic sha256 hex over a tree (dicts, lists, tuples) of
+    tensors and arrays, equal to the reference's for the same values.
+    Vote only values that are replicated across ranks (post-sync
+    gradients, updated parameter replicas). Dict leaves hash under their
+    sorted keys; every leaf contributes its shape/dtype header plus its
+    raw bytes (a host copy: size the tree accordingly)."""
+    h = hashlib.sha256()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        else:
+            h.update(path.encode())
+            header, payload = _leaf_bytes(node)
+            h.update(header.encode())
+            h.update(payload)
+
+    walk(tree, "")
+    return h.hexdigest()
+
+
+class DigestVote:
+    """One vote round's outcome: per-rank digests, the majority digest
+    (strict majority), and the dissenting SUSPECT ranks. Without a
+    strict majority the vote is inconclusive (``majority`` None, no
+    suspects)."""
+
+    def __init__(self, step, site, digests, majority, suspects, mine):
+        self.step = int(step)
+        self.site = str(site)
+        self.digests = dict(digests)      # global rank -> digest
+        self.majority = majority          # None when inconclusive
+        self.suspects = tuple(suspects)   # global ranks, sorted
+        self.mine = mine
+
+    @property
+    def conclusive(self):
+        return self.majority is not None
+
+    @property
+    def agree(self):
+        return self.conclusive and not self.suspects
+
+    @property
+    def self_suspect(self):
+        return self.conclusive and self.mine != self.majority
+
+    def to_dict(self):
+        return {"step": self.step, "site": self.site,
+                "majority": self.majority,
+                "conclusive": self.conclusive,
+                "suspects": list(self.suspects),
+                "self_suspect": self.self_suspect,
+                "digests": dict(self.digests)}
+
+    def __repr__(self):
+        return (f"DigestVote(step={self.step}, site={self.site!r}, "
+                f"conclusive={self.conclusive}, "
+                f"suspects={list(self.suspects)})")
+
+
+def digest_vote(value, *, step, site="grads", client=None,
+                world_view=None, timeout_s=None, monitor=None):
+    """One digest vote round. ``value`` is a tree (digested by
+    :func:`tree_digest`) or a digest string. In a world of one
+    (``world_view`` with ``size`` 1, or none and no initialized
+    ``torch.distributed`` group of more than one rank) the vote is this
+    rank's digest, agreed. A vote across ranks exchanges digests through
+    the fleet's coordination KV, not ported yet (ROADMAP A.4): it
+    raises NotImplementedError."""
+    mine = value if isinstance(value, str) else tree_digest(value)
+    if world_view is not None:
+        size, rank = int(world_view.size), int(world_view.global_rank)
+    elif torch.distributed.is_available() \
+            and torch.distributed.is_initialized():
+        size = torch.distributed.get_world_size()
+        rank = torch.distributed.get_rank()
+    else:
+        size, rank = 1, 0
+    if size > 1:
+        raise NotImplementedError(
+            "digest_vote across ranks needs the fleet's coordination KV "
+            "(resilience/fleet.py), not ported yet: ROADMAP A.4")
+    return DigestVote(step, site, {rank: mine}, mine, (), mine)

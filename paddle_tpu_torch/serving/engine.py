@@ -49,13 +49,25 @@ anyway (it writes position ``lens[s]`` of each row, which advances only
 after it, and a quantized append that repeats sees the grown scale and
 re-grids by exactly 1.0).
 
+Observability, as the reference's: the engine's instruments live in the
+process-wide registry under ``{"engine": metrics_name}``, its
+``metrics.snapshot()`` is registered there as a source (weakly; removed
+by :meth:`LLMEngine.shutdown`), every program build is a
+``serving-aot`` event of the recompile log, and spans mark admission,
+deadlines, each prefill and decode step, guard and fault evictions,
+preemptions, program builds, and (for a request added under a
+:class:`~paddle_tpu_torch.observability.TraceContext`) its finish. A
+span reads host clocks only: a decode step keeps its one wait, the
+sampler's tokens.
+
 Not ported yet: tensor-parallel meshes, the AOT program cache, the
-router, fleet and traffic hooks, named metrics and tracing spans.
+router, fleet and traffic hooks and their spans (ROADMAP A.4).
 """
 from __future__ import annotations
 
 import math
 import time
+import weakref
 from collections import OrderedDict
 
 import numpy as np
@@ -63,6 +75,9 @@ import torch
 
 from paddle_tpu_torch.core import cuda_graph
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.observability import (current_context,
+                                            next_instance_label,
+                                            note_aot_compile, registry, span)
 from paddle_tpu_torch.incubate.nn.paged_attention import (
     PageAllocator, paged_decode_step, paged_prefill_append)
 from paddle_tpu_torch.quantization.kv_cache import (
@@ -304,6 +319,9 @@ class LLMEngine:
     unless ``device="cpu"``), where the model must already live.
     ``clock`` (default the host's perf_counter) is the engine's whole
     timebase: arrival stamps, deadlines and latency histograms.
+    ``metrics_name`` labels its registry instruments and names its
+    metrics source (default ``serving.engine<n>``, unique in the
+    process).
 
     Public surface: :meth:`add_request`, :meth:`step`, :meth:`generate`,
     :meth:`warmup`, :attr:`metrics`, :meth:`shutdown`.
@@ -311,11 +329,9 @@ class LLMEngine:
 
     def __init__(self, model, config=None, device=None, program_cache=None,
                  metrics_name=None, clock=None):
-        for name, value in (("program_cache", program_cache),
-                            ("metrics_name", metrics_name)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"LLMEngine({name}=...) is not ported yet")
+        if program_cache is not None:
+            raise NotImplementedError(
+                "LLMEngine(program_cache=...) is not ported yet")
         self.config = config or EngineConfig()
         cfg = self.config
         self.device = resolve_device(device)
@@ -360,7 +376,12 @@ class LLMEngine:
         self.scheduler = Scheduler(cfg.prefill_buckets, cfg.page_size,
                                    cfg.growth_reserve_pages,
                                    max_queue_depth=cfg.max_queue_depth)
-        self.metrics = EngineMetrics(clock or time.perf_counter)
+        # a monotonic default label, never id()-derived: a reused id
+        # would merge this engine's instruments into a dead one's
+        self._metrics_name = (metrics_name
+                              or next_instance_label("serving.engine"))
+        self.metrics = EngineMetrics(clock or time.perf_counter,
+                                     name=self._metrics_name)
         self.metrics.compile_bound = cfg.compile_bound
         self.metrics.pages_total = cfg.num_pages - 1   # page 0 reserved
         self._programs = {}          # key -> built program (_compile)
@@ -369,11 +390,29 @@ class LLMEngine:
         self.health = HealthMonitor(
             degraded_at=cfg.health_degraded_at,
             drain_at=cfg.health_drain_at,
-            recover_at=cfg.health_recover_at)
+            recover_at=cfg.health_recover_at,
+            gauge=self.metrics.health_state)
         self._decode_fault_streak = 0
         self._requests = {}          # live (queued or running) only
         self.finished_requests = OrderedDict()
         self._next_id = 0
+
+        # weak registration: a dropped engine (no shutdown()) stays
+        # collectable and evicts its source at the next report
+        mref = weakref.ref(self.metrics)
+        name = self._metrics_name
+
+        def _snapshot():
+            m = mref()
+            if m is None:
+                # only if the source is still ours: a newer engine may
+                # have registered the same name
+                registry().unregister_source(name, expected=_snapshot)
+                return {"error": "engine collected"}
+            return m.snapshot()
+
+        self._snapshot_fn = _snapshot
+        registry().register_source(name, _snapshot)
 
     # ------------------------------------------------------------ API
     def _resolve_params(self, sampling_params):
@@ -428,6 +467,9 @@ class LLMEngine:
         rid = f"req-{self._next_id}"
         req = Request(rid, prompt, sp, arrival_index=self._next_id,
                       stream=stream)
+        # the ambient TraceContext (use_context) names the request's
+        # trace; without one its spans carry no trace identity
+        req.trace = current_context()
         req.arrive_t = self.metrics.clock()
         if sp.deadline_s is not None:
             req.deadline_t = req.arrive_t + sp.deadline_s
@@ -452,7 +494,8 @@ class LLMEngine:
         this step; a preemption surfaces as ``(request_id, None, False)``."""
         events = []
         self._expire_deadlines(events)
-        admitted = self._admit(events)
+        with span("serving.admit"):
+            admitted = self._admit(events)
         if any(r is not None for r in self._slots):
             self._decode_step(events)
         elif not admitted and self.scheduler.has_waiting() \
@@ -534,8 +577,13 @@ class LLMEngine:
                                      * self.config.page_size)
 
     def shutdown(self):
-        """Release the KV pools and the programs (each CUDA graph gives
-        its memory back); the engine serves nothing after this."""
+        """Unregister the metrics source, release this engine's claim on
+        its registry instruments, and release the KV pools and the
+        programs (each CUDA graph gives its memory back); the engine
+        serves nothing after this."""
+        registry().unregister_source(self._metrics_name,
+                                     expected=self._snapshot_fn)
+        self.metrics.release()
         for prog in self._programs.values():
             if isinstance(prog, _Graph):
                 prog.release()
@@ -556,10 +604,13 @@ class LLMEngine:
             if r is not None and r.past_deadline(now):
                 expired.append(r)
         for req in expired:
-            self.metrics.requests_expired += 1
-            self._finish(req, "deadline", now)
-            req.deliver(finished=True)
-            events.append((req.request_id, None, True))
+            with span("serving.deadline", request=req.request_id,
+                      state=req.state.value,
+                      overrun_s=round(now - req.deadline_t, 4)):
+                self.metrics.requests_expired += 1
+                self._finish(req, "deadline", now)
+                req.deliver(finished=True)
+                events.append((req.request_id, None, True))
 
     # ----------------------------------------------------- admission
     def _admit(self, events):
@@ -581,6 +632,11 @@ class LLMEngine:
         tokens = req.replay_token_ids
         L = len(tokens)
         bucket = self.scheduler.bucket_for_len(L)
+        with span("serving.prefill", ctx=req.trace,
+                  request=req.request_id, bucket=bucket, tokens=L):
+            self._prefill_inner(req, events, cfg, t0, tokens, L, bucket)
+
+    def _prefill_inner(self, req, events, cfg, t0, tokens, L, bucket):
         slot = self._slots.index(None)
         self._slots[slot] = req
         req.slot = slot
@@ -604,6 +660,10 @@ class LLMEngine:
         if req.num_evictions == 0:
             self.metrics.requests_admitted += 1
             self.metrics.ttft.observe(now - req.arrive_t)
+            # stage decomposition: for a fresh request TTFT is exactly
+            # queue-wait (arrival -> prefill start) + prefill
+            self.metrics.ttft_queue.observe(max(0.0, t0 - req.arrive_t))
+            self.metrics.ttft_prefill.observe(max(0.0, now - t0))
         req.append_token(tok, now=now)
         self.metrics.generated_tokens += 1
         self._post_token(req, events, now)
@@ -612,6 +672,10 @@ class LLMEngine:
 
     # -------------------------------------------------------- decode
     def _decode_step(self, events):
+        with span("serving.decode"):
+            self._decode_step_inner(events)
+
+    def _decode_step_inner(self, events):
         cfg = self.config
         t0 = self.metrics.clock()
         # fault site: injected pool exhaustion drives one preemption
@@ -732,12 +796,14 @@ class LLMEngine:
                          request=r.request_id)
             r.num_guard_evictions += 1
             self.metrics.guard_anomalies += 1
-            if r.num_guard_evictions > self.config.guard_requeue_limit:
-                self._finish(r, "anomaly", now)
-                r.deliver(finished=True)
-                events.append((r.request_id, None, True))
-            else:
-                self._evict(r, events)
+            with span("serving.guard", request=r.request_id, kind=kind,
+                      evictions=r.num_guard_evictions):
+                if r.num_guard_evictions > self.config.guard_requeue_limit:
+                    self._finish(r, "anomaly", now)
+                    r.deliver(finished=True)
+                    events.append((r.request_id, None, True))
+                else:
+                    self._evict(r, events)
             note_recovery("serving.decode", kind, request=r.request_id)
         return [(s, r) for s, r in live if self._slots[s] is r]
 
@@ -756,7 +822,9 @@ class LLMEngine:
         offender = next((r for r in live if r.request_id == rid), None)
         if offender is None:
             offender = max(live, key=lambda r: r.arrival_index)
-        self._evict(offender, events)
+        with span("serving.decode_fault", request=offender.request_id,
+                  exc=type(exc).__name__, streak=self._decode_fault_streak):
+            self._evict(offender, events)
         self.metrics.decode_fault_recoveries += 1
         note_recovery("serving.decode", "exception",
                       request=offender.request_id, exc=type(exc).__name__)
@@ -801,6 +869,13 @@ class LLMEngine:
         req.finish_t = now
         self.metrics.requests_finished += 1
         self.metrics.e2e_latency.observe(now - req.arrive_t)
+        if req.trace is not None:
+            # the trace's terminal marker (fleettrace timelines key on
+            # it), recorded only for traced requests
+            with span("serving.finish", ctx=req.trace,
+                      request=req.request_id, reason=reason,
+                      tokens=len(req.output_token_ids)):
+                pass
         self._requests.pop(req.request_id, None)
         self.finished_requests[req.request_id] = req
         while len(self.finished_requests) > self.config.finished_retention:
@@ -810,12 +885,14 @@ class LLMEngine:
         """Deterministic preemption: free everything, requeue at the
         queue front; the replay prefill later reconstructs the cache
         from prompt + generated tokens."""
-        req.transition(RequestState.EVICTED)
-        self._release_slot(req)
-        req.num_evictions += 1
-        self.metrics.requests_evicted += 1
-        self.scheduler.requeue_front(req)
-        events.append((req.request_id, None, False))
+        with span("serving.preempt", request=req.request_id,
+                  generated=len(req.output_token_ids)):
+            req.transition(RequestState.EVICTED)
+            self._release_slot(req)
+            req.num_evictions += 1
+            self.metrics.requests_evicted += 1
+            self.scheduler.requeue_front(req)
+            events.append((req.request_id, None, False))
 
     def _release_slot(self, req):
         slot = req.slot
@@ -834,6 +911,7 @@ class LLMEngine:
         state = self.health.update(
             m.pages_in_use / m.pages_total if m.pages_total else 0.0)
         m.health = state.name.lower()
+        m.sync_gauges()    # queue-depth / page-occupancy scrape gauges
 
     # ------------------------------------------------------ programs
     def _forward(self, ids, pos_ids, ctx):
@@ -947,17 +1025,34 @@ class LLMEngine:
         return self._compile(key, *self._sampler_program(width))
 
     def _compile(self, key, fn, example):
-        """Count, build and keep one program: every program the engine
-        runs passes through here, so ``metrics.compile_count`` is exact,
-        and one past the bound raises before anything is built. On CUDA
-        the program is ``fn`` captured as a :class:`_Graph` (a failed
-        capture raises); on the CPU it is ``fn`` itself."""
-        self.metrics.note_compile()
-        if self.device.type == "cuda":
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-                self._capture_stream = torch.cuda.Stream(self.device)
-            fn = _Graph(fn, example, self._graph_pool, self._capture_stream)
+        """Build, count and keep one program: every program the engine
+        runs passes through here, so ``metrics.compile_count`` is exact.
+        On CUDA the program is ``fn`` captured as a :class:`_Graph` (a
+        failed capture raises); on the CPU it is ``fn`` itself. The build
+        is a ``serving-aot`` event of the recompile log, recorded before
+        ``note_compile`` can raise past the bound, so an over-bound build
+        is the log's last event; that program is then released, not
+        kept."""
+        prog_name = "/".join(str(p) for p in key)
+        t0 = time.perf_counter()
+        with span("serving.compile", program=str(key)):
+            if self.device.type == "cuda":
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                    self._capture_stream = torch.cuda.Stream(self.device)
+                fn = _Graph(fn, example, self._graph_pool,
+                            self._capture_stream)
+        note_aot_compile(
+            prog_name,
+            compile_ms=round((time.perf_counter() - t0) * 1e3, 3),
+            cache_size=len(self._programs) + 1,
+            bound=self.config.compile_bound, engine=self._metrics_name)
+        try:
+            self.metrics.note_compile()
+        except RuntimeError:
+            if isinstance(fn, _Graph):
+                fn.release()
+            raise
         self._programs[key] = fn
         return fn
 

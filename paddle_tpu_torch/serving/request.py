@@ -104,6 +104,9 @@ class Request:
         self.slot = None            # decode batch slot while running
         self.num_evictions = 0
         self.num_guard_evictions = 0    # evictions by the serving guard
+        # distributed-trace identity (observability.TraceContext, the
+        # one ambient at add_request) or None
+        self.trace = None
         # "stop" | "length" | "deadline" | "anomaly"
         self.finish_reason = None
         # metrics timestamps (host clocks; filled by the engine)

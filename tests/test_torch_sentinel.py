@@ -96,10 +96,10 @@ def test_corrupt_array_matches_reference(kind, at, payload, seed, dtype):
 
 
 def test_fault_kinds_not_ported_raise():
-    plan = TR.FaultPlan([TR.FaultSpec("optimizer.step", "slow"),
+    plan = TR.FaultPlan([TR.FaultSpec("optimizer.step", "rank_kill"),
                          TR.FaultSpec("io.save", "exception")])
     with TR.FaultInjector(plan) as inj:
-        with pytest.raises(NotImplementedError, match="slow"):
+        with pytest.raises(NotImplementedError, match="rank_kill"):
             faultinject.fire("optimizer.step")
         with pytest.raises(TR.WorkerFault):
             faultinject.fire("io.save")

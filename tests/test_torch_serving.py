@@ -315,10 +315,13 @@ def test_engine_contract_errors(shared_models, monkeypatch):
         serving.EngineConfig(**kw)
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         serving.EngineConfig(kv_cache_dtype="int4")
-    for kw in ({"program_cache": "cache"}, {"metrics_name": "engine-a"}):
-        with pytest.raises(NotImplementedError):
-            serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
-                              device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
+                          device="cpu", program_cache="cache")
+    named = serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
+                              device="cpu", metrics_name="engine-a")
+    assert named.metrics.labels == {"engine": "engine-a"}
+    named.shutdown()
     eng = serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
                             device="cpu")
     with pytest.raises(ValueError, match="max_model_len"):

@@ -202,7 +202,36 @@ Phases, in order (any failure raises and exits non-zero):
    losses bit for bit, the parameters' ``tree_digest`` equal before the
    save and after the load; and ``localize_poison`` over a
    ``BatchLineage`` (a checkpoint at step 2, a ``nan_grad`` planted at
-   step 5 of 8) names step 5.
+   step 5 of 8) names step 5;
+21. router and traffic: GPT-1.3B behind a ``Router`` of 2 replicas
+   sharing the model, over an ``AOTProgramCache`` in a temporary
+   directory: replica 0 boots cold (10 builds), replica 1 and the two
+   respawns warm (10 cache loads each, their graphs' boot replays equal
+   to the cold build's recorded digest); phase 4's 8 requests served
+   with replica 0 drained before its first step (its 4 queued requests
+   migrate before a token) and again under a ``serving.decode`` crash
+   planted at the site's 7th firing, replica 0's 4th decode step (its 4
+   running requests adopt onto replica 1 with 4 tokens each): 64 tokens a request, every
+   request not migrated after a token equal to phase 4's, the migrated
+   ones printed where they part from it, the LayerNorm launches those
+   of every engine's forwards and boot replays; one engine booted cold
+   in a fresh process and one from the cache in another (no cold build,
+   10 loads after one warm-up call each), both serving phase 4's
+   tokens; a seeded Poisson trace
+   through 2 replicas on a ``VirtualClock`` twice (identical reports and
+   registry snapshots) and an on/off burst that the ``SLOAutoscaler``
+   answers by unparking a replica, booted warm; the roofline profiler:
+   ``profile_engine`` over the ten programs, the depth-2 guarded step
+   (>= 90 % of bytes and flops attributed, its state unchanged), each
+   kernel launched at the kernel table's shapes under the walk with its
+   booked bound equal to the table's, the decode program and the step
+   reconciled with the spans of their own replays, and prefill_1024's
+   five costliest layers
+   (and each kind of layer) predicted beside their kernel time in a
+   ``torch.profiler`` run grouped by the scopes' ``record_function``
+   paths; then ``drift_probe``: where a replayed request first drifts
+   from its decoded self, op by op at layer 0, and the logits where
+   their tokens part.
 
 The phases print their seconds as they end.
 
@@ -210,11 +239,14 @@ Each main path (serving, the training runs) runs with every launch count
 and every count of calls routed to a composition by shape set to 0 just
 before it and read just after; a GPT-1.3B or sparse block path that
 routed any call fails. The last line is ``{"ok": true, "device":
-{...}}``; the line before it holds the kernels' numbers as JSON.
+{...}}``; the line before it holds the kernels' numbers as JSON. Each
+kernel's ``bound_ms`` is ``ops/cuda/cost.py``'s, the formula the
+roofline profiler books its launches with.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -234,9 +266,6 @@ ROWS = (8, 16, 512, 1000, 4096)      # decode, prefill-sized, the train step
 LN_CHECK_ROWS = ROWS + (1001, 4097)  # and ragged counts past the split's edges
 TRAIN_LN_ROWS = 4096                 # B * S: the train step's LayerNorm rows
 EPS = 1e-5
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12                # non-tensor-core f32, data sheet
-LN_OPS_PER_ELEM = 8                  # sum, sub, square, sum, scale, w, b
 TIMED_ROWS = 8                       # the decode shape: most launches
 NORM_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/norm.cu"
 FLASH_SOURCE = "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu"
@@ -263,12 +292,10 @@ SOURCES = {name: FLASH_SOURCE if name.startswith("flash") else
            BSA_SOURCE if name.startswith("bsa") else
            RANDOM_SOURCE if name == "keep_mask" else NORM_SOURCE
            for name in REPLACES}
-BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor cores
 # the training path: batch, sequence, heads, head_dim (GPT-1.3B)
 B, S, H, D = 4, 1024, 16, 128
 TRAIN_STEPS = 10
 LOSS_DROP = 0.1                      # last loss <= first - LOSS_DROP
-LN_BWD_OPS_PER_ELEM = 20             # stats, xhat, two row sums, dx, dw, db
 # the fused AdamW: GPT-1.3B's rank-2 weights by shape and count (word
 # and position embeddings, then qkv, out, fc1, fc2 of each layer)
 ADAM_PATH_SHAPES = {(50304, 2048): 1, (2048, 2048): 25, (2048, 6144): 24,
@@ -277,14 +304,12 @@ ADAM_PATH_SHAPES = {(50304, 2048): 1, (2048, 2048): 25, (2048, 6144): 24,
 # cols % 8 != 0 over several blocks
 ADAM_CHECK_SHAPES = tuple(ADAM_PATH_SHAPES) + ((1003, 520), (4096, 1001))
 ADAM_LR, ADAM_T, ADAM_WD = 1e-4, 3, 0.01      # AdamW(1e-4) at its 3rd step
-ADAM_OPS_PER_ELEM = 15               # decay, two moments, two divides, sqrt
 GUARD_REGIONS = 3091                 # 2,897 row blocks + 194 rank-1 params
 TRAJECTORY_TOL = 0.05                # guarded vs unfused losses, per step
 CHAOS_CKPT, CHAOS_FAULT, CHAOS_TOTAL, CHAOS_SKIPS = 4, 7, 10, 2
 RMS_EPS = 1e-6
 RMS_ROWS = (8, 1000, 8192)           # decode, prefill-sized, the path's
 RMS_HIDDEN = (2048, 4096, 8192)      # GPT-1.3B's, and LLaMA's widths
-RMS_OPS_PER_ELEM = 4                 # square, sum, scale, weight
 # the sparse block path: batch, sequence, mask block, steps (hidden 2048,
 # 16 heads of 128: GPT-1.3B's widths)
 SB_B, SB_S, SB_BLOCK, SB_STEPS = 2, 4096, 64, 5
@@ -294,14 +319,6 @@ TINY_REL = 1e-4                      # their f32 losses, relative
 LN_WIDE = 5120                       # past MAX_HIDDEN: the LN composition
 SAMPLER_ROWS = 64                    # rows of logits for the sampler check
 LN_FWD_KERNEL = "ln_fwd_kernel"       # both LayerNorm forwards, by name
-# int32 operations: the instruction rate, 4 warp instructions a clock an SM
-# (128 lanes: the int32 ALU's 64 and the FMA pipe's IMAD), 132 SMs at
-# 1.98 GHz
-INT32_OPS_PER_S = 132 * 128 * 1.98e9
-# an element of the keep mask: one threefry-2x32 (20 rounds of add,
-# rotate, xor; 5 key injections of two adds; the two initial adds) and
-# the counter, bits, uniform, compare and store
-KEEP_OPS_PER_ELEM = 80
 DROPOUT = 0.1                        # GPTConfig's own dropout defaults
 SEED = 2024                          # the global key of the dropout drives
 MASK_TAIL = 128                      # loss_mask drops each row's last tokens
@@ -594,7 +611,7 @@ def check_ln_forwards(norm, gen):
 
 
 def phase_kernels():
-    from paddle_tpu_torch.ops.cuda import norm
+    from paddle_tpu_torch.ops.cuda import cost, norm
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = check_ln_forwards(norm, gen)
     print(f"[kernels] largest error as a share of its limit: "
@@ -623,23 +640,18 @@ def phase_kernels():
                         for x, _r, w, b in sets]
             lib_note = f" (F.layer_norm refuses the mix: weights cast to " \
                 f"{_dt(xd)})"
-        vec_bytes = 2 * HIDDEN * wd.itemsize
-        out_e = torch.promote_types(xd, rd).itemsize
         key = "" if (xd, rd, wd) == (bf16,) * 3 else " mix"
-        for name, fn, ref, args, io_bytes, ops, lib in (
-                ("ln_fwd", norm.ln_fwd, norm._ln_fwd_ref, ln_args, 2 * e,
-                 LN_OPS_PER_ELEM, torch.nn.functional.layer_norm),
+        for name, fn, ref, args, costs, lib in (
+                ("ln_fwd", norm.ln_fwd, norm._ln_fwd_ref, ln_args,
+                 cost.ln_fwd(*ln_args[0]), torch.nn.functional.layer_norm),
                 ("ln_res_fwd", norm.ln_res_fwd, norm._ln_res_fwd_ref,
-                 res_args, e + rd.itemsize + 2 * out_e,
-                 LN_OPS_PER_ELEM + 1, None)):
-            bytes_ms = (io_bytes * rows * HIDDEN + vec_bytes) \
-                / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops * rows * HIDDEN / F32_OPS_PER_S * 1e3
+                 res_args, cost.ln_res_fwd(*res_args[0], None), None)):
+            bound, by = _bound(costs)
             t = {
                 "ms": device_ms(fn, args),
                 "plain_ms": device_ms(ref, args),
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bound_ms": bound,
+                "bound_by": by,
                 "library_ms": device_ms(lib, lib_args) if lib else None,
                 "launch_floor_ms": floor,
             }
@@ -1308,19 +1320,21 @@ def check_ln_bwd(gen):
     return err
 
 
-def _bound(bytes_, ops, ops_per_s):
-    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_per_s * 1e3
-    return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations")
+def _bound(costs, name=None):
+    """(bound ms, "bytes" or "operations") of one launch, from the
+    ``KernelCost`` list ``ops/cuda/cost.py`` gives for a call: its only
+    entry, or the one called ``name``."""
+    from paddle_tpu_torch.ops.cuda import cost
+    (c,) = [c for c in costs if name in (None, c.name)]
+    return cost.bound_ms(c.bytes, c.flops, c.peak)
 
 
 def time_train_kernels(gen):
     """Each training kernel at the path's shapes (bf16), by CUDA events:
     kernel, plain version, bound and the library call where there is
     one."""
+    from paddle_tpu_torch.ops.cuda import cost, norm
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    from paddle_tpu_torch.ops.cuda import norm
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t = {}
     scale = 1.0 / math.sqrt(D)
@@ -1329,9 +1343,6 @@ def time_train_kernels(gen):
     for q, k, v, do in sets:
         o, lse = fa.flash_fwd(q, k, v, True, scale)
         stats.append((lse, _delta(do, o)))
-    pairs = S * (S + 1) // 2 * B * H          # causal (q, k) pairs to do
-    elems = B * S * H * D                     # one [b, s, h, d] tensor
-    row_stats = B * H * S * 4                 # one f32 [b*h, s] tensor
     fwd_args = [(q, k, v, True, scale) for q, k, v, _ in sets]
     bwd_args = [(q, k, v, do, lse, dl, True, scale)
                 for (q, k, v, do), (lse, dl) in zip(sets, stats)]
@@ -1351,15 +1362,14 @@ def time_train_kernels(gen):
     few = dict(reps=10, per_rep=5)
     rows = [
         ("flash_fwd", fa.flash_fwd, fa._flash_fwd_ref, fwd_args,
-         4 * elems * 2 + row_stats, 4 * pairs * D,
          (lambda q, k, v, do: sdpa(q, k, v, is_causal=True), lib_sets)),
         ("flash_bwd_dq", fa.flash_bwd_dq, fa._flash_bwd_dq_ref, bwd_args,
-         5 * elems * 2 + 2 * row_stats, 6 * pairs * D, None),
+         None),
         ("flash_bwd_dkv", fa.flash_bwd_dkv, fa._flash_bwd_dkv_ref, bwd_args,
-         6 * elems * 2 + 2 * row_stats, 8 * pairs * D, None),
+         None),
     ]
-    for name, fn, ref, args, bytes_, ops, lib in rows:
-        bound, by = _bound(bytes_, ops, BF16_OPS_PER_S)
+    for name, fn, ref, args, lib in rows:
+        bound, by = _bound(getattr(cost, name)(*args[0]))
         t[name] = {"ms": device_ms(fn, args, **few),
                    "plain_ms": device_ms(ref, args, **few),
                    "bound_ms": bound, "bound_by": by,
@@ -1386,8 +1396,7 @@ def time_train_kernels(gen):
         t[name]["pair_library_ms"] = t["flash_bwd_pair"]["library_ms"]
     # the forward without the causal mask: every block runs all 8 key
     # tiles, so the wave tail of the causal grid is out of the reading
-    bound, by = _bound(4 * elems * 2 + row_stats, 4 * S * S * B * H * D,
-                       BF16_OPS_PER_S)
+    bound, by = _bound(cost.flash_fwd(*fwd_args[0][:3], False, scale))
     t["flash_fwd_full"] = {
         "ms": device_ms(fa.flash_fwd, [a[:3] + (False, scale)
                                        for a in fwd_args], **few),
@@ -1411,13 +1420,11 @@ def time_train_kernels(gen):
             y = torch.nn.functional.layer_norm(leaves[0], (HIDDEN,),
                                                leaves[1], leaves[2], EPS)
             lib_args.append((y, leaves, gy))
-        for name, io in (("ln_bwd", 3), ("ln_bwd_res", 4)):
+        for name in ("ln_bwd", "ln_bwd_res"):
             res = name == "ln_bwd_res"
             args = [(h_, gy, w, b, EPS, None, gh if res else None)
                     for h_, gy, gh, w, b in ins]
-            bound, by = _bound(io * rows_ * HIDDEN * 2 + 4 * HIDDEN * 4,
-                               LN_BWD_OPS_PER_ELEM * rows_ * HIDDEN,
-                               F32_OPS_PER_S)
+            bound, by = _bound(cost.ln_bwd(*args[0]))
             t[(name, rows_)] = {
                 "ms": device_ms(norm.ln_bwd, args),
                 "plain_ms": device_ms(norm._ln_bwd_ref, args),
@@ -1704,7 +1711,7 @@ def time_adam_kernels(gen):
     """The update (unguarded and guarded) and the sums of squares at each
     path shape, f32 everything as on the path, by CUDA events; then
     per-step sums over GPT-1.3B's 98 rank-2 weights."""
-    from paddle_tpu_torch.ops.cuda import optim
+    from paddle_tpu_torch.ops.cuda import cost, optim
     few = dict(reps=10, per_rep=5)
     t = {}
     for shape, count in ADAM_PATH_SHAPES.items():
@@ -1735,20 +1742,19 @@ def time_adam_kernels(gen):
         vecdot = [(g.view(regions, -1),) * 2 for _p, g, _m, _v in sets]
         rows = {
             "adam_update": (lambda *a: optim.fused_adam_update(*a, **kw),
-                            upd, optim._adam_ref, ref, 28 * n,
-                            (fused_adamw, lib)),
+                            upd, optim._adam_ref, ref, (fused_adamw, lib)),
             "adam_update_guard": (optim._update, upd_guard, optim._adam_ref,
-                                  ref_guard, 28 * n, None),
+                                  ref_guard, None),
             "adam_guard_sumsq": (optim._chunk_sumsq, [(g, layout) for
                                  _p, g, _m, _v in sets],
                                  optim._chunk_sumsq_ref,
                                  [(g, layout) for _p, g, _m, _v in sets],
-                                 4 * n, (torch.linalg.vecdot, vecdot)),
+                                 (torch.linalg.vecdot, vecdot)),
         }
-        for name, (fn, args, plain, plain_args, bytes_, lib_call) in \
-                rows.items():
-            ops = (2 if name == "adam_guard_sumsq" else ADAM_OPS_PER_ELEM) * n
-            bound, by = _bound(bytes_, ops, F32_OPS_PER_S)
+        costs = cost.adam(*upd[0], **kw) + cost.adam(*upd[0], **kw,
+                                                    guard=True)
+        for name, (fn, args, plain, plain_args, lib_call) in rows.items():
+            bound, by = _bound(costs, name)
             t[(name, shape)] = {
                 "ms": device_ms(fn, args, **few),
                 "plain_ms": device_ms(plain, plain_args, **few),
@@ -1986,10 +1992,13 @@ def _gpt(num_layers=None):
 
 
 def _train_step(model, opt, vocab, guard, host_batch=False):
-    """The GPT train step under ``to_static``; ``host_batch``: it takes
-    its batch on the CPU and moves it to the card itself."""
+    """The GPT train step under ``to_static``, its loss under the
+    profiler's ``loss`` scope (as ``tools/perfgate.py`` builds it);
+    ``host_batch``: it takes its batch on the CPU and moves it to the
+    card itself."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.observability import profile
 
     @pt.jit.to_static(amp_policy="bf16", guard=guard)
     def train_step(ids, labels):
@@ -1997,8 +2006,9 @@ def _train_step(model, opt, vocab, guard, host_batch=False):
             ids, labels = ids.to("cuda"), labels.to("cuda")
         opt.clear_grad()
         logits = model(ids)
-        loss = F.cross_entropy(logits.reshape([-1, vocab]),
-                               labels.reshape([-1]))
+        with profile.scope("loss"):
+            loss = F.cross_entropy(logits.reshape([-1, vocab]),
+                                   labels.reshape([-1]))
         loss.backward()
         opt.step()
         return loss
@@ -2682,19 +2692,12 @@ def check_bsa(gen):
     return err
 
 
-def _bsa_pairs(bm, bq, bk, sq, sk, bh):
-    """(q, k) pairs the mask's active blocks hold, ragged ends cut."""
-    nq, nk = bm.shape
-    rows = np.minimum(bq, sq - np.arange(nq) * bq)
-    cols = np.minimum(bk, sk - np.arange(nk) * bk)
-    return bh * int((rows[:, None] * cols[None, :] * bm).sum())
-
-
 def time_bsa_case(name, gen):
     """bsa_fwd at check shape `name`: kernel, plain version, bound and
     SDPA with the block mask expanded to an additive bias, by CUDA
     events over two input sets."""
     from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops.cuda import cost
     few = dict(reps=10, per_rep=5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sets = [_bsa_case(name, gen) for _ in range(2)]
@@ -2709,10 +2712,7 @@ def time_bsa_case(name, gen):
         :sq, :sq]).cuda()
     bias = torch.zeros(tok.shape, dtype=torch.bfloat16,
                        device="cuda").masked_fill(~tok, float("-inf"))
-    elems = b * h * sq * d
-    bound, by = _bound(4 * elems * 2 + b * h * sq * 4,
-                       4 * _bsa_pairs(bm, bq, bk, sq, sq, b * h) * d,
-                       BF16_OPS_PER_S)
+    bound, by = _bound(cost.bsa_fwd(*sets[0][:3], tables))
     return {
         "ms": device_ms(bsa.bsa_fwd, [(q, k, v, tables)
                                       for q, k, v, *_ in sets], **few),
@@ -2731,7 +2731,7 @@ def time_sparse_kernels(gen):
     """rms_fwd at the path's rows (8192 x 2048) and a decode row block
     (8), bf16 x and an f32 weight; bsa_fwd at (a), (b) and (c). Kernel,
     plain version, bound and library call, by CUDA events."""
-    from paddle_tpu_torch.ops.cuda import norm
+    from paddle_tpu_torch.ops.cuda import cost, norm
     t = {}
     for rows in (8192, 8):
         copies = max(1, min(64, math.ceil(150e6 / (2 * rows * HIDDEN * 2))))
@@ -2741,8 +2741,7 @@ def time_sparse_kernels(gen):
         args = [(x, w, RMS_EPS) for x in xs]
         # F.rms_norm's fused path takes one dtype: bf16 weights
         lib = [(x, (HIDDEN,), w.to(torch.bfloat16), RMS_EPS) for x in xs]
-        bound, by = _bound(2 * rows * HIDDEN * 2 + HIDDEN * 4,
-                           RMS_OPS_PER_ELEM * rows * HIDDEN, F32_OPS_PER_S)
+        bound, by = _bound(cost.rms_fwd(*args[0]))
         t[("rms_fwd", rows)] = {
             "ms": device_ms(norm.rms_fwd, args),
             "plain_ms": device_ms(norm._rms_fwd_ref, args),
@@ -2938,7 +2937,7 @@ def phase_keep_mask():
     and the advanced key bit for bit, from two keys; then its time at
     the attention mask's shape beside its bound and the plain version's.
     No PyTorch call draws threefry bits: no library time."""
-    from paddle_tpu_torch.ops.cuda import random
+    from paddle_tpu_torch.ops.cuda import cost, random
     gen = torch.Generator().manual_seed(11)
     for shape, dtype in _keep_cases():
         for _ in range(2):
@@ -2961,19 +2960,19 @@ def phase_keep_mask():
               f"to the plain version (mask, subkey, new key), kept share "
               f"{kept:.4f}")
     shape, dtype = _keep_cases()[0]
-    n = math.prod(shape)
     keys = [(torch.randint(0, 2 ** 32, (2,), generator=gen,
                            dtype=torch.int64).cuda(),) for _ in range(4)]
     ms = device_ms(lambda k: random.keep_mask(k, 1.0 - DROPOUT, shape,
                                               dtype), keys)
     plain_ms = device_ms(lambda k: random._keep_mask_ref(
         k, 1.0 - DROPOUT, shape, dtype), keys, reps=3, per_rep=1)
-    bound = _bound(n * 2 + 32, n * KEEP_OPS_PER_ELEM, INT32_OPS_PER_S)
+    (c,) = cost.keep_mask(keys[0][0], 1.0 - DROPOUT, shape, dtype)
+    bound = _bound([c])
     print(f"[keep_mask] {card_line()}: {list(shape)} bf16 {ms:.5f} ms, "
-          f"bound {bound[0]:.5f} ms ({bound[1]}: {n} x {KEEP_OPS_PER_ELEM} "
-          f"int32 ops over {INT32_OPS_PER_S / 1e12:.2f} T/s; the bytes "
-          f"{n * 2 / HBM_BYTES_PER_S * 1e3:.5f} ms), plain {plain_ms:.3f} ms,"
-          f" library: none")
+          f"bound {bound[0]:.5f} ms ({bound[1]}: {c.flops} int32 ops over "
+          f"{cost.PEAKS['int32'] / 1e12:.2f} T/s; the bytes "
+          f"{c.bytes / cost.HBM_BYTES_PER_S * 1e3:.5f} ms), plain "
+          f"{plain_ms:.3f} ms, library: none")
     return {"keep_mask": 0.0}, {"keep_mask": {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
         "bound_by": bound[1], "library_ms": None, "shape": list(shape),
@@ -3832,6 +3831,801 @@ def phase_observability():
     print(f"[observability] {card_line()}: {json.dumps(numbers)}")
     return {k: launches[k] + train[k] for k in launches}
 
+
+# ------------------------------------ router, traffic, profiler and drift
+ROUTER_CRASH_AT = 6        # serving.decode occurrence the crash plan hits
+TRAFFIC_QUANTUM = 0.02     # virtual seconds a fleet step models
+TRAFFIC_SPEC = dict(name="smoke-poisson", seed=14,
+                    arrival={"kind": "poisson", "rate_qps": 40.0},
+                    duration_s=0.5, prompt_len=((1.0, 16, 256),),
+                    output_tokens=((1.0, 8, 32),),
+                    classes=({"name": "interactive", "ttft_slo_s": 0.25},))
+BURST_SPEC = dict(name="smoke-burst", seed=15,
+                  arrival={"kind": "onoff", "base_qps": 4.0,
+                           "burst_qps": 120.0, "period_s": 0.5,
+                           "duty": 0.4},
+                  duration_s=1.0, prompt_len=((1.0, 16, 128),),
+                  output_tokens=((1.0, 16, 32),),
+                  classes=({"name": "interactive", "ttft_slo_s": 0.5},))
+PROFILE_TOP = 5            # layers predicted beside their kernel time
+PROFILE_REPLAYS = 3        # captured step replays the profile is held to
+DRIFT_STEPS = 3            # decode steps before the replay (the
+                           # router drive's crash migrates at 4 tokens)
+DRIFT_FOLLOW = 48          # decode steps the two paths continue for
+# PERF.md's kernel table: the bound ms of each kernel at its shape
+TABLE_BOUNDS = {
+    ("flash_fwd", "[4,1024,16,128] causal bf16"): 0.02011,
+    ("flash_bwd_dq", "[4,1024,16,128] causal bf16"): 0.02608,
+    ("flash_bwd_dkv", "[4,1024,16,128] causal bf16"): 0.03478,
+    ("ln_fwd", "rows 8 bf16"): 0.00002,
+    ("ln_fwd", "rows 1000 bf16"): 0.00245,
+    ("ln_fwd", "rows 4096 bf16"): 0.01002,
+    ("ln_fwd", "rows 4096 train mix"): 0.01002,
+    ("ln_res_fwd", "rows 8 bf16"): 0.00004,
+    ("ln_res_fwd", "rows 1000 bf16"): 0.00489,
+    ("ln_res_fwd", "rows 4096 bf16"): 0.02003,
+    ("ln_res_fwd", "rows 4096 train mix"): 0.02004,
+    ("ln_bwd", "rows 4096 bf16"): 0.01503,
+    ("ln_bwd", "rows 8 bf16"): 0.00004,
+    ("ln_bwd_res", "rows 4096 bf16"): 0.02004,
+    ("ln_bwd_res", "rows 8 bf16"): 0.00005,
+    ("rms_fwd", "rows 8192 bf16, f32 w"): 0.02003,
+    ("rms_fwd", "rows 8 bf16, f32 w"): 0.00002,
+    ("adam_update", "[50304,2048] f32"): 0.86108,
+    ("adam_update_guard", "[50304,2048] f32"): 0.86108,
+    ("adam_guard_sumsq", "[50304,2048] f32"): 0.12301,
+    ("bsa_fwd", "(a) [2,16,4096,128] bf16"): 0.04022,
+    ("keep_mask", "[4,16,1024,1024] bf16"): 0.16048,
+}
+
+
+def _replica_factory(model, cache, created, clock=None):
+    """The router's engine factory: the serving cell's engine over the
+    shared program cache, with a decode exception failing the replica
+    (the router's failover path); every engine made lands in
+    ``created``, and every ``adopt_request`` notes the tokens a request
+    brought (``eng.adopted``)."""
+    from paddle_tpu_torch.serving import EngineConfig, LLMEngine
+
+    def factory(index):
+        eng = LLMEngine(model, EngineConfig(
+            max_num_seqs=8, page_size=16, max_model_len=1024,
+            dtype=torch.bfloat16, crash_safe_decode=False),
+            program_cache=cache, clock=clock)
+        eng.adopted = []
+        adopt = eng.adopt_request
+
+        def noted(prompt, sp, generated_token_ids=(), **kw):
+            eng.adopted.append(len(generated_token_ids))
+            return adopt(prompt, sp, generated_token_ids=generated_token_ids,
+                         **kw)
+
+        eng.adopt_request = noted
+        created.append(eng)
+        return eng
+
+    return factory
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def _router_drive(cfg, model, single, cache):
+    """GPT-1.3B behind a Router of 2 replicas sharing the model: replica
+    0 boots cold into the AOT cache, replica 1 warm from it; phase 4's 8
+    requests served with replica 0 drained before its first step (its 4
+    queued requests migrate before any token), then again under a
+    planted ``serving.decode`` crash (the failed replica's running
+    requests migrate with their tokens and replay). Returns the launches
+    and the numbers."""
+    from paddle_tpu_torch.resilience.faultinject import (FaultInjector,
+                                                         FaultPlan, FaultSpec)
+    from paddle_tpu_torch.serving.router import Router, RouterConfig
+    prompts, sps = _serving_requests(cfg.vocab_size)
+    created = []
+    t0 = time.perf_counter()
+    with _span_window() as window:
+        router = Router(engine_factory=_replica_factory(model, cache,
+                                                        created),
+                        num_replicas=2,
+                        config=RouterConfig(sleep=lambda s: None))
+        torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    boots = [dict(h.boot_info) for h in router.replicas]
+    bound = created[0].config.compile_bound
+    print(f"[router] {card_line()}: 2 replicas in {boot_s:.2f} s: replica 0 "
+          f"{boots[0]}, replica 1 {boots[1]}; each build's ms in order "
+          f"(cold, then warm) {_build_ms(window)}")
+    if not (boots[0]["compiled"] == boots[0]["programs"] == bound == 10
+            and boots[0]["warm"] is False and boots[0]["cache_loads"] == 0):
+        raise AssertionError(f"replica 0 did not boot cold: {boots[0]}")
+    if not (boots[1]["compiled"] == 0 and boots[1]["warm"] is True
+            and boots[1]["cache_loads"] == boots[1]["programs"] == bound):
+        raise AssertionError(f"replica 1 did not boot warm: {boots[1]}")
+    if cache.error_count:
+        raise AssertionError(f"a cache record failed its digest: "
+                             f"{cache.stats()}")
+    reset_launches()
+    n_boot = len(created)
+    t0 = time.perf_counter()
+    rids = [router.add_request(p, sp) for p, sp in zip(prompts, sps)]
+    router.drain(0)
+    while router.has_unfinished():
+        router.step()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    res_a = [router.finished_results.pop(r) for r in rids]
+    plan = FaultPlan([FaultSpec("serving.decode", "exception",
+                                at=ROUTER_CRASH_AT)], name="router-crash")
+    t0 = time.perf_counter()
+    with FaultInjector(plan) as inj:
+        rids = [router.add_request(p, sp) for p, sp in zip(prompts, sps)]
+        while router.has_unfinished():
+            router.step()
+    torch.cuda.synchronize()
+    crash_s = time.perf_counter() - t0
+    res_b = [router.finished_results.pop(r) for r in rids]
+    launches = read_launches("router")
+    snap = router.snapshot()
+    respawned = created[n_boot:]
+    forwards = sum(e.metrics.prefill_steps + e.metrics.decode_steps
+                   for e in created) \
+        + len(respawned) * (len(created[0].config.prefill_buckets) + 1)
+    expect = {k: 0 for k in launches}
+    expect.update(ln_fwd=forwards * (cfg.num_layers + 1),
+                  ln_res_fwd=forwards * cfg.num_layers)
+    print(f"[router] drain run {drain_s:.2f} s, crash run {crash_s:.2f} s; "
+          f"faults {[(s, sp.kind, o) for s, sp, o in inj.injected]}; "
+          f"counters drains {snap['drains']} failovers {snap['failovers']} "
+          f"adoptions {snap['adoptions']} respawns {snap['respawns']}, "
+          f"engines {len(created)}, forwards {forwards} (boot replays of "
+          f"{len(respawned)} respawns included); launches {launches}")
+    if launches != expect:
+        raise AssertionError(f"router launches {launches} != {expect}")
+    if (snap["drains"], snap["failovers"], snap["respawns"]) != (1, 1, 2):
+        raise AssertionError(f"router counters {snap}")
+    warm_respawns = [e.metrics.aot_cache_loads for e in respawned]
+    if any(e.metrics.compile_count for e in respawned) or \
+            warm_respawns != [bound] * 2:
+        raise AssertionError(f"a respawn built cold: {warm_respawns}")
+    adopted = [n for e in created for n in e.adopted]
+    diverged = []
+    for run, res in (("drain", res_a), ("crash", res_b)):
+        for i, r in enumerate(res):
+            if len(r.output_token_ids) != 64 or r.finish_reason != "length":
+                raise AssertionError(f"{run} run request {i}: "
+                                     f"{len(r.output_token_ids)} tokens, "
+                                     f"{r.finish_reason}")
+            d = _first_diff(r.output_token_ids, single[i])
+            if r.migrations == 0 or run == "drain":
+                if d is not None:
+                    raise AssertionError(f"{run} run request {i} (migrations"
+                                         f" {r.migrations}) differs from the"
+                                         f" single engine at token {d}")
+            elif d is not None:
+                diverged.append((i, d))
+    crashed = [n for n in adopted if n > 0]
+    if adopted.count(0) != 4 or not crashed or \
+            min(d for _, d in diverged or [(0, 99)]) < min(crashed):
+        raise AssertionError(f"migrations {adopted}: a migrated request "
+                             f"differs before its migration {diverged}")
+    print(f"[router] {card_line()}: the drain migrated 4 requests before "
+          f"their first token, the crash {len(crashed)} requests with "
+          f"{sorted(set(crashed))} tokens each; 64 tokens a request; every "
+          f"request not migrated after a token equals the single engine's;"
+          f" migrated after a token and then differing (request, first "
+          f"differing token): {diverged}; boot ms cold {snap['boot_cold_ms']}"
+          f", warm (replica 1 and both respawns) {snap['boot_warm_ms']}")
+    numbers = {"boot_ms_cold": boots[0]["boot_ms"],
+               "boot_ms_warm": boots[1]["boot_ms"],
+               "boot_warm_ms": snap["boot_warm_ms"],
+               "migrated_tokens": crashed, "diverged": diverged,
+               "drain_run_s": drain_s, "crash_run_s": crash_s}
+    router.shutdown()
+    return launches, numbers
+
+
+def fresh_boot(cache_dir, out_path):
+    """Run in a process of its own by :func:`_fresh_boot_check`: the
+    router's replica engine over GPT-1.3B from the serving seed, booted
+    where no program has run yet, from ``cache_dir``'s records (each
+    warm build warms up once before its capture) or, with ``cache_dir``
+    None, cold; then phase 4's requests. Writes the boot, the warm-up
+    calls of each program, the cache's errors and the tokens to
+    ``out_path`` as JSON."""
+    phase_device()
+    from paddle_tpu_torch.serving.aot_cache import AOTProgramCache
+    cfg, model = _serving_model("fresh boot")
+    cache = AOTProgramCache(cache_dir) if cache_dir else None
+    eng = _replica_factory(model, cache, [])(0)
+    with _span_window() as window:
+        boot = eng.warmup()
+    prompts, sps = _serving_requests(cfg.vocab_size)
+    results = eng.generate(prompts, sps)
+    torch.cuda.synchronize()
+    Path(out_path).write_text(json.dumps({
+        "boot": boot, "errors": cache.error_count if cache else 0,
+        "build_ms": _build_ms(window),
+        "warmups": sorted({p.warmups for p in eng._programs.values()}),
+        "tokens": [r.output_token_ids for r in results]}))
+    eng.shutdown()
+
+
+def _build_ms(window):
+    """{program: ms} of each cold build (``serving.compile``) and warm
+    one (``serving.aot_load``) a span window saw, in build order."""
+    return [[(r.attrs or {}).get("program"), round(r.dur_ns / 1e6, 1)]
+            for r in window.spans()
+            if r.name in ("serving.compile", "serving.aot_load")]
+
+
+def _fresh_boot_check(cache, single):
+    """One engine booted in a fresh process cold, then one from
+    ``cache`` (the router's warm boots all run where replica 0 built
+    cold): the cold one 10 builds of 2 warm-up calls, the warm one no
+    cold build and 10 cache loads after one warm-up call each, no digest
+    mismatch; both serve phase 4's tokens. Returns their boot ms and
+    wall seconds."""
+    numbers = {}
+    for kind, cache_dir, want in (("cold", None, (10, 0, [2])),
+                                  ("warm", cache.cache_dir, (0, 10, [1]))):
+        out = Path(cache.cache_dir) / f"fresh_{kind}.json"
+        call = (f"import chip_smoke as c; c.fresh_boot({cache_dir!r}, "
+                f"{str(out)!r})")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", call],
+                              cwd=Path(__file__).resolve().parent,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"the fresh {kind} boot exited "
+                                 f"{proc.returncode}: {proc.stderr[-4000:]}")
+        got = json.loads(out.read_text())
+        boot = got["boot"]
+        print(f"[router] {card_line()}: a fresh process booted {kind}: "
+              f"{boot}, warm-up calls a program {got['warmups']}, cache "
+              f"errors {got['errors']}, each build's ms in order "
+              f"{got['build_ms']}, wall {wall:.1f} s (the process's start "
+              f"and the model's build included)")
+        if (boot["compiled"], boot["cache_loads"], got["warmups"]) != want \
+                or got["errors"]:
+            raise AssertionError(f"fresh {kind} boot: {got['boot']}, "
+                                 f"warm-ups {got['warmups']}, errors "
+                                 f"{got['errors']}")
+        for i, (a, b) in enumerate(zip(got["tokens"], single)):
+            if a != b:
+                raise AssertionError(f"fresh {kind} boot: request {i} "
+                                     f"differs from phase 4 at token "
+                                     f"{_first_diff(a, b)}")
+        numbers[f"boot_ms_fresh_{kind}"] = boot["boot_ms"]
+        numbers[f"build_ms_fresh_{kind}"] = got["build_ms"]
+        numbers[f"fresh_{kind}_wall_s"] = wall
+    return numbers
+
+
+def _traffic_metrics(name):
+    from paddle_tpu_torch.observability import registry
+    snap = {}
+    for m in registry().collect():
+        if m.labels.get("traffic") != name:
+            continue
+        key = (m.name, tuple(sorted(m.labels.items())))
+        snap[key] = m.summary() if m.kind == "histogram" else m.value
+    return snap
+
+
+def _traffic_drive(cfg, model, cache):
+    """A seeded Poisson trace through 2 replicas on a VirtualClock, twice
+    (identical reports and registry snapshots), then an on/off burst
+    under the SLO autoscaler scaling 1 -> 2 replicas warm."""
+    from paddle_tpu_torch.serving import traffic
+    from paddle_tpu_torch.serving.router import Router, RouterConfig
+    vocab = (1, cfg.vocab_size)
+    spec = traffic.TrafficSpec(**TRAFFIC_SPEC, vocab=vocab)
+    runs = []
+    for _ in range(2):
+        clock = traffic.VirtualClock()
+        router = Router(engine_factory=_replica_factory(model, cache, [],
+                                                        clock),
+                        num_replicas=2, clock=clock,
+                        config=RouterConfig(sleep=lambda s: None))
+        driver = traffic.TrafficDriver(router, spec, clock,
+                                       quantum_s=TRAFFIC_QUANTUM,
+                                       name="smoke-traffic")
+        t0 = time.perf_counter()
+        rep = driver.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append((rep, _traffic_metrics("smoke-traffic"), wall,
+                     [h.boot_info["warm"] for h in router.replicas]))
+        driver.release()
+        router.shutdown()
+    (rep, snap, wall, warm), (rep2, snap2, wall2, _) = runs
+    print(f"[traffic] {card_line()}: {json.dumps(rep)}; wall {wall:.2f} s "
+          f"and {wall2:.2f} s, replicas warm {warm}")
+    if rep != rep2 or snap != snap2:
+        raise AssertionError(f"same-seed traffic runs differ: {rep2}")
+    if rep["token_loss"] or rep["completed"] != rep["offered"] or \
+            rep["offered"] != len(traffic.compile_trace(spec)) or \
+            not all(warm):
+        raise AssertionError(f"traffic run {rep}, warm {warm}")
+    burst = traffic.TrafficSpec(**BURST_SPEC, vocab=vocab)
+    clock = traffic.VirtualClock()
+    router = Router(engine_factory=_replica_factory(model, cache, [], clock),
+                    num_replicas=2, clock=clock,
+                    config=RouterConfig(sleep=lambda s: None))
+    router.park(1)
+    router.step()                            # replica 1 drains out: parked
+    scaler = traffic.SLOAutoscaler(
+        router, slo=traffic.SLO(queue_high=4.0, queue_low=0.5),
+        config=traffic.AutoscalerConfig(up_after=2, down_after=10 ** 6,
+                                        cooldown=4), clock=clock)
+    driver = traffic.TrafficDriver(router, burst, clock,
+                                   quantum_s=TRAFFIC_QUANTUM,
+                                   name="smoke-burst",
+                                   on_tick=lambda d: scaler.observe())
+    t0 = time.perf_counter()
+    brep = driver.run()
+    bwall = time.perf_counter() - t0
+    ssnap = scaler.snapshot()
+    up = router.replicas[1].boot_info
+    print(f"[traffic] {card_line()}: on/off burst {json.dumps(brep)}; "
+          f"autoscaler {json.dumps(ssnap)}; replica 1 respawned "
+          f"{up}; wall {bwall:.2f} s")
+    if ssnap["scale_ups"] != 1 or not up.get("warm") or brep["token_loss"] \
+            or brep["completed"] != brep["offered"]:
+        raise AssertionError(f"burst run {brep}, autoscaler {ssnap}, "
+                             f"boot {up}")
+    scaler.release()
+    driver.release()
+    router.shutdown()
+    return {"poisson": rep, "burst": brep, "autoscaler": ssnap,
+            "scale_up_boot_ms": up["boot_ms"]}
+
+
+def _table_launches(gen):
+    """Each kernel at its row of the kernel table, launched on the card
+    under the profiler's walk: (row, booked costs)."""
+    from paddle_tpu_torch.observability import profile
+    from paddle_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import norm, optim, random as rnd
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, dtype=bf16):
+        return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+
+    q, k, v, do = (rn(B, S, H, D) for _ in range(4))
+    lse = torch.zeros(B * H, S, device="cuda")
+    w2, b2 = rn(HIDDEN, dtype=f32), rn(HIDDEN, dtype=f32)
+    wb, bb = rn(HIDDEN), rn(HIDDEN)
+    sq, sk, sv, bm, bq, bk = _bsa_case("a", gen)
+    p_, g_, m_, v_ = (rn(50304, 2048, dtype=f32) for _ in range(4))
+    sc = torch.tensor([1e-4, 0.1, 0.001, 1.0], device="cuda")
+    adam = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    calls = [
+        ("[4,1024,16,128] causal bf16",
+         lambda: fa.flash_fwd(q, k, v, True)),
+        ("[4,1024,16,128] causal bf16",
+         lambda: fa.flash_bwd_dq(q, k, v, do, lse, lse, True)),
+        ("[4,1024,16,128] causal bf16",
+         lambda: fa.flash_bwd_dkv(q, k, v, do, lse, lse, True)),
+        *[(f"rows {r} bf16", lambda r=r: norm.ln_fwd(rn(r, HIDDEN), wb, bb))
+          for r in (8, 1000, 4096)],
+        ("rows 4096 train mix", lambda: norm.ln_fwd(rn(4096, HIDDEN), w2,
+                                                    b2)),
+        *[(f"rows {r} bf16", lambda r=r: norm.ln_res_fwd(
+            rn(r, HIDDEN), rn(r, HIDDEN), wb, bb)) for r in (8, 1000, 4096)],
+        ("rows 4096 train mix", lambda: norm.ln_res_fwd(
+            rn(4096, HIDDEN), rn(4096, HIDDEN), w2, b2)),
+        *[(f"rows {r} bf16", lambda r=r, gh=gh: norm.ln_bwd(
+            rn(r, HIDDEN), rn(r, HIDDEN), w2, b2,
+            gh=rn(r, HIDDEN) if gh else None))
+          for gh in (False, True) for r in (4096, 8)],
+        *[(f"rows {r} bf16, f32 w", lambda r=r: norm.rms_fwd(
+            rn(r, HIDDEN), w2)) for r in (8192, 8)],
+        ("[50304,2048] f32", lambda: optim.fused_adam_update(
+            p_, g_, m_, v_, sc, **adam)),
+        ("[50304,2048] f32", lambda: optim.fused_adam_update(
+            p_, g_, m_, v_, sc, guard=True, **adam)),
+        ("(a) [2,16,4096,128] bf16", lambda: bsa.bsa_fwd(
+            sq, sk, sv, bsa.prepare_block_mask(bm, bq, bk))),
+        ("[4,16,1024,1024] bf16", lambda: rnd.keep_mask(
+            torch.zeros(2, dtype=torch.int64, device="cuda"), 0.9,
+            (B, H, S, S), bf16)),
+    ]
+    booked = []
+    for row, call in calls:
+        trace = profile.trace_call(call)
+        booked += [(row, c) for _path, c in trace.kernels]
+    torch.cuda.synchronize()
+    return booked
+
+
+@contextlib.contextmanager
+def _span_window():
+    """A span recorder of its own that sees every span closed while this
+    is open (a sink on the process's recorder), for :func:`profile.
+    reconcile` to read the spans of one run alone."""
+    from paddle_tpu_torch.observability import spans
+    window = spans.SpanRecorder()
+    sink = window.record
+    spans.recorder().add_sink(sink)
+    try:
+        yield window
+    finally:
+        spans.recorder().remove_sink(sink)
+
+
+def _innermost_kernel_ms(prof, paths):
+    """{scope path: device ms} of a torch.profiler run: each event's
+    kernels booked to its innermost enclosing record_function that is one
+    of ``paths`` (the rest under "")."""
+    out = {}
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None) or []
+        if not kernels:
+            continue
+        node, path = e, ""
+        while node is not None:
+            if node.name in paths:
+                path = node.name
+                break
+            node = node.cpu_parent
+        out[path] = out.get(path, 0.0) + sum(k.duration for k in kernels) / 1e3
+    return out
+
+
+def _profile_drive(cfg, model):
+    """The roofline profiler on the card: every serving program of the
+    1.3B engine, the depth-2 guarded train step (attributed >= 90 %),
+    each kernel's booked cost against the kernel table's bound, the
+    reports reconciled with their spans, and the prefill's five most
+    costly layers predicted beside their kernel time in a profiled
+    call."""
+    from paddle_tpu_torch.framework.state import state_tensors
+    from paddle_tpu_torch.observability import profile
+    eng = _serving_engine(model)
+    t0 = time.perf_counter()
+    reports = profile.profile_engine(eng)
+    walk_s = time.perf_counter() - t0
+    names = sorted(reports)
+    want = sorted([f"prefill_{b}" for b in eng.config.prefill_buckets]
+                  + ["decode", "sample_1", "sample_8"])
+    if names != want:
+        raise AssertionError(f"profile_engine: {names}")
+    card = card_line()
+    for name in ("prefill_1024", "prefill_64", "decode", "sample_8"):
+        r = reports[name]
+        print(f"[profile] {card}: {name}: {r.total_flops / 1e9:.3f} GFLOP, "
+              f"{r.total_bytes / 1e9:.4f} GB, attributed bytes "
+              f"{100 * r.frac_attributed_bytes:.2f} % flops "
+              f"{100 * r.frac_attributed_flops:.2f} %, predicted "
+              f"{r.predicted_ms:.4f} ms, floor {r.floor_ms:.4f} ms, top "
+              f"layer {r.top_layer}, {len(r.kernels or [])} kernel launches")
+    # the floor against this engine's own decode replays: phase 4's
+    # requests served after its boot, the spans of that run alone
+    eng.warmup()
+    with _span_window() as window:
+        eng.generate(*_serving_requests(cfg.vocab_size))
+        torch.cuda.synchronize()
+    dec = profile.reconcile(reports["decode"], "serving.decode",
+                            recorder=window)
+    if dec.measured_ms is None:
+        raise AssertionError("no serving.decode span to reconcile with")
+    print(f"[profile] {card}: decode floor {dec.floor_ms:.4f} ms against "
+          f"this engine's decode replays ({dec.measured_source}): "
+          f"{dec.measured_ms:.4f} ms ({dec.floor_ms / dec.measured_ms:.3f} "
+          f"of it); walked the ten programs in {walk_s:.1f} s")
+    # the prefill at its largest bucket, eager under torch.profiler: its
+    # kernels grouped by the module scopes' record_function paths
+    prefill = reports["prefill_1024"]
+    fn, example = eng.audit_programs()["prefill_1024"]
+    with torch.no_grad(), profile.module_scopes():
+        fn(*example)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn(*example)
+            torch.cuda.synchronize()
+    measured = _innermost_kernel_ms(prof, {l.name for l in prefill.layers})
+    top = sorted(prefill.layers, key=lambda l: -l.floor_ms)[:PROFILE_TOP]
+    rows = [{"layer": l.name, "predicted_ms": round(l.floor_ms, 5),
+             "measured_kernel_ms": round(measured.get(l.name, 0.0), 5)}
+            for l in top]
+    kinds = {}
+    for l in prefill.layers:
+        kind = "/".join(p for p in l.name.split("/")
+                        if not p.startswith("gptdecoderlayer_"))
+        agg = kinds.setdefault(kind, [0.0, 0.0])
+        agg[0] += l.floor_ms
+        agg[1] += measured.get(l.name, 0.0)
+    kinds = {k: [round(a, 4), round(b, 4)] for k, (a, b) in sorted(
+        kinds.items(), key=lambda kv: -kv[1][1])}
+    print(f"[profile] {card}: prefill_1024's {PROFILE_TOP} most costly "
+          f"layers, floor beside kernel time: {json.dumps(rows)}; by kind "
+          f"over the 24 layers, [floor ms, kernel ms]: {json.dumps(kinds)};"
+          f" kernel ms outside every layer {measured.get('', 0.0):.4f}, in "
+          f"all {sum(measured.values()):.4f}")
+    if not all(r["measured_kernel_ms"] > 0 for r in rows):
+        raise AssertionError(f"a layer without kernel time: {rows}")
+    del reports, fn, example, prof
+    eng.shutdown()
+    gc.collect()
+    # the depth-2 guarded step: one captured call, then a profile
+    pcfg, pmodel, opt, step_fn = _obs_model()
+    batch = _batch(pcfg.vocab_size, 6000)
+    _captured(step_fn, batch)
+    before = [t.detach().clone() for t in state_tensors()]
+    t0 = time.perf_counter()
+    rep = profile.profile_static_function(step_fn, *batch, include_xla=True)
+    torch.cuda.synchronize()
+    step_walk_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(before, state_tensors()))
+    with _span_window() as window:           # replays of the step alone
+        for _ in range(PROFILE_REPLAYS):
+            _captured(step_fn, batch)
+    profile.reconcile(rep, "jit.train_step", recorder=window)
+    kernels = {}
+    for row in rep.kernels:
+        kernels[row["kernel"]] = kernels.get(row["kernel"], 0) + 1
+    print(f"[profile] {card}: depth-2 guarded step: attributed bytes "
+          f"{100 * rep.frac_attributed_bytes:.2f} % flops "
+          f"{100 * rep.frac_attributed_flops:.2f} %, "
+          f"{rep.total_flops / 1e12:.3f} TFLOP against FlopCounterMode's "
+          f"{rep.xla['flops'] / 1e12:.3f}, {rep.total_bytes / 1e9:.2f} GB, "
+          f"predicted {rep.predicted_ms:.3f} ms, floor {rep.floor_ms:.3f} "
+          f"ms, a captured replay's span {rep.measured_ms:.3f} ms "
+          f"({rep.measured_source}); "
+          f"booked launches {kernels}; top layer {rep.top_layer}; state "
+          f"unchanged {same}; walked in {step_walk_s:.1f} s")
+    if rep.frac_attributed_bytes < 0.90 or rep.frac_attributed_flops < 0.90 \
+            or not same:
+        raise AssertionError(f"depth-2 profile: {rep.to_dict()['layers']}")
+    del pmodel, opt, step_fn, before
+    gc.collect()
+    booked = _table_launches(torch.Generator(device="cuda").manual_seed(21))
+    got = {(c.name, row): round(c.bound_ms(), 5) for row, c in booked}
+    print(f"[profile] {card}: booked bounds at the kernel table's shapes: "
+          f"{json.dumps({f'{k[0]} {k[1]}': v for k, v in got.items()})}")
+    if got != TABLE_BOUNDS:
+        raise AssertionError(f"booked bounds differ from the table: "
+                             f"{got} != {TABLE_BOUNDS}")
+    return {"decode_floor_ms": dec.floor_ms, "decode_replay_span_ms":
+            dec.measured_ms, "prefill_top": rows, "prefill_kinds": kinds,
+            "step_attributed": [rep.frac_attributed_bytes,
+                                rep.frac_attributed_flops],
+            "step_floor_ms": rep.floor_ms, "step_replay_span_ms":
+            rep.measured_ms}
+
+
+def _pool_rows(pools, table, positions, page):
+    """[layers, positions, heads, d] of each layer's pool at
+    ``positions`` through the row ``table``."""
+    pages = table[positions // page]
+    return torch.stack([p[pages, :, positions % page, :] for p in pools])
+
+
+def _max_diff(a, b):
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def drift_probe(cfg, model, prompt):
+    """Where a replayed request first drifts on the card: one greedy
+    request, A decoded ``DRIFT_STEPS`` steps after its prefill, and B its
+    replay (one prefill of the prompt and A's tokens, as after an
+    eviction or an adoption), both through the engine's uncaptured
+    programs on pools of their own. Compares their K/V pages layer by
+    layer, layer 0's operations on the rows both computed (ln1, the qkv
+    GEMM, attention, the output projection), each of those operations
+    alone on one input at the two paths' shapes, and the logits at the
+    first token where the two paths part. Returns the findings."""
+    from paddle_tpu_torch.incubate.nn.paged_attention import \
+        paged_decode_step
+    from paddle_tpu_torch.serving.engine import _dense_causal_attention
+    eng = _serving_engine(model)
+    ec = eng.config
+    page, nb = ec.page_size, ec.max_num_seqs
+    L = len(prompt)
+    total = L + DRIFT_STEPS + 1 + DRIFT_FOLLOW
+    table = torch.zeros(ec.max_pages_per_seq, dtype=torch.int64,
+                        device="cuda")
+    n_pages = -(-total // page)
+    table[:n_pages] = torch.arange(1, n_pages + 1)
+    layer0 = model.gpt.layers[0]
+    seen = {}
+
+    def hook(name):
+        def fn(_m, inputs, output):
+            seen.setdefault(name, []).append(
+                (inputs[0].detach().clone(), output.detach().clone()))
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in (
+        ("ln1", layer0.ln1), ("qkv", layer0.attn.qkv_proj),
+        ("out_proj", layer0.attn.out_proj), ("fc1", layer0.mlp.fc1))]
+
+    def pools():
+        return ([torch.zeros_like(p) for p in eng._k_pools],
+                [torch.zeros_like(p) for p in eng._v_pools])
+
+    def prefill(pl, tokens):
+        bucket = eng.scheduler.bucket_for_len(len(tokens))
+        fn, _ = eng._prefill_program(bucket, pools=pl)
+        ids = torch.zeros(1, bucket, dtype=torch.int64, device="cuda")
+        ids[0, :len(tokens)] = torch.tensor(tokens)
+        pos = torch.arange(bucket, device="cuda")[None]
+        return fn(table[None], ids, pos, torch.tensor([len(tokens)],
+                                                      device="cuda"))[0]
+
+    def decoder(pl):
+        fn, _ = eng._decode_program(pools=pl)
+        tables = torch.zeros(nb, ec.max_pages_per_seq, dtype=torch.int64,
+                             device="cuda")
+        tables[0] = table
+
+        def step(length, token):
+            lens = torch.zeros(nb, dtype=torch.int64, device="cuda")
+            lens[0] = length
+            toks = torch.zeros(nb, 1, dtype=torch.int64, device="cuda")
+            toks[0, 0] = token
+            return fn(tables, lens, toks)[0]
+        return step
+
+    with torch.no_grad():
+        pa = pools()
+        tokens = [int(prefill(pa, prompt).argmax())]
+        step_a = decoder(pa)
+        for i in range(DRIFT_STEPS):
+            tokens.append(int(step_a(L + i, tokens[-1]).argmax()))
+        marks = {n: len(v) for n, v in seen.items()}
+        logits_a = [step_a(L + DRIFT_STEPS, tokens[-1])]
+        pb = pools()
+        logits_b = [prefill(pb, prompt + tokens)]
+        positions = torch.arange(L + DRIFT_STEPS + 1, device="cuda")
+        kv = {}
+        for name, (a, b) in (("k", (pa[0], pb[0])), ("v", (pa[1], pb[1]))):
+            ra, rb = (_pool_rows(p, table, positions, page) for p in (a, b))
+            diff = (ra.float() - rb.float()).abs()
+            kv[name] = {
+                "prompt_max": [round(float(d), 6) for d in
+                               diff[:, :L].amax(dim=(1, 2, 3))],
+                "decoded_max": [round(float(d), 6) for d in
+                                diff[:, L:].amax(dim=(1, 2, 3))]}
+        # layer 0 on the rows both paths computed: A's prefill (prompt
+        # rows) and decode steps (row 0 of each batch) against B's prefill
+        rep_b = {n: v[-1] for n, v in seen.items()}
+        ops = {}
+        # in layer 0's order: ln1's output, the qkv GEMM's, attention's
+        # (out_proj's input), out_proj's, fc1's
+        for label, n, side in (("ln1", "ln1", 1), ("qkv GEMM", "qkv", 1),
+                               ("attention", "out_proj", 0),
+                               ("out_proj GEMM", "out_proj", 1),
+                               ("fc1 GEMM", "fc1", 1)):
+            calls = seen[n][:marks[n] + 1]
+            pre_a = calls[0][side][0, :L]
+            dec_a = torch.stack([c[side][0, 0] for c in calls[1:]])
+            out_b = rep_b[n][side][0]
+            ops[label] = {"prompt_rows": _max_diff(pre_a, out_b[:L]),
+                          "decoded_rows": _max_diff(
+                              dec_a, out_b[L:L + dec_a.shape[0]])}
+        # each operation alone, one input, the two paths' shapes
+        x = rep_b["qkv"][0][0]                      # ln1's rows, B's
+        w, bias = layer0.attn.qkv_proj.weight, layer0.attn.qkv_proj.bias
+        whole = torch.nn.functional.linear(x, w.t(), bias)
+        bucket_a = eng.scheduler.bucket_for_len(L)
+        first = torch.nn.functional.linear(x[:bucket_a], w.t(), bias)
+        row = torch.zeros(nb, x.shape[1], dtype=x.dtype, device="cuda")
+        row[0] = x[L]
+        one = torch.nn.functional.linear(row, w.t(), bias)[0]
+        ln_x = rep_b["ln1"][0][0]
+        ln_whole = layer0.ln1(ln_x)
+        ln_row = torch.zeros(nb, ln_x.shape[1], dtype=ln_x.dtype,
+                             device="cuda")
+        ln_row[0] = ln_x[L]
+        heads, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        qkv = whole[:L + DRIFT_STEPS + 1].reshape(1, -1, heads, 3 * d)
+        q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
+        dense = _dense_causal_attention(q, k, v)[0, :, -1]
+        kp = torch.zeros_like(eng._k_pools[0])
+        vp = torch.zeros_like(eng._v_pools[0])
+        last = L + DRIFT_STEPS
+        pages = table[torch.arange(last, device="cuda") // page]
+        offs = torch.arange(last, device="cuda") % page
+        kp[pages, :, offs] = k[0, :, :last].transpose(0, 1)
+        vp[pages, :, offs] = v[0, :, :last].transpose(0, 1)
+        tables = torch.zeros(nb, ec.max_pages_per_seq, dtype=torch.int64,
+                             device="cuda")
+        tables[0] = table
+        lens = torch.zeros(nb, dtype=torch.int64, device="cuda")
+        lens[0] = last
+        qd, kd, vd = (torch.zeros(nb, heads, 1, d, dtype=t.dtype,
+                                  device="cuda") for t in (q, k, v))
+        qd[0], kd[0], vd[0] = q[0, :, last:last + 1], k[0, :, last:last + 1], \
+            v[0, :, last:last + 1]
+        paged = paged_decode_step(qd, kd, vd, kp, vp, tables, lens, page)[0]
+        # the two paths' query scalings, the reference's both:
+        # q / sqrt(d) rounded to q's type, and q * (1 / sqrt(d))
+        q_last = q[0, :, last]
+        dense_q = q_last / float(torch.tensor(d ** 0.5).to(q.dtype))
+        paged_q = q_last * (1.0 / d ** 0.5)
+        alone = {
+            "query scaling, q * (1/sqrt d) vs q / sqrt(d)": _max_diff(
+                paged_q, dense_q),
+            "query scaling, elements that differ": int(
+                (paged_q != dense_q).sum()),
+            "qkv GEMM, M=bucket(L) vs M=bucket(L+g)": _max_diff(
+                first[:L], whole[:L]),
+            "qkv GEMM, M=8 vs M=bucket(L+g)": _max_diff(one, whole[L]),
+            "ln1, 8 rows vs bucket rows": _max_diff(layer0.ln1(ln_row)[0],
+                                                    ln_whole[L]),
+            "attention, paged_attend vs _dense_causal_attention": _max_diff(
+                paged[0, :, 0], dense)}
+        # continue both paths until their tokens part
+        step_b = decoder(pb)
+        ta, tb = tokens + [int(logits_a[0].argmax())], \
+            tokens + [int(logits_b[0].argmax())]
+        part = None
+        for i in range(DRIFT_FOLLOW):
+            if ta[-1] != tb[-1]:
+                part = len(ta) - 1
+                break
+            n = L + len(ta) - 1
+            logits_a.append(step_a(n, ta[-1]))
+            logits_b.append(step_b(n, tb[-1]))
+            ta.append(int(logits_a[-1].argmax()))
+            tb.append(int(logits_b[-1].argmax()))
+        if part is None and ta[-1] != tb[-1]:
+            part = len(ta) - 1
+        la, lb = logits_a[-1].float(), logits_b[-1].float()
+        margin = [float(t[0] - t[1]) for t in (la.topk(2).values,
+                                                lb.topk(2).values)]
+    for h in handles:
+        h.remove()
+    eng.shutdown()
+    found = {"prompt_len": L, "decode_steps": DRIFT_STEPS, "kv": kv,
+             "layer0_rows": ops, "alone": alone,
+             "first_parting_token": part,
+             "logits_max_diff_there": _max_diff(la, lb),
+             "top2_margins_there": margin,
+             "next_logits_max_diff": _max_diff(logits_a[0], logits_b[0])}
+    print(f"[drift] {card_line()}: {json.dumps(found)}")
+    if alone["ln1, 8 rows vs bucket rows"] != 0.0:
+        raise AssertionError("the LayerNorm forward depends on its row "
+                             "count (phase 3 holds it invariant)")
+    return found
+
+
+def phase_router_traffic(bf16_serving):
+    """The router, the AOT program cache, the traffic harness and the
+    roofline profiler over GPT-1.3B's serving cell, then the drift of a
+    replayed request. Returns the router drive's launches."""
+    cfg, model = _serving_model("router")
+    single = bf16_serving["tokens"]
+    from paddle_tpu_torch.serving.aot_cache import AOTProgramCache
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = AOTProgramCache(tmp)
+        launches, router = _router_drive(cfg, model, single, cache)
+        router.update(_fresh_boot_check(cache, single))
+        gc.collect()
+        traffic = _traffic_drive(cfg, model, cache)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profiled = _profile_drive(cfg, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    drift = drift_probe(cfg, model, _serving_requests(cfg.vocab_size)[0][0])
+    print(f"[router and traffic] {card_line()}: " + json.dumps(
+        {"router": router, "traffic": {k: v for k, v in traffic.items()
+                                       if k != "autoscaler"},
+         "profile": profiled, "drift_first_parting": drift[
+             "first_parting_token"]}))
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3878,6 +4672,8 @@ def main(argv=None):
     paths["sparse_block"] = phase("sparse block", phase_sparse_block)
     paths["optimizers"] = phase("optimizers", phase_optimizers)
     paths["observability"] = phase("observability", phase_observability)
+    paths["router"] = phase("router and traffic", phase_router_traffic,
+                            bf16_serving)
     print(f"[phase] seconds: {seconds}, {sum(seconds.values()):.1f} in all")
     max_err.update(train_err)
     max_err.update(adam_err)

@@ -11,7 +11,10 @@ weight gradients accumulated and returned in f32.
 
 The cast is a global module forward pre-hook that the policy registers
 on entry and removes on exit, and it acts only on the thread that
-entered: the policy is scoped to the wrapped step, never global.
+entered: the policy is scoped to the wrapped step, never global. It runs
+before every other global pre-hook, so the cast happens at the boundary,
+outside the module's profiler scope (as the reference casts before
+entering the layer's scope).
 
 The policy also carries the reference's remat mode: ``remat=True``
 turns on the model's recompute units (its decoder blocks, through
@@ -25,7 +28,7 @@ import contextlib
 import threading
 
 import torch
-from torch.nn.modules.module import register_module_forward_pre_hook
+from torch.nn.modules import module as _module
 
 from paddle_tpu_torch.amp.auto_cast import auto_cast
 
@@ -104,7 +107,8 @@ def activation_residency(dtype="bfloat16", remat=False):
         ActivationPolicy(dtype, remat=remat)
     prev = current_policy()
     _tls.policy = pol
-    handle = register_module_forward_pre_hook(_cast_hook)
+    handle = _module.register_module_forward_pre_hook(_cast_hook)
+    _module._global_forward_pre_hooks.move_to_end(handle.id, last=False)
     try:
         if pol.dtype is not None:
             with auto_cast():

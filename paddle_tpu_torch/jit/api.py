@@ -374,6 +374,29 @@ class StaticFunction:
         with span(self._span_name):
             return self._call(args, kwargs)
 
+    def traced_program(self, *args, **kwargs):
+        """One eager, uncaptured call of the step walked by the roofline
+        profiler (:func:`paddle_tpu_torch.observability.profile.
+        trace_call`; the reference traces its program instead): returns
+        the call's :class:`~paddle_tpu_torch.observability.profile.
+        CostTrace`. Every registered state tensor (weights, moments, the
+        lr, the RNG key), its ``.grad`` and torch's random state are put
+        back after it; no fault hook, span or counter fires in it."""
+        from paddle_tpu_torch.observability import profile
+        leaves = []
+        _flatten((args, kwargs), leaves)
+        device = next((x.device for x in leaves
+                       if isinstance(x, torch.Tensor) and x.is_cuda), None)
+        if device is None:
+            device = next((t.device for t in state_tensors() if t.is_cuda),
+                          torch.device("cpu"))
+        snap = _StateSnapshot(device)
+        try:
+            with _silenced():
+                return profile.trace_call(lambda: self._eager(args, kwargs))
+        finally:
+            snap.restore()
+
     def _call(self, args, kwargs):
         leaves = []
         struct = _flatten((args, kwargs), leaves)

@@ -25,6 +25,7 @@ from paddle_tpu_torch.distributed.recompute import recompute
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import Dropout, Embedding, LayerNorm
 from paddle_tpu_torch.nn.layer.common import normal_parameter
+from paddle_tpu_torch.observability.profile import layer_scope, scope_name
 
 __all__ = ["GPTAttention", "GPTConfig", "GPTDecoderLayer", "GPTEmbeddings",
            "GPTForCausalLM", "GPTMLP", "GPTModel", "GPTPretrainingCriterion",
@@ -177,10 +178,13 @@ class GPTDecoderLayer(nn.Module):
     def forward(self, x, kv_ctx=None):
         if self._fused_ln:
             # the attention residual add and ln2 in one kernel, which
-            # returns both the new stream and ln2's output
+            # returns both the new stream and ln2's output, under ln2's
+            # scope name (the profiler's rows keep their pre-fusion names)
             a = self.dropout(self.attn(self.ln1(x), kv_ctx=kv_ctx))
-            x, h2 = F.fused_ln_residual(a, x, self.ln2.weight, self.ln2.bias,
-                                        self.ln2._epsilon, fused=True)
+            with layer_scope(scope_name(self.ln2, self)):
+                x, h2 = F.fused_ln_residual(a, x, self.ln2.weight,
+                                            self.ln2.bias, self.ln2._epsilon,
+                                            fused=True)
             return x + self.dropout(self.mlp(h2))
         x = x + self.dropout(self.attn(self.ln1(x), kv_ctx=kv_ctx))
         return x + self.dropout(self.mlp(self.ln2(x)))

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.nn.functional.common import _keep, _scalar
+from paddle_tpu_torch.observability.profile import op_scope
 from paddle_tpu_torch.ops.cuda.block_sparse_attention import (
     block_sparse_flash_attention, prepare_block_mask)
 from paddle_tpu_torch.ops.cuda import flash_attention as _flash
@@ -86,10 +87,12 @@ def _sdpa_ref(query, key, value, attn_mask, is_causal, scale,
     narrow = query.dtype in (torch.bfloat16, torch.float16)
     s = 1.0 / math.sqrt(query.shape[-1]) if scale is None else scale
     q, k, v = (t.transpose(1, 2) for t in (query, key, value))  # [b,h,s,d]
-    if narrow:
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * s
-    else:
-        logits = torch.matmul(q, k.transpose(-1, -2)) * s
+    with op_scope(_flash.SCORES_SCOPE):
+        if narrow:
+            logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        else:
+            logits = torch.matmul(q, k.transpose(-1, -2))
+    logits = logits * s
     if is_causal:
         ql, kl = logits.shape[-2], logits.shape[-1]
         keep = torch.ones(ql, kl, dtype=torch.bool,
@@ -104,10 +107,11 @@ def _sdpa_ref(query, key, value, attn_mask, is_causal, scale,
         keep = _keep(tuple(probs.shape), 1.0 - dropout_p, probs.dtype,
                      probs.device)
         probs = probs * keep / _scalar(1.0 - dropout_p, probs)
-    if narrow:
-        out = torch.matmul(probs.float(), v.float()).to(query.dtype)
-    else:
-        out = torch.matmul(probs, v)
+    with op_scope(_flash.VALUES_SCOPE):
+        if narrow:
+            out = torch.matmul(probs.float(), v.float()).to(query.dtype)
+        else:
+            out = torch.matmul(probs, v)
     return out.transpose(1, 2)
 
 

@@ -14,10 +14,12 @@
   endpoint, :func:`export.serve_prometheus`), and Chrome-trace
   exporters, in the reference's formats;
 - :mod:`fleettrace`: per-process telemetry spools, their merge into
-  one Chrome trace and per-request timelines, and the flight recorder.
+  one Chrome trace and per-request timelines, and the flight recorder;
+- :mod:`profile`: the roofline profiler: layer scopes threaded through
+  every module call, and one eager call of a program walked into
+  per-layer flops and bytes against the card's roofline.
 
-Not ported yet: the roofline profiler (``profile.py``, ROADMAP A.3) and
-the spools' cross-process clock handshake (ROADMAP A.4).
+Not ported yet: the spools' cross-process clock handshake (ROADMAP A.4).
 
 Quickstart::
 
@@ -30,7 +32,7 @@ Quickstart::
     obs.registry().snapshot()          # every counter/gauge/histogram
     obs.export.dump_jsonl("obs.jsonl")
 """
-from paddle_tpu_torch.observability import export, fleettrace
+from paddle_tpu_torch.observability import export, fleettrace, profile
 from paddle_tpu_torch.observability.metrics import (Counter, Gauge, Histogram,
                                                     MetricsRegistry,
                                                     next_instance_label,
@@ -63,6 +65,7 @@ __all__ = [
     "next_instance_label",
     "note_aot_compile",
     "note_jit_compile",
+    "profile",
     "recompile_log",
     "recorder",
     "registry",

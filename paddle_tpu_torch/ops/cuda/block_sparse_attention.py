@@ -36,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-from paddle_tpu_torch.ops.cuda import launch
+from paddle_tpu_torch.ops.cuda import cost, launch
 
 __all__ = ["BLOCK_SIZES", "HEAD_DIMS", "LAUNCHES", "block_mask_tables",
            "block_sparse_attention", "block_sparse_flash_attention",
@@ -351,6 +351,7 @@ def _scale_of(q, scale):
 
 
 # ------------------------------------------------------------ wrappers
+@launch.booked(cost.bsa_fwd)
 def bsa_fwd(q, k, v, tables, scale=None):
     """Block-sparse attention forward over the pattern ``tables`` (from
     :func:`prepare_block_mask`): ``(o, lse)`` with o ``[b, h, sq, d]`` in

@@ -50,7 +50,7 @@ import math
 
 import torch
 
-from paddle_tpu_torch.ops.cuda import launch
+from paddle_tpu_torch.ops.cuda import cost, launch
 
 __all__ = ["BWD_STEP", "BWD_TILE", "FWD_TILE", "HEAD_DIM", "LAUNCHES", "ROUTED",
            "TMA_BOX", "dkv_query_start", "dkv_tile_order", "dq_key_tiles",
@@ -70,6 +70,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
+# the profiler scopes of the two contractions, the names the reference's
+# jnp.einsum gives them
+SCORES_SCOPE = "bqhd,bkhd->bhqk"
+VALUES_SCOPE = "bhqk,bkhd->bqhd"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,8 +90,10 @@ _SIGNATURES = {
 # ------------------------------------------------------ plain versions
 def _scores(q, k, causal, scale):
     """log2-domain scores ``[b, h, sq, sk]`` in f32, masked to -1e30."""
-    s = torch.matmul(q.float().transpose(1, 2),
-                     k.float().permute(0, 2, 3, 1)) * (scale * _LOG2E)
+    with launch.op_scope(SCORES_SCOPE):
+        s = torch.matmul(q.float().transpose(1, 2),
+                         k.float().permute(0, 2, 3, 1))
+    s = s * (scale * _LOG2E)
     if causal:
         sq, sk = s.shape[-2:]
         rows = torch.arange(sq, device=s.device)[:, None]
@@ -104,7 +110,9 @@ def _flash_fwd_ref(q, k, v, causal, scale):
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    o = torch.matmul(p.to(v.dtype).float(), v.float().transpose(1, 2)) / l_safe
+    with launch.op_scope(VALUES_SCOPE):
+        o = torch.matmul(p.to(v.dtype).float(), v.float().transpose(1, 2))
+    o = o / l_safe
     lse = (m * _LN2 + torch.log(l_safe)).reshape(b * h, sq)
     return o.transpose(1, 2).to(q.dtype).contiguous(), lse
 
@@ -280,6 +288,7 @@ def _lib():
 
 
 # ------------------------------------------------------------ wrappers
+@launch.booked(cost.flash_fwd)
 def flash_fwd(q, k, v, causal=False, scale=None):
     """Attention forward: ``(o, lse)`` with o ``[b, sq, h, d]`` in q's
     type and lse f32 ``[b * h, sq]`` (natural log)."""
@@ -327,6 +336,7 @@ def _scale_of(q, scale):
     return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
 
 
+@launch.booked(cost.flash_bwd_dq)
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, scale=None):
     """dq given ``lse`` and ``delta`` (f32 ``[b * h, sq]``; ``delta =
     rowsum(do * o)``, or ``delta - dlse`` when lse has a cotangent too),
@@ -344,6 +354,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, scale=None):
     return dq
 
 
+@launch.booked(cost.flash_bwd_dkv)
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
     """``(dk, dv)`` given ``lse`` and ``delta``, in k's and v's type."""
     scale = _scale_of(q, scale)

@@ -9,21 +9,56 @@ a CUDA graph replays its kernels without the host, so the region it
 captured is counted by :func:`captured_counts`, which takes the region's
 increases back out of the counts and keeps them, and each replay adds
 them once with :func:`add_replay_counts`.
+
+:func:`booked` puts a wrapper's launch in the roofline profiler's books
+(:mod:`paddle_tpu_torch.observability.profile`) while one walks a call:
+one row at the call boundary, costed by :mod:`.cost`, whether the call
+launches the kernel or computes its plain version, and nothing for the
+plain version's own operations. :func:`op_scope` names a contraction of
+a plain version for that walk. The profiler sets :data:`WALK`; this
+layer never imports it.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 
 import torch
 
 from paddle_tpu_torch.ops.cuda import build
 
-__all__ = ["add_replay_counts", "bind", "captured_counts", "counts", "ptr",
-           "raise_on", "route", "stream"]
+__all__ = ["add_replay_counts", "bind", "booked", "captured_counts",
+           "counts", "op_scope", "ptr", "raise_on", "route", "stream"]
 
 _bound = {}           # C function name -> the library it was declared on
 _counts = []          # every dict declared with counts()
+# the profiler's walk in progress, or None: what booked() books into
+WALK = [None]
+
+
+def booked(cost):
+    """Decorator of a kernel wrapper: while a profiler walk is active,
+    the call is booked as the launches ``cost(*args, **kwargs)`` returns
+    (:class:`~paddle_tpu_torch.ops.cuda.cost.KernelCost` s), and the
+    operations inside it are not."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            walk = WALK[0]
+            if walk is None:
+                return fn(*args, **kwargs)
+            with walk.kernel(cost(*args, **kwargs)):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def op_scope(name):
+    """The profiler's op scope ``name`` (the name the reference's einsum
+    gives a contraction) while a walk is active, else nothing."""
+    walk = WALK[0]
+    return contextlib.nullcontext() if walk is None else walk.op_scope(name)
 
 
 def counts(names):

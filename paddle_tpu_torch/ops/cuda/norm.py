@@ -37,7 +37,7 @@ import functools
 
 import torch
 
-from paddle_tpu_torch.ops.cuda import launch
+from paddle_tpu_torch.ops.cuda import cost, launch
 
 __all__ = ["LAUNCHES", "MAX_HIDDEN", "MAX_RMS_HIDDEN", "ROUTED", "ln_bwd",
            "ln_bwd_split", "ln_fwd", "ln_fwd_split", "ln_kernel_takes",
@@ -295,6 +295,7 @@ def _route_rms(*tensors):
 
 
 # ----------------------------------------------------------- launchers
+@launch.booked(cost.ln_fwd)
 def _ln_fwd_launch(x, weight, bias, eps):
     if _route(x, weight, bias) == "cpu":
         return _ln_fwd_ref(x, weight, bias, eps)
@@ -317,6 +318,7 @@ def _ln_fwd_launch(x, weight, bias, eps):
     return y
 
 
+@launch.booked(cost.ln_res_fwd)
 def _ln_res_fwd_launch(x, residual, weight, bias, eps, act):
     if _route(x, residual, weight, bias) == "cpu":
         return _ln_res_fwd_ref(x, residual, weight, bias, eps, act)
@@ -347,6 +349,7 @@ def _ln_res_fwd_launch(x, residual, weight, bias, eps, act):
     return h, y
 
 
+@launch.booked(cost.rms_fwd)
 def _rms_fwd_launch(x, weight, eps):
     if _route_rms(x, weight) == "cpu":
         return _rms_fwd_ref(x, weight, eps)
@@ -366,6 +369,7 @@ def _rms_fwd_launch(x, weight, eps):
     return y
 
 
+@launch.booked(cost.ln_bwd)
 def ln_bwd(h, gy, weight, bias=None, eps=1e-5, act=None, gh=None):
     """LayerNorm backward from the saved pre-norm rows ``h`` and the
     cotangent ``gy`` of its output (``act`` as in the forward); ``gh``,

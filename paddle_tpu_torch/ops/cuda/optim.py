@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from paddle_tpu_torch.ops.cuda import launch
+from paddle_tpu_torch.ops.cuda import cost, launch
 
 __all__ = ["LAUNCHES", "fused_adam_update", "supports_fused"]
 
@@ -197,6 +197,7 @@ def _update(p, g, m, v, sc, layout, beta1, beta2, eps, weight_decay,
 
 
 # ------------------------------------------------------------- wrapper
+@launch.booked(cost.adam)
 def fused_adam_update(p, g, m, v, sc, *, beta1, beta2, eps,
                       weight_decay=0.0, guard=False):
     """One AdamW step of the rank-2 parameter ``p``, in place in p, m

@@ -27,7 +27,7 @@ import math
 import torch
 
 from paddle_tpu_torch.framework import random as threefry
-from paddle_tpu_torch.ops.cuda import launch
+from paddle_tpu_torch.ops.cuda import cost, launch
 
 __all__ = ["LAUNCHES", "keep_mask"]
 
@@ -50,6 +50,7 @@ def _keep_mask_ref(key, keep_prob, shape, dtype):
     return keep.to(dtype), torch.stack(sub)
 
 
+@launch.booked(cost.keep_mask)
 def keep_mask(key, keep_prob, shape, dtype=torch.bool):
     """One draw from ``key`` (the ``[2]`` int64 words of a threefry key,
     advanced in place to ``split(key)[0]``): ``(keep, sub)``, ``keep``

@@ -27,8 +27,8 @@ float or an :class:`~paddle_tpu_torch.regularizer.L2Decay` adds
 ``coeff * p``, an :class:`~paddle_tpu_torch.regularizer.L1Decay`
 ``coeff * sign(p)``), and the update at ``lr`` times the parameter's
 ``optimize_attr["learning_rate"]`` (1 without one). The update runs in
-an ``optimizer.step`` span (``cls=`` the optimizer's class), as the
-reference's; its ``layer_scope`` waits for the port's roofline profiler.
+an ``optimizer.step`` span (``cls=`` the optimizer's class) and the
+roofline profiler's ``optimizer.step`` scope, as the reference's.
 
 Everything a step changes lives in tensors that it changes in place and
 that register with :mod:`paddle_tpu_torch.framework.state`: the
@@ -46,6 +46,7 @@ import torch
 
 from paddle_tpu_torch.framework.state import register_state_tensor
 from paddle_tpu_torch.observability import span
+from paddle_tpu_torch.observability.profile import layer_scope
 from paddle_tpu_torch.ops.cuda.optim import supports_fused
 from paddle_tpu_torch.resilience import faultinject
 
@@ -170,8 +171,10 @@ class Optimizer:
             self._inject_grad_fault(spec)
         # under to_static this span fires as the reference's trace-time
         # span does (jit/api.py); eagerly it times every update pass's
-        # launches
-        with span("optimizer.step", cls=type(self).__name__):
+        # launches. The scope books the update's work under
+        # "optimizer.step" in the profiler's attribution
+        with span("optimizer.step", cls=type(self).__name__), \
+                layer_scope("optimizer.step"):
             pg = self._params_grads()
             if self._grad_clip is not None:
                 pg = self._grad_clip(pg)

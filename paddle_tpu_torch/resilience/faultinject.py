@@ -24,6 +24,9 @@ site                   where / kinds
                        ``exception``
 ``io.manifest``        checkpoint manifest rewrites (same writer, its own
                        occurrence counter)
+``serving.traffic.``   the traffic driver's every tick
+``tick``               (``serving/traffic/driver.py``): ``qps_surge``
+                       injects ``payload["requests"]`` extra arrivals
 =====================  ====================================================
 
 Under ``to_static`` the hooks fire as the reference's trace-time hooks
@@ -114,6 +117,10 @@ class FaultSpec:
     def matches(self, occurrence):
         return self.at <= occurrence < self.at + self.times
 
+    def to_dict(self):
+        return {"site": self.site, "kind": self.kind, "at": self.at,
+                "times": self.times, "payload": dict(self.payload)}
+
     @classmethod
     def from_dict(cls, d):
         return cls(d["site"], d["kind"], d.get("at", 0),
@@ -136,6 +143,17 @@ class FaultPlan:
 
     def faults_for(self, site):
         return [f for f in self.faults if f.site == site]
+
+    def to_dict(self):
+        """The plan as data (the reference's schema): what a traffic
+        spec's ``fault_plan`` holds."""
+        return {"name": self.name, "seed": self.seed,
+                "faults": [f.to_dict() for f in self.faults]}
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(d.get("faults", ()), d.get("seed", 0),
+                   d.get("name", "fault-plan"))
 
     def __repr__(self):
         return (f"FaultPlan({self.name!r}, seed={self.seed}, "

@@ -49,6 +49,25 @@ anyway (it writes position ``lens[s]`` of each row, which advances only
 after it, and a quantized append that repeats sees the grown scale and
 re-grids by exactly 1.0).
 
+Router hooks, as the reference's: :meth:`LLMEngine.adopt_request` takes a
+request that generated tokens on another engine at the queue front, in
+the evicted-replay posture, and :meth:`LLMEngine.release_waiting` hands
+every still-queued request back to its caller (the router's drain).
+
+AOT program cache (``program_cache=``, :mod:`.aot_cache`): a CUDA graph
+cannot be written to disk, so a cold build stores what it learned (the
+program's input and output signature and a digest of its output on the
+zero example) and a later engine's warm build reads it: the output
+buffers come from the record, so it skips the cold build's two eager
+warm-up calls when the same program has already run eagerly in this
+process (every engine of the process captures on one shared capture
+stream), and one of them otherwise (a fresh process: the program's lazy
+set-up, its kernels' loading, happens in that call, not in the capture);
+then it captures, replays once and holds the replay against the digest
+(a mismatch drops the entry and builds cold). ``warmup()``'s
+``compiled`` counts cold builds and ``cache_loads`` warm ones; both stay
+under ``compile_bound``.
+
 Observability, as the reference's: the engine's instruments live in the
 process-wide registry under ``{"engine": metrics_name}``, its
 ``metrics.snapshot()`` is registered there as a source (weakly; removed
@@ -60,12 +79,13 @@ preemptions, program builds, and (for a request added under a
 span reads host clocks only: a decode step keeps its one wait, the
 sampler's tokens.
 
-Not ported yet: tensor-parallel meshes, the AOT program cache, the
-router, fleet and traffic hooks and their spans (ROADMAP A.4).
+Not ported yet: tensor-parallel meshes, and the fleet's page hand-off
+(``export_page_state`` / ``import_page_state``, ROADMAP A.4).
 """
 from __future__ import annotations
 
 import math
+import os
 import time
 import weakref
 from collections import OrderedDict
@@ -86,6 +106,9 @@ from paddle_tpu_torch.resilience.faultinject import fire as _fire
 from paddle_tpu_torch.resilience.faultinject import note_recovery
 from paddle_tpu_torch.resilience.health import HealthMonitor
 from paddle_tpu_torch.resilience.sentinel import note_anomaly
+from paddle_tpu_torch.serving.aot_cache import (AOTProgramCache,
+                                                engine_fingerprint,
+                                                output_digest, signature)
 from paddle_tpu_torch.serving.metrics import EngineMetrics
 from paddle_tpu_torch.serving.request import (GenerationResult, Request,
                                               RequestState, SamplingParams)
@@ -97,6 +120,18 @@ __all__ = ["AdmissionRejected", "EngineConfig", "LLMEngine",
            "PagedKVContext"]
 
 _NARROW = (torch.bfloat16, torch.float16)
+# one capture stream a device, shared by the process's engines (cuBLAS's
+# workspace is the stream's), and (device, engine fingerprint, program)
+# of every program that has run eagerly on it: a warm build of one of
+# those captures without a warm-up call
+_CAPTURE_STREAMS = {}
+_WARMED_PROGRAMS = set()
+
+
+def _capture_stream(device):
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
 
 
 class EngineConfig:
@@ -273,15 +308,29 @@ class _Graph:
     (a tensor, or a tuple of them) into output buffers allocated outside
     the pool, so no tensor of the pool outlives a replay: the engine's
     graphs share one pool and replay in any order.
+
+    ``outputs`` (``(signature, single)`` from an AOT cache record) makes
+    it a warm build: ``warmups`` eager calls (0 or 1), the output buffers
+    made from the signature.
     """
 
-    def __init__(self, fn, example, pool, stream):
+    def __init__(self, fn, example, pool, stream, outputs=None, warmups=0):
         inputs = cuda_graph.StaticInputs(example, stream.device)
-        out = cuda_graph.warm_up(fn, inputs.buffers, stream)
-        single = isinstance(out, torch.Tensor)
-        bufs = tuple(torch.empty_like(o) for o in ((out,) if single
-                                                   else out))
-        del out
+        if outputs is None:
+            out = cuda_graph.warm_up(fn, inputs.buffers, stream)
+            single = isinstance(out, torch.Tensor)
+            bufs = tuple(torch.empty_like(o) for o in ((out,) if single
+                                                       else out))
+            del out
+        else:
+            sig, single = outputs
+            if warmups:
+                cuda_graph.warm_up(fn, inputs.buffers, stream, calls=warmups)
+            bufs = tuple(torch.empty(shape, dtype=getattr(
+                torch, dtype.rsplit(".", 1)[-1]), device=stream.device)
+                for shape, dtype in sig)
+        self.warmups = cuda_graph.WARMUP_CALLS if outputs is None else warmups
+        self.single = single
 
         def captured(*a):
             res = fn(*a)
@@ -299,6 +348,10 @@ class _Graph:
         overwrites."""
         self._graph(args)
         return self.out
+
+    def outputs(self):
+        """The output buffers as a tuple."""
+        return (self.out,) if self.single else self.out
 
     def release(self):
         self._graph.release()
@@ -321,17 +374,17 @@ class LLMEngine:
     timebase: arrival stamps, deadlines and latency histograms.
     ``metrics_name`` labels its registry instruments and names its
     metrics source (default ``serving.engine<n>``, unique in the
-    process).
+    process). ``program_cache`` (an :class:`~.aot_cache.AOTProgramCache`
+    or a directory) keeps the records of cold builds for warm ones.
 
-    Public surface: :meth:`add_request`, :meth:`step`, :meth:`generate`,
-    :meth:`warmup`, :attr:`metrics`, :meth:`shutdown`.
+    Public surface: :meth:`add_request`, :meth:`adopt_request`,
+    :meth:`release_waiting`, :meth:`step`, :meth:`generate`,
+    :meth:`warmup`, :meth:`audit_programs`, :attr:`metrics`,
+    :meth:`shutdown`.
     """
 
     def __init__(self, model, config=None, device=None, program_cache=None,
                  metrics_name=None, clock=None):
-        if program_cache is not None:
-            raise NotImplementedError(
-                "LLMEngine(program_cache=...) is not ported yet")
         self.config = config or EngineConfig()
         cfg = self.config
         self.device = resolve_device(device)
@@ -386,7 +439,13 @@ class LLMEngine:
         self.metrics.pages_total = cfg.num_pages - 1   # page 0 reserved
         self._programs = {}          # key -> built program (_compile)
         self._graph_pool = None      # CUDA: the graphs' shared memory pool
-        self._capture_stream = None
+        if isinstance(program_cache, (str, os.PathLike)):
+            program_cache = AOTProgramCache(program_cache)
+        self._program_cache = program_cache
+        self._program_fp = None
+        if program_cache is not None:
+            self._program_fp = engine_fingerprint(
+                mc, cfg, dict(model.state_dict()), self.device)
         self.health = HealthMonitor(
             degraded_at=cfg.health_degraded_at,
             drain_at=cfg.health_drain_at,
@@ -413,6 +472,11 @@ class LLMEngine:
 
         self._snapshot_fn = _snapshot
         registry().register_source(name, _snapshot)
+
+    @property
+    def program_fingerprint(self):
+        """The AOT-cache fingerprint (None without a cache)."""
+        return self._program_fp
 
     # ------------------------------------------------------------ API
     def _resolve_params(self, sampling_params):
@@ -483,9 +547,97 @@ class LLMEngine:
         self.metrics.requests_received += 1
         return rid
 
+    def adopt_request(self, prompt_token_ids, sampling_params=None,
+                      generated_token_ids=(), stream=None, streamed=None,
+                      arrive_t=None, arrival_index=None):
+        """Router failover hook: enqueue a request that already generated
+        tokens on ANOTHER engine. It enters at the queue front in the
+        evicted-replay posture: ``generated_token_ids`` ride along in its
+        replay tokens, the replay prefill rebuilds its KV cache, and the
+        (seed, position) sampler draws its continuation.
+
+        ``streamed`` is how many tokens the origin already delivered to
+        the stream (default: all of ``generated_token_ids``), so none is
+        streamed twice; ``arrive_t`` the original arrival time (this
+        engine's clock), so a deadline keeps counting from the first
+        arrival; ``arrival_index`` the caller's age order, so the
+        fleet's oldest request does not become this engine's preferred
+        preemption victim. Raises :class:`AdmissionRejected` while this
+        engine drains, and ValueError when the request could never be
+        served here; either way the request stays with the caller."""
+        sp = self._resolve_params(sampling_params)
+        prompt = [int(t) for t in prompt_token_ids]
+        generated = [int(t) for t in generated_token_ids]
+        self._validate_request(prompt, sp)
+        if len(generated) >= sp.max_new_tokens:
+            raise ValueError(
+                f"request already finished ({len(generated)} of "
+                f"{sp.max_new_tokens} tokens) — nothing to adopt")
+        if not self.health.admitting:
+            self.metrics.requests_rejected += 1
+            raise AdmissionRejected(
+                "draining",
+                f"page-pool pressure {self.health.last_pressure:.2f}")
+        rid = f"req-{self._next_id}"
+        req = Request(rid, prompt, sp,
+                      arrival_index=(self._next_id if arrival_index is None
+                                     else int(arrival_index)),
+                      stream=stream)
+        req.output_token_ids = generated
+        req._streamed = len(generated) if streamed is None \
+            else min(int(streamed), len(generated))
+        # adopted == evicted elsewhere: the admission and its TTFT were
+        # the origin's events, not this engine's
+        req.num_evictions = 1
+        req.trace = current_context()
+        req.arrive_t = (self.metrics.clock() if arrive_t is None
+                        else float(arrive_t))
+        req._resume_t = self.metrics.clock()
+        if sp.deadline_s is not None:
+            req.deadline_t = req.arrive_t + sp.deadline_s
+        self.scheduler.requeue_front(req)
+        self._next_id += 1
+        self._requests[rid] = req
+        self.metrics.requests_adopted += 1
+        with span("serving.adopt", ctx=req.trace, request=rid,
+                  generated=len(generated)):
+            pass
+        return rid
+
+    def release_waiting(self):
+        """Router drain hook: withdraw every still-queued request (fresh,
+        or evicted and requeued: none holds a slot or pages) and hand
+        the Request objects to the caller, which now owns them. Running
+        requests finish here: their pages are here."""
+        reqs = self.scheduler.drain_waiting()
+        for r in reqs:
+            self._requests.pop(r.request_id, None)
+        if reqs:
+            with span("serving.release_waiting", count=len(reqs)):
+                pass
+        return reqs
+
     def has_unfinished(self):
         return (self.scheduler.has_waiting()
                 or any(r is not None for r in self._slots))
+
+    # live admission telemetry: the signals the scrape gauges export,
+    # read at the source so a router balancing a burst of admissions
+    # between steps sees each one land
+    @property
+    def queue_depth(self):
+        return self.scheduler.queue_depth
+
+    @property
+    def num_running(self):
+        return sum(1 for r in self._slots if r is not None)
+
+    @property
+    def page_occupancy(self):
+        total = self.config.num_pages - 1      # page 0 reserved
+        if not total:
+            return 0.0
+        return (total - self._alloc.num_free_pages) / total
 
     def step(self):
         """One engine iteration: admit + prefill new requests at the
@@ -588,7 +740,7 @@ class LLMEngine:
             if isinstance(prog, _Graph):
                 prog.release()
         self._programs.clear()
-        self._graph_pool = self._capture_stream = None
+        self._graph_pool = None
         self._k_pools = []
         self._v_pools = []
 
@@ -665,6 +817,7 @@ class LLMEngine:
             self.metrics.ttft_queue.observe(max(0.0, t0 - req.arrive_t))
             self.metrics.ttft_prefill.observe(max(0.0, now - t0))
         req.append_token(tok, now=now)
+        self._observe_resume(req, now)
         self.metrics.generated_tokens += 1
         self._post_token(req, events, now)
         if not req.is_finished:
@@ -754,6 +907,7 @@ class LLMEngine:
             if r.last_token_t is not None:
                 self.metrics.inter_token.observe(now - r.last_token_t)
             r.append_token(toks[s], now=now)
+            self._observe_resume(r, now)
             self.metrics.generated_tokens += 1
             self._post_token(r, events, now)
 
@@ -853,6 +1007,13 @@ class LLMEngine:
         return out.tolist()         # the step's one host read
 
     # ------------------------------------------------- finish / evict
+    def _observe_resume(self, req, now):
+        """The first token after an adoption on THIS engine closes the
+        ttft_decode stage (the resume latency of migrated work)."""
+        if req._resume_t is not None:
+            self.metrics.ttft_decode.observe(max(0.0, now - req._resume_t))
+            req._resume_t = None
+
     def _post_token(self, req, events, now):
         reason = req.should_stop()
         if reason is not None:
@@ -921,13 +1082,14 @@ class LLMEngine:
     def _zeros(self, *shape, dtype=torch.int64):
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
-    def _prefill_program(self, bucket):
+    def _prefill_program(self, bucket, pools=None):
         """(fn, example inputs) of the prefill program at ``bucket``:
         ``fn(row_table [1, P], ids [1, bucket], pos_ids [1, bucket],
         length [1])`` -> the last real token's logits ``[1, V]`` f32; the
-        prompt's K/V go into the engine's pools in place."""
+        prompt's K/V go into ``pools`` (``(k_pools, v_pools)``, default
+        the engine's) in place."""
         cfg = self.config
-        k_pools, v_pools = self._k_pools, self._v_pools
+        k_pools, v_pools = pools or (self._k_pools, self._v_pools)
 
         def prefill(row_table, ids, pos_ids, length):
             ctx = PagedKVContext(k_pools, v_pools, row_table, length,
@@ -1006,6 +1168,24 @@ class LLMEngine:
             self._zeros(width, dtype=torch.int32),
             torch.ones(width, dtype=torch.float32, device=self.device))
 
+    def audit_programs(self):
+        """{name: (fn, example inputs)} of every program the engine builds
+        (``prefill_<bucket>``, ``decode``, ``sample_1``,
+        ``sample_<max_num_seqs>``), from the same builders, over copies
+        of the pools: calling one writes none of the engine's state."""
+        def copy(pool):
+            return tuple(t.clone() for t in pool) \
+                if isinstance(pool, tuple) else pool.clone()
+        pools = ([copy(p) for p in self._k_pools],
+                 [copy(p) for p in self._v_pools])
+        progs = {}
+        for b in self.config.prefill_buckets:
+            progs[f"prefill_{b}"] = self._prefill_program(b, pools)
+        progs["decode"] = self._decode_program(pools)
+        for width in (1, self.config.max_num_seqs):
+            progs[f"sample_{width}"] = self._sampler_program(width)
+        return progs
+
     def _get_prefill(self, bucket):
         key = ("prefill", bucket)
         if key in self._programs:
@@ -1026,22 +1206,31 @@ class LLMEngine:
 
     def _compile(self, key, fn, example):
         """Build, count and keep one program: every program the engine
-        runs passes through here, so ``metrics.compile_count`` is exact.
+        runs passes through here, so ``metrics.compile_count`` (cold
+        builds) and ``metrics.aot_cache_loads`` (warm ones) are exact.
         On CUDA the program is ``fn`` captured as a :class:`_Graph` (a
-        failed capture raises); on the CPU it is ``fn`` itself. The build
-        is a ``serving-aot`` event of the recompile log, recorded before
-        ``note_compile`` can raise past the bound, so an over-bound build
-        is the log's last event; that program is then released, not
-        kept."""
+        failed capture raises); on the CPU it is ``fn`` itself. A cold
+        build is a ``serving-aot`` event of the recompile log, recorded
+        before ``note_compile`` can raise past the bound, so an
+        over-bound build is the log's last event; that program is then
+        released, not kept. With a program cache a record of this
+        program is tried first (:meth:`_load`), and a cold build stores
+        one."""
         prog_name = "/".join(str(p) for p in key)
+        cache = self._program_cache
+        if cache is not None:
+            record = cache.load(self._program_fp, prog_name)
+            if record is not None:
+                prog = self._load(key, prog_name, fn, example, record)
+                if prog is not None:
+                    return prog
         t0 = time.perf_counter()
         with span("serving.compile", program=str(key)):
             if self.device.type == "cuda":
-                if self._graph_pool is None:
-                    self._graph_pool = torch.cuda.graph_pool_handle()
-                    self._capture_stream = torch.cuda.Stream(self.device)
-                fn = _Graph(fn, example, self._graph_pool,
-                            self._capture_stream)
+                fn = _Graph(fn, example, self._pool(),
+                            _capture_stream(self.device))
+                _WARMED_PROGRAMS.add((self.device, self._program_fp,
+                                      prog_name))
         note_aot_compile(
             prog_name,
             compile_ms=round((time.perf_counter() - t0) * 1e3, 3),
@@ -1054,7 +1243,62 @@ class LLMEngine:
                 fn.release()
             raise
         self._programs[key] = fn
+        if cache is not None:
+            self._store(prog_name, fn, example)
         return fn
+
+    def _pool(self):
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
+    def _store(self, prog_name, prog, example):
+        """Record what the cold build of ``prog_name`` learned: its
+        signatures and its output on the zero example (the graph's boot
+        replay on CUDA; one call on copies of the example on the CPU)."""
+        if isinstance(prog, _Graph):
+            outs, single = prog.outputs(), prog.single
+        else:
+            out = prog(*[a.clone() for a in example])
+            single = isinstance(out, torch.Tensor)
+            outs = (out,) if single else tuple(out)
+        self._program_cache.store(self._program_fp, prog_name, {
+            "program": prog_name, "inputs": signature(example),
+            "outputs": signature(outs), "single": single,
+            "digest": output_digest(outs)})
+
+    def _load(self, key, prog_name, fn, example, record):
+        """A warm build from ``record``, or None when the record does not
+        fit (the entry is dropped and the caller builds cold): on the CPU
+        the function itself once its input signature matches; on CUDA a
+        :class:`_Graph` whose boot replay reproduces the recorded digest,
+        captured after one warm-up call when the program has not run
+        eagerly in this process yet, else after none."""
+        cache = self._program_cache
+        if record.get("inputs") != signature(example):
+            cache.drop(self._program_fp, prog_name, why="signature")
+            return None
+        t0 = time.perf_counter()
+        with span("serving.aot_load", program=str(key),
+                  fingerprint=self._program_fp) as sp:
+            if self.device.type == "cuda":
+                warmed = (self.device, self._program_fp, prog_name)
+                prog = _Graph(fn, example, self._pool(),
+                              _capture_stream(self.device),
+                              outputs=(record["outputs"], record["single"]),
+                              warmups=0 if warmed in _WARMED_PROGRAMS else 1)
+                _WARMED_PROGRAMS.add(warmed)
+                if output_digest(prog.outputs()) != record["digest"]:
+                    prog.release()
+                    cache.drop(self._program_fp, prog_name, why="digest")
+                    sp.attrs["result"] = "digest mismatch"
+                    return None
+            else:
+                prog = fn
+            sp.attrs["load_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        self.metrics.note_aot_load()
+        self._programs[key] = prog
+        return prog
 
 
 def _tensors(*arrays):

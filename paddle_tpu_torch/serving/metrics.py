@@ -8,11 +8,12 @@ Prometheus name (``serving_ttft_seconds{engine=...}``), and
 ``note_compile`` bumps the registry's ``serving_compile_total`` counter,
 so the registry's report and the Prometheus exporter see the engine's
 compile count, TTFT and inter-token latency directly. A compile is one
-program the engine builds: a captured CUDA graph on CUDA, the plain
-function on the CPU. The `snapshot()` dict stays the coarse contract
-(`LLMEngine` registers it as a metrics source). The reference's AOT
-cache loads and the adopted requests' TTFT stage come with the AOT
-cache and the router (ROADMAP A.4).
+program the engine builds with a cold build's work: a captured CUDA
+graph on CUDA, the plain function on the CPU; a program built from a
+record of the AOT program cache (``serving/aot_cache.py``) is a load
+(``note_aot_load``, ``serving_aot_load_total``), not a compile. The
+`snapshot()` dict stays the coarse contract (`LLMEngine` registers it as
+a metrics source).
 """
 from __future__ import annotations
 
@@ -88,6 +89,7 @@ class EngineMetrics:
         self.requests_evicted = 0
         self.requests_rejected = 0   # backpressure (queue_full/draining)
         self.requests_expired = 0    # deadline enforcement
+        self.requests_adopted = 0    # router failover migrations in
         self.decode_fault_recoveries = 0
         self.guard_anomalies = 0     # guard-flagged requests
         self.prefill_steps = 0
@@ -96,10 +98,14 @@ class EngineMetrics:
         self.generated_tokens = 0
         self.compile_count = 0
         self.compile_bound = 0
-        self.aot_cache_loads = 0     # no AOT program cache yet: stays 0
+        self.aot_cache_loads = 0     # programs built from a cache record
         self._compile_counter = reg.counter(
             "serving_compile_total", labels=labels,
             help="programs built by the serving engine")
+        self._aot_load_counter = reg.counter(
+            "serving_aot_load_total", labels=labels,
+            help="programs built from the AOT cache's record of a cold "
+                 "build")
         # gauges (engine pushes current values)
         self.queue_depth = 0
         self.running = 0
@@ -123,13 +129,18 @@ class EngineMetrics:
             "serving_ttft_seconds", labels=labels,
             help="time to first token")
         # TTFT stage decomposition (fleettrace): for a fresh request
-        # TTFT = queue + prefill exactly
+        # TTFT = queue + prefill exactly; decode is the resume latency
+        # of adopted work (adoption on THIS engine to the first token it
+        # produces) and is absent otherwise
         self.ttft_queue = reg.histogram(
             "serving_ttft_queue_seconds", labels=labels,
             help="TTFT stage: arrival to prefill start (queue wait)")
         self.ttft_prefill = reg.histogram(
             "serving_ttft_prefill_seconds", labels=labels,
             help="TTFT stage: prefill start to first token")
+        self.ttft_decode = reg.histogram(
+            "serving_ttft_decode_seconds", labels=labels,
+            help="TTFT stage: adoption/import to first resumed token")
         self.inter_token = reg.histogram(
             "serving_inter_token_seconds", labels=labels,
             help="inter-token latency")
@@ -163,6 +174,12 @@ class EngineMetrics:
             self.pages_in_use / self.pages_total if self.pages_total
             else 0.0)
 
+    def note_aot_load(self):
+        """One program built from the AOT cache's record: not a compile,
+        so outside `note_compile` and the recompile log."""
+        self.aot_cache_loads += 1
+        self._aot_load_counter.inc()
+
     def note_compile(self):
         """One program built; raises past ``compile_bound``."""
         self.compile_count += 1
@@ -174,8 +191,7 @@ class EngineMetrics:
                 f"escaped the bucket set")
 
     def snapshot(self):
-        """Plain-dict view of everything (the reference's keys, less the
-        fleet counters)."""
+        """Plain-dict view of everything (the reference's keys)."""
         elapsed = max(self.clock() - self.started_t, 1e-9)
         return {
             "uptime_s": round(elapsed, 3),
@@ -186,6 +202,7 @@ class EngineMetrics:
                 "evicted": self.requests_evicted,
                 "rejected": self.requests_rejected,
                 "expired": self.requests_expired,
+                "adopted": self.requests_adopted,
             },
             "queue_depth": self.queue_depth,
             "running": self.running,

@@ -107,6 +107,9 @@ class Request:
         # distributed-trace identity (observability.TraceContext, the
         # one ambient at add_request) or None
         self.trace = None
+        # set when adopted onto this engine; cleared when the first
+        # resumed token observes the ttft_decode stage histogram
+        self._resume_t = None
         # "stop" | "length" | "deadline" | "anomaly"
         self.finish_reason = None
         # metrics timestamps (host clocks; filled by the engine)

@@ -105,6 +105,14 @@ class Scheduler:
         except ValueError:
             pass
 
+    def drain_waiting(self):
+        """Remove and return EVERY waiting request in queue order (the
+        router's drain hook: still-queued work migrates to another
+        replica instead of waiting out this one's retirement)."""
+        out = list(self._waiting)
+        self._waiting.clear()
+        return out
+
     def pop_expired(self, now):
         """Remove and return every waiting request whose deadline has
         passed (deterministic: queue order preserved for survivors)."""

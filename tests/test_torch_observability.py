@@ -512,7 +512,7 @@ def test_engine_source_scrape_and_release(engines):
     report = obs.registry().report()["obs-scrape"]
     assert report["requests"] == eng.metrics.snapshot()["requests"] == {
         "received": 4, "admitted": 4, "finished": 4, "evicted": 0,
-        "rejected": 0, "expired": 0}
+        "rejected": 0, "expired": 0, "adopted": 0}
     with export.serve_prometheus(port=0) as server:
         assert server.url.startswith("http://127.0.0.1:")
         with urllib.request.urlopen(server.url, timeout=10) as resp:

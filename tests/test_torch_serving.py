@@ -305,7 +305,7 @@ def test_preemption_replays_token_identically(shared_models):
         assert one.output_token_ids == res[i].output_token_ids
 
 
-def test_engine_contract_errors(shared_models, monkeypatch):
+def test_engine_contract_errors(shared_models, monkeypatch, tmp_path):
     port, prompts, _, _ = shared_models
     with pytest.raises(NotImplementedError):
         serving.EngineConfig(mesh={"tp": 2})
@@ -315,9 +315,10 @@ def test_engine_contract_errors(shared_models, monkeypatch):
         serving.EngineConfig(**kw)
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         serving.EngineConfig(kv_cache_dtype="int4")
-    with pytest.raises(NotImplementedError):
-        serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
-                          device="cpu", program_cache="cache")
+    cached = serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
+                               device="cpu", program_cache=str(tmp_path))
+    assert len(cached.program_fingerprint) == 24
+    cached.shutdown()
     named = serving.LLMEngine(port, serving.EngineConfig(**ENGINE_KW),
                               device="cpu", metrics_name="engine-a")
     assert named.metrics.labels == {"engine": "engine-a"}

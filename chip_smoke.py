@@ -231,7 +231,32 @@ Phases, in order (any failure raises and exits non-zero):
    ``torch.profiler`` run grouped by the scopes' ``record_function``
    paths; then ``drift_probe``: where a replayed request first drifts
    from its decoded self, op by op at layer 0, and the logits where
-   their tokens part.
+   their tokens part;
+22. the multi-process serving fleet: in this process, two engines of
+   GPT-1.3B hand phase 4's 8 requests over after their first tokens
+   (``export_page_state`` → ``wire.pack_state`` → a TCPStore on
+   127.0.0.1 → ``import_page_state``), over bf16 pools (phase 4's
+   tokens exactly) and over int8 pools (one int8 engine's tokens
+   exactly), no program built after the warm-ups, the decode graph
+   bit-identical to its uncaptured program over the imported pages, the
+   LayerNorm launches of every forward; then ``FLEET_NODES`` fresh
+   processes through ``python -m paddle_tpu_torch.distributed.launch``
+   run ``paddle_tpu_torch/serving/fleet/worker.py``: rank 0 (the
+   store's host) serves the monolithic run into a shared AOT cache and
+   fronts ranks 1-3 with the stock router, rank 4 a spare; 9 requests
+   (64-900 token prompts, 64 new, odd ones sampled) with ``rank_kill``
+   on rank 2 and ``wedge`` (a real SIGSTOP) on rank 3 mid-decode, then
+   3 prompts (128, 384, 900 tokens) disaggregated between two live
+   replicas; every request finishes, its stream is its tokens once, the
+   unmigrated ones and the disaggregated run equal the monolithic run,
+   a migrated one equals it up to its migration (where it parts is
+   printed), both faults draw DEAD verdicts, the respawn boots warm on
+   rank 4 (0 builds, 10 loads), every live replica built at most 10
+   programs and launched the LayerNorms of every forward, the spools
+   merge onto rank 0's clock and the post-mortems name the dead ranks'
+   requests; the verdict latencies, respawn and boot ms, the handoff's
+   bytes and ms by part, tokens/s, peaks and the wall seconds are
+   printed.
 
 The phases print their seconds as they end.
 
@@ -250,7 +275,9 @@ import contextlib
 import gc
 import json
 import math
+import os
 import random
+import socket
 import statistics
 import subprocess
 import sys
@@ -759,10 +786,25 @@ def check_decode_graph(eng, prompts, sps):
         eng.add_request(p, sp)
     eng.step()                         # admits and prefills all 8
     eng.step()
+    err = decode_graph_vs_program(eng)
+    eng.shutdown()
+    return err
+
+
+def decode_graph_vs_program(eng):
+    """The next decode step of ``eng``'s running requests through its
+    decode graph against one uncaptured call of ``_decode_program()`` on
+    copies of the pools: the pools after bit-identical (and the guard's
+    outputs too), the logits within ``check_close``'s bf16 limit. The
+    step's pages are allocated as ``_decode_step`` would, so serving on
+    after it replays the same step (the same KV rewritten). Returns the
+    max abs error."""
     # the next step's inputs, as LLMEngine._decode_step makes them
     page = eng.config.page_size
     tokens = np.zeros((eng.config.max_num_seqs, 1), np.int64)
     for slot, req in enumerate(eng._slots):
+        if req is None:
+            continue
         need = eng._alloc.pages_needed(int(eng._lens[slot]) + 1, page)
         for pos, pg in eng._alloc.allocate(slot, need):
             eng._tables[slot, pos] = pg
@@ -798,7 +840,6 @@ def check_decode_graph(eng, prompts, sps):
     if eng.config.guard and not same:
         raise AssertionError("guarded decode graph: logits or flags differ "
                              "from the uncaptured program's")
-    eng.shutdown()
     return err
 
 
@@ -4626,6 +4667,360 @@ def phase_router_traffic(bf16_serving):
     return launches
 
 
+# ------------------------------------------------- the serving fleet
+FLEET_NODES = 5            # controller, 3 replicas, a spare
+FLEET_KILL_RANK, FLEET_WEDGE_RANK, FLEET_SPARE_RANK = 2, 3, 4
+FLEET_KILL_AT, FLEET_WEDGE_AT = 5, 7   # serving.fleet.step occurrences
+FLEET_NEW_TOKENS = 64
+DISAGG_LENS = (128, 384, 900)
+DISAGG_NEW_TOKENS = 16
+FLEET_ENV = {"PTPU_FLEET_TIMEOUT_S": "60", "PTPU_FLEET_KV_SLICE_S": "0.25",
+             "PTPU_FLEET_HB_INTERVAL_S": "0.5",
+             "PTPU_FLEET_RENDEZVOUS_TIMEOUT_S": "180",
+             "TORCH_CPP_LOG_LEVEL": "ERROR"}
+FLEET_DEADLINE_S = 480     # the whole multi-process drive
+
+
+def _handoff_drive(model, prompts, sps, want, tag, **options):
+    """Two engines in this process: all of ``prompts`` prefilled on one,
+    each request exported with its pages after its first tokens, packed
+    into the wire's blob, through a TCPStore on 127.0.0.1 and imported
+    into the other, which decodes them to the end. Before the first
+    decode there the decode graph is held bit-identical to its
+    uncaptured program over the imported pages; the tokens must equal
+    ``want`` (one engine's run), with no program built after the
+    warm-ups. Returns the launches and the numbers."""
+    from torch.distributed import TCPStore
+
+    from paddle_tpu_torch.distributed.launch import StoreKVClient
+    from paddle_tpu_torch.observability import recompile_log
+    from paddle_tpu_torch.resilience import fleet
+    from paddle_tpu_torch.serving.fleet import wire
+    kv = StoreKVClient(TCPStore("127.0.0.1", 0, 1, True,
+                                wait_for_workers=False))
+    pre = _serving_engine(model, **options)
+    dec = _serving_engine(model, **options)
+    pre.warmup()
+    dec.warmup()
+    events = recompile_log().count
+    torch.cuda.synchronize()
+    reset_launches()
+    rids = [pre.add_request(p, sp) for p, sp in zip(prompts, sps)]
+    pre.step()                       # prefills all, one decode step
+    splits = []
+    moved = {}
+    for i, rid in enumerate(rids):
+        t = [time.perf_counter()]
+
+        def lap():
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            return round((t[-1] - t[-2]) * 1e3, 3)
+
+        state = pre.export_page_state(rid)
+        ms = {"export": lap()}
+        blob = wire.pack_state(state)
+        ms["pack"] = lap()
+        fleet.kv_set_bytes(kv, f"handoff/{i}", blob)
+        ms["store_set"] = lap()
+        got = fleet.kv_get_bytes(kv, f"handoff/{i}", 30.0)
+        ms["store_get"] = lap()
+        state = wire.unpack_state(got)
+        ms["unpack"] = lap()
+        moved[dec.import_page_state(state)] = i
+        ms["import"] = lap()
+        kv.key_value_delete(f"handoff/{i}")
+        splits.append({"tokens": state["len"], "bytes": len(blob), **ms})
+    err = decode_graph_vs_program(dec)
+    tokens = [None] * len(prompts)
+    while dec.has_unfinished():
+        dec.step()
+        for rid in list(dec.finished_requests):
+            tokens[moved[rid]] = dec.finished_requests.pop(
+                rid).output_token_ids
+    torch.cuda.synchronize()
+    launches = read_launches(f"fleet handoff ({tag})")
+    # the graph check ran one replay and one uncaptured call
+    forwards = sum(e.metrics.prefill_steps + e.metrics.decode_steps
+                   for e in (pre, dec)) + 2
+    built = (pre.metrics.compile_count, dec.metrics.compile_count,
+             recompile_log().count - events)
+    pre.shutdown()
+    dec.shutdown()
+    bound = pre.config.compile_bound
+    n_layers = model.config.num_layers
+    expect = {k: 0 for k in launches}
+    expect.update(ln_fwd=forwards * (n_layers + 1),
+                  ln_res_fwd=forwards * n_layers)
+    print(f"[fleet] {card_line()}: handoff over {tag} pools, 8 requests "
+          f"exported after their first 2 tokens: bytes, ms a request "
+          f"(export, pack, store set, store get, unpack, import) "
+          f"{json.dumps(splits)}; decode graph max abs err {err}; builds "
+          f"after the warm-ups {built}; launches {launches}")
+    for i, (a, b) in enumerate(zip(tokens, want)):
+        if a != b:
+            raise AssertionError(f"{tag} handoff: request {i} differs from "
+                                 f"one engine's run at token "
+                                 f"{_first_diff(a, b)}")
+    if err != 0.0:
+        raise AssertionError(f"{tag} handoff: the decode graph's logits "
+                             f"over the imported pages differ from the "
+                             f"uncaptured program's by {err}")
+    if built != (bound, bound, 0):
+        raise AssertionError(f"{tag} handoff built programs: {built}")
+    if launches != expect:
+        raise AssertionError(f"{tag} handoff launches {launches} != "
+                             f"{expect}")
+    return launches, splits
+
+
+def _fleet_scenario(tmp, vocab):
+    """The multi-process drive's scenario (``serving/fleet/worker.py``):
+    GPT-1.3B bf16 from seed 0 in every process, the serving cell's
+    engine, 9 requests of 64-900 tokens (64 new, odd ones sampled), 3
+    for the disaggregated run, the two faults."""
+    prompts = _prompts(15, vocab, n=9)
+    sampling = [{"max_new_tokens": FLEET_NEW_TOKENS,
+                 "temperature": 0.0 if i % 2 == 0 else 0.8,
+                 "top_k": 0 if i % 2 == 0 else 50, "seed": 300 + i}
+                for i in range(len(prompts))]
+    rng = np.random.default_rng(16)
+    dprompts = [rng.integers(1, vocab, n).tolist() for n in DISAGG_LENS]
+    dsampling = [{"max_new_tokens": DISAGG_NEW_TOKENS,
+                  "temperature": 0.8 if i == 1 else 0.0,
+                  "top_k": 50 if i == 1 else 0, "seed": 400 + i}
+                 for i in range(len(dprompts))]
+    return {
+        "seed": 0, "device": "cuda",
+        "model": {"preset": "gpt3_1p3b", "kwargs": {"fused_ln": True},
+                  "dtype": "bfloat16"},
+        "engine": {"max_num_seqs": 8, "page_size": 16,
+                   "max_model_len": 1024, "dtype": "bfloat16"},
+        "cache_dir": str(tmp / "cache"), "out_dir": str(tmp / "out"),
+        "controller_rank": 0, "worker_ranks": [1, 2, 3],
+        "spare_ranks": [FLEET_SPARE_RANK],
+        "prompts": prompts, "sampling": sampling,
+        "disagg_prompts": dprompts, "disagg_sampling": dsampling,
+        "faults": {
+            str(FLEET_KILL_RANK): [{"site": "serving.fleet.step",
+                                    "kind": "rank_kill",
+                                    "at": FLEET_KILL_AT}],
+            str(FLEET_WEDGE_RANK): [{"site": "serving.fleet.step",
+                                     "kind": "wedge",
+                                     "at": FLEET_WEDGE_AT}]},
+        "serve_budget_s": 240.0, "finalize_s": 6.0}
+
+
+def _proc_state(pid):
+    with open(f"/proc/{pid}/stat") as f:
+        return f.read().rsplit(")", 1)[1].split()[0]
+
+
+def _run_fleet(tmp, scenario):
+    """Start the fleet's processes through the launcher, wait for the
+    controller's result, SIGKILL the wedged (SIGSTOPped) rank, reap the
+    rest; every child is killed in ``finally``. Returns the controller's
+    result, each rank's exit code, the wedged rank's state before the
+    kill and the wall seconds."""
+    (tmp / "out").mkdir()
+    (tmp / "cache").mkdir()
+    (tmp / "spool").mkdir()
+    path = tmp / "scenario.json"
+    path.write_text(json.dumps(scenario))
+    root = Path(__file__).resolve().parent
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, **FLEET_ENV, "PYTHONPATH": str(root),
+           "PADDLE_LAUNCH_ID": "smokefleet",
+           "PTPU_OBS_SPOOL_DIR": str(tmp / "spool")}
+    worker = root / "paddle_tpu_torch" / "serving" / "fleet" / "worker.py"
+    logs = {r: open(tmp / f"rank{r}.log", "w") for r in range(FLEET_NODES)}
+    result_path = tmp / "out" / "controller.json"
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for r in range(FLEET_NODES):
+            procs[r] = subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+                 "--master", f"127.0.0.1:{port}", "--nnodes",
+                 str(FLEET_NODES), "--rank", str(r), str(worker), str(path)],
+                cwd=root, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + FLEET_DEADLINE_S
+        while not result_path.exists():
+            if procs[0].poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"the fleet's controller wrote no result (exit "
+                    f"{procs[0].poll()}):\n" + _fleet_logs(tmp))
+            time.sleep(0.2)
+        wedged = (_proc_state(procs[FLEET_WEDGE_RANK].pid)
+                  if procs[FLEET_WEDGE_RANK].poll() is None else None)
+        if procs[FLEET_WEDGE_RANK].poll() is None:
+            procs[FLEET_WEDGE_RANK].kill()
+        codes = {}
+        for r, p in procs.items():
+            codes[r] = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+    return json.loads(result_path.read_text()), codes, wedged, wall
+
+
+def _fleet_logs(tmp, tail=3000):
+    """The end of every rank's log."""
+    return "\n".join(f"--- rank {r} ---\n"
+                     + (tmp / f"rank{r}.log").read_text()[-tail:]
+                     for r in range(FLEET_NODES))
+
+
+def _fleet_checks(res, codes, wedged, n_layers):
+    """The drive's exact checks; returns the migrated requests' first
+    differing positions."""
+    bad = {r: c for r, c in codes.items()
+           if c != (-9 if r in (FLEET_KILL_RANK, FLEET_WEDGE_RANK) else 0)}
+    if bad or wedged != "T":
+        raise AssertionError(f"fleet exit codes {codes} (the killed and "
+                             f"wedged ranks -9, the rest 0), the wedged "
+                             f"rank's state before its kill {wedged!r}")
+    ref, got = res["ref"], res["fleet"]
+    adopted = {}
+    for rank, moves in res["adopted"].items():
+        for prompt_index, n in moves:
+            adopted.setdefault(prompt_index, []).append(n)
+    parted = []
+    for i, (want, r) in enumerate(zip(ref, got)):
+        if r["tokens"] is None or len(r["tokens"]) != FLEET_NEW_TOKENS \
+                or r["finish_reason"] != "length":
+            raise AssertionError(f"fleet request {i} unfinished: {r}")
+        if r["stream_tokens"] != r["tokens"] or r["stream_fins"] != 1:
+            raise AssertionError(f"fleet request {i}: its stream is not "
+                                 f"its tokens exactly once")
+        d = _first_diff(r["tokens"], want["tokens"])
+        if not r["migrations"]:
+            if d is not None:
+                raise AssertionError(f"fleet request {i} (never on a "
+                                     f"faulted replica) differs from the "
+                                     f"monolithic run at token {d}")
+            continue
+        first = min(adopted[i])
+        if d is not None and d < first:
+            raise AssertionError(f"fleet request {i} differs at token {d}, "
+                                 f"before its migration at {first}")
+        parted.append({"request": i, "migrated_with": adopted[i],
+                       "first_differing_token": d})
+    if not parted:
+        raise AssertionError("no request migrated")
+    dead = {int(r) for r in res["verdicts"]}
+    dets = {d["rank"]: d for d in res["detections"]}
+    if dead != {FLEET_KILL_RANK, FLEET_WEDGE_RANK} or set(dets) != dead \
+            or any(d["verdict"] != "dead-verdict" for d in dets.values()):
+        raise AssertionError(f"fleet verdicts {res['verdicts']}, "
+                             f"detections {res['detections']}")
+    boots = res["boots"]
+    slot = [1, 2, 3].index(FLEET_KILL_RANK)
+    if res["assigned"][str(slot)] != FLEET_SPARE_RANK or not (
+            boots[slot]["warm"] and boots[slot]["compiled"] == 0
+            and boots[slot]["cache_loads"] == 10):
+        raise AssertionError(f"the respawn: assigned {res['assigned']}, "
+                             f"boot {boots[slot]}")
+    for rank, a in res["audits"].items():
+        forwards = a["prefill_steps"] + a["decode_steps"] + a["boot_forwards"]
+        want_ln = {"ln_fwd": forwards * (n_layers + 1),
+                   "ln_res_fwd": forwards * n_layers}
+        if "error" in a or a["compiled"] > 10 or a["ln_launches"] != want_ln:
+            raise AssertionError(f"replica {rank}'s audit {a}, LN launches "
+                                 f"for {forwards} forwards {want_ln}")
+    if [d["tokens"] for d in res["disagg"]] != \
+            [d["tokens"] for d in res["disagg_ref"]]:
+        raise AssertionError(f"the disaggregated run differs from the "
+                             f"monolithic one: {res['disagg']} "
+                             f"{res['disagg_ref']}")
+    for r in (FLEET_KILL_RANK, FLEET_WEDGE_RANK):
+        pm = res["postmortems"].get(str(r))
+        if not pm or not pm["in_flight_requests"]:
+            raise AssertionError(f"no post-mortem naming rank {r}'s "
+                                 f"requests: {res['postmortems']}")
+    return parted
+
+
+def phase_fleet(bf16_serving):
+    """The multi-process serving fleet (needs phase 4's result): the page
+    handoff in this process over bf16 and int8 pools, then the fleet of
+    ``FLEET_NODES`` fresh processes through the port's launcher."""
+    from paddle_tpu_torch.observability import fleettrace
+    cfg, model = _serving_model("fleet")
+    prompts, sps = _serving_requests(cfg.vocab_size)
+    launches, bf16_splits = _handoff_drive(
+        model, prompts, sps, bf16_serving["tokens"], "bf16")
+    int8_want = _serve(model, prompts, sps, kv_cache_dtype="int8")[0]
+    int8_launches, int8_splits = _handoff_drive(
+        model, prompts, sps, int8_want, "int8", kv_cache_dtype="int8")
+    for k, v in int8_launches.items():
+        launches[k] += v
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        scenario = _fleet_scenario(tmp, cfg.vocab_size)
+        res, codes, wedged, wall = _run_fleet(tmp, scenario)
+        if any(c != (-9 if r in (FLEET_KILL_RANK, FLEET_WEDGE_RANK) else 0)
+               for r, c in codes.items()):
+            print(_fleet_logs(tmp))
+        tel = fleettrace.merge_spools(str(tmp / "spool"))
+        clocks = {p.rank: p.clock.get("offset_ns") for p in tel.processes}
+        replicas = {}
+        for r in range(1, FLEET_NODES):
+            f = tmp / "out" / f"replica-rank{r}.json"
+            replicas[r] = json.loads(f.read_text()) if f.exists() else None
+    parted = _fleet_checks(res, codes, wedged, cfg.num_layers)
+    if sorted(clocks) != list(range(FLEET_NODES)) or clocks[0] != 0 or \
+            any(v is None for v in clocks.values()):
+        raise AssertionError(f"the merged fleet trace's clocks {clocks}")
+    for a in res["audits"].values():
+        for k, v in a["ln_launches"].items():
+            launches[k] += v
+    peaks = {0: res.get("peak_reserved")}
+    for r in range(1, FLEET_NODES):
+        rep = replicas[r] or res["telemetry"].get(str(r)) or {}
+        peaks[r] = rep.get("peak_reserved")
+    handoff = [{**e, **h} for e, h in zip(
+        res["exports"], res["audits"][str(res["disagg_ranks"][1])]
+        ["handoffs"])]
+    numbers = {
+        "dead_after_s": res["dead_after_s"],
+        "verdict_s_since_last_beat": {r: v["since_last_beat_s"]
+                                      for r, v in res["verdicts"].items()},
+        "rpc_abort_s": {d["rank"]: d["detect_s"]
+                        for d in res["detections"]},
+        "respawn_ms": res["respawn_ms"],
+        "boot_ms_warm": [b["boot_ms"] for b in res["boots"]],
+        "boot_ms_cold_reference": res["ref_boot"]["boot_ms"],
+        "tokens_per_s": res["tokens_per_s"], "serve_s": res["serve_s"],
+        "reference_serve_s": res["ref_serve_s"],
+        "disagg_s": res["disagg_s"], "handoffs": handoff,
+        "peak_reserved_gib": {r: None if v is None else v / 2**30
+                              for r, v in peaks.items()},
+        "wall_s": wall,
+        "migrated": parted,
+        "handoff_in_process_bf16": bf16_splits,
+        "handoff_in_process_int8": int8_splits}
+    print(f"[fleet] {card_line()}: {FLEET_NODES} processes, both faults "
+          f"drew DEAD verdicts, the respawn booted warm on rank "
+          f"{FLEET_SPARE_RANK}, every unmigrated request and the "
+          f"disaggregated run equal the monolithic run; migrated requests "
+          f"(tokens they brought, first differing token; a replayed "
+          f"request may part from its decoded self on the card: the "
+          f"reference's two query scalings, PERF.md §6): {parted}")
+    print(f"[fleet] {card_line()}: " + json.dumps(numbers))
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4674,6 +5069,7 @@ def main(argv=None):
     paths["observability"] = phase("observability", phase_observability)
     paths["router"] = phase("router and traffic", phase_router_traffic,
                             bf16_serving)
+    paths["fleet"] = phase("fleet", phase_fleet, bf16_serving)
     print(f"[phase] seconds: {seconds}, {sum(seconds.values()):.1f} in all")
     max_err.update(train_err)
     max_err.update(adam_err)

@@ -52,6 +52,9 @@ class PageAllocator:
     def num_free_pages(self):
         return len(self._free)
 
+    def owned_pages(self, b):
+        return list(self._owned[b])
+
     def pages_needed(self, n_tokens, page_size):
         return -(-int(n_tokens) // int(page_size))
 

@@ -1,7 +1,5 @@
 """Telemetry spools, their aggregation and the crash flight recorder
-(counterpart of ``paddle_tpu/observability/fleettrace.py``, for one
-process: the clock handshake over the coordination KV waits for the
-port's fleet, ROADMAP A.4).
+(counterpart of ``paddle_tpu/observability/fleettrace.py``).
 
 The per-process observability plane (spans ring, metrics registry,
 recompile log) dies with its process. This module makes it durable:
@@ -12,10 +10,12 @@ recompile log) dies with its process. This module makes it durable:
   recorder and the recompile log through their sinks and snapshots the
   metrics registry periodically, so spans, compile events and metric
   snapshots stream to disk as they happen.
-- **Clock anchor**: each spool records a simultaneous
-  ``(perf_counter_ns, wall_ns)`` anchor pair; :func:`merge_spools`
-  aligns processes by it. The reference's KV handshake
-  (:func:`clock_handshake`) raises here until the fleet is ported.
+- **Clock-offset handshake**: each rank publishes a simultaneous
+  ``(perf_counter_ns, wall_ns)`` anchor pair through the fleet's
+  coordination store at arm time and reads the reference rank's
+  (:func:`clock_handshake`), recording the offset that maps its
+  ``perf_counter`` onto the reference rank's timeline;
+  :func:`merge_spools` aligns every process by it.
 - :func:`merge_spools`: every spool of a directory in one
   :class:`FleetTelemetry`: a Chrome trace with one track per process, a
   rank-labeled merged metrics exposition, and per-request timelines
@@ -169,39 +169,67 @@ class _MetricsPump(threading.Thread):
 # -------------------------------------------------- clock handshake
 def clock_handshake(client, rank, *, namespace=None, ref_rank=0,
                     timeout_s=10.0, config=None):
-    """The reference's coordination-KV clock-offset handshake (each rank
-    publishes its ``(perf_counter_ns, wall_ns)`` anchor and reads the
-    reference rank's). It needs the fleet's ``kv_set_bytes`` /
-    ``kv_get_bytes``, which the port does not have yet (ROADMAP A.4):
-    raises NotImplementedError."""
-    raise NotImplementedError(
-        "clock_handshake needs the fleet's coordination KV "
-        "(resilience/fleet.py), not ported yet: ROADMAP A.4")
+    """Coordination-KV clock-offset handshake: publish this process's
+    simultaneous ``(perf_counter_ns, wall_ns)`` anchor under the fleet
+    namespace, read the reference rank's, and return a clock event whose
+    ``offset_ns`` maps this process's ``perf_counter`` readings onto the
+    reference rank's timeline (``t_ref = t_local + offset_ns``). Wall
+    clocks bridge the unrelated ``perf_counter`` epochs (exact on one
+    host); ``rtt_ms`` is the read's round trip. A missing reference
+    anchor leaves the event anchor-only, and :func:`merge_spools` aligns
+    it by wall clock."""
+    from paddle_tpu_torch.resilience import fleet as _fleet
+    ns = namespace if namespace is not None else _fleet.coord_namespace()
+    rank = int(rank)
+    anchor_perf = time.perf_counter_ns()
+    anchor_wall = time.time_ns()
+    ev = {"rank": rank, "ref_rank": int(ref_rank),
+          "anchor_perf_ns": anchor_perf, "anchor_wall_ns": anchor_wall,
+          "offset_ns": None, "rtt_ms": None}
+    _fleet.kv_set_bytes(client, _clock_key(ns, rank),
+                        json.dumps(ev, sort_keys=True).encode())
+    if rank == int(ref_rank):
+        ev["offset_ns"] = 0
+        ev["rtt_ms"] = 0.0
+        return ev
+    t0 = time.perf_counter()
+    try:
+        raw = _fleet.kv_get_bytes(
+            client, _clock_key(ns, ref_rank), timeout_s,
+            site=CLOCK_SITE, missing_rank=int(ref_rank), config=config)
+        ref = json.loads(bytes(raw).decode())
+    except Exception:
+        return ev                   # anchor-only: merge aligns by wall
+    rtt_ms = (time.perf_counter() - t0) * 1e3
+    ev["offset_ns"] = ((anchor_wall - ref["anchor_wall_ns"])
+                       + (ref["anchor_perf_ns"] - anchor_perf))
+    ev["rtt_ms"] = round(rtt_ms, 3)
+    return ev
 
 
 # ------------------------------------------------------------ arming
 def arm_spool(spool_dir, rank=None, *, tag="", client=None,
               namespace=None, ref_rank=0, metrics_interval_s=None,
               handshake_timeout_s=10.0, config=None):
-    """Arm continuous spooling for this process: open the spool,
-    record the clock anchor, tap the span recorder and recompile log,
-    and start the periodic metrics pump when `metrics_interval_s` is
-    set. Re-arming while armed returns the existing spool. A `client`
-    asks for the KV handshake, which raises until the fleet is ported
-    (ROADMAP A.4)."""
+    """Arm continuous spooling for this process: open the spool, record
+    the clock anchor (the KV handshake when ``client`` and ``rank`` are
+    given), tap the span recorder and recompile log, and start the
+    periodic metrics pump when ``metrics_interval_s`` is set. Re-arming
+    while armed returns the existing spool."""
     if _active[0] is not None:
         return _active[0]
-    if client is not None:
-        clock_handshake(client, rank, namespace=namespace,
-                        ref_rank=ref_rank, timeout_s=handshake_timeout_s,
-                        config=config)
     spool = TelemetrySpool(spool_dir, rank=rank, tag=tag)
-    # solo anchor: merge_spools aligns by wall clock if this spool ever
-    # meets others
-    ev = {"rank": spool.rank, "ref_rank": None,
-          "anchor_perf_ns": time.perf_counter_ns(),
-          "anchor_wall_ns": time.time_ns(),
-          "offset_ns": None, "rtt_ms": None}
+    if client is not None and rank is not None:
+        ev = clock_handshake(client, rank, namespace=namespace,
+                             ref_rank=ref_rank,
+                             timeout_s=handshake_timeout_s, config=config)
+    else:
+        # solo anchor: merge_spools aligns by wall clock if this spool
+        # ever meets others
+        ev = {"rank": spool.rank, "ref_rank": None,
+              "anchor_perf_ns": time.perf_counter_ns(),
+              "anchor_wall_ns": time.time_ns(),
+              "offset_ns": None, "rtt_ms": None}
     spool.note_clock(ev)
     _spans.recorder().add_sink(spool.note_span)
     _recompile.recompile_log().add_sink(spool.note_recompile)

@@ -39,7 +39,8 @@ class GradientMergeOptimizer:
 
     @torch.no_grad()
     def step(self):
-        # the reference beats the elastic watchdog here (distributed.elastic)
+        from paddle_tpu_torch.distributed import elastic
+        elastic.notify_progress()   # an accumulate step is progress too
         inner = self._inner
         if self._k <= 1:
             inner.step()

@@ -163,6 +163,8 @@ class Optimizer:
     @torch.no_grad()
     def step(self):
         """One update of every parameter that has a gradient."""
+        from paddle_tpu_torch.distributed import elastic
+        elastic.notify_progress()   # the launcher's watchdog heartbeat
         # chaos hooks: `exception` faults at optimizer.step; `bitflip`
         # and `nan_grad` corrupt one gradient element before the update
         faultinject.fire("optimizer.step")

@@ -1,15 +1,13 @@
 """Resilience pieces of the port (counterpart of ``paddle_tpu/resilience``):
 the engine's health machine, deterministic fault injection, crash-safe
 checkpoints, retry with backoff, the preemption drain, and the training
-sentinel with its poison localization and digests. Every fault,
-recovery, retry, drain, checkpoint and anomaly is recorded through
-:mod:`paddle_tpu_torch.observability`.
-
-Not ported yet: the fleet (``fleet.py``: timeout-bounded coordination,
-heartbeats, the distributed checkpointer, reconfigure), with the
-multi-rank digest vote and the ``rank_kill`` / ``wedge`` fault kinds
-that need it (ROADMAP A.4)."""
-from paddle_tpu_torch.resilience import faultinject, preemption, sentinel
+sentinel with its poison localization, digests and cross-rank digest
+vote, and the fleet (``fleet.py``: timeout-bounded coordination,
+heartbeats and the fleet watchdog, the distributed checkpointer,
+reconfigure). Every fault, recovery, retry, drain, checkpoint and
+anomaly is recorded through :mod:`paddle_tpu_torch.observability`."""
+from paddle_tpu_torch.resilience import (faultinject, fleet, preemption,
+                                         sentinel)
 from paddle_tpu_torch.resilience.checkpoint import (CheckpointCorruption,
                                                     Checkpointer, auto_resume)
 from paddle_tpu_torch.resilience.faultinject import (FaultInjector, FaultPlan,
@@ -32,6 +30,7 @@ __all__ = ["AnomalyDetected", "BatchLineage", "CheckpointCorruption",
            "FaultSpec", "GuardSummary", "HealthMonitor", "HealthState",
            "PreemptionHandler", "RetryExhausted", "RetryPolicy",
            "SentinelAction", "TrainingSentinel", "WorkerFault",
-           "auto_resume", "digest_vote", "faultinject", "localize_poison",
+           "auto_resume", "digest_vote", "faultinject", "fleet",
+           "localize_poison",
            "preemption", "replay_bisect", "request_preemption", "retry",
            "sentinel", "tree_digest"]

@@ -27,6 +27,19 @@ site                   where / kinds
 ``serving.traffic.``   the traffic driver's every tick
 ``tick``               (``serving/traffic/driver.py``): ``qps_surge``
                        injects ``payload["requests"]`` extra arrivals
+``fleet.heartbeat``    ``resilience/fleet.py``'s heartbeat publisher beat:
+                       ``exception`` (the beat is skipped, counted in
+                       ``missed_beats``; the thread survives), ``slow``
+``fleet.kv_get``       every timeout-bounded coordination get
+                       (``fleet.kv_get_bytes``): ``exception``, ``slow``
+``fleet.rank_kill``    a worker's per-step hook: ``rank_kill`` sends a real
+                       SIGKILL to the calling process
+``serving.fleet.step`` a serving replica's step (``serving/fleet/
+                       server.py``): ``rank_kill`` (a dead host),
+                       ``wedge`` (a real SIGSTOP of the whole process:
+                       alive to the OS, silent to the fleet;
+                       ``payload["park_s"]`` parks only the calling
+                       thread that long), ``exception``, ``slow``
 =====================  ====================================================
 
 Under ``to_static`` the hooks fire as the reference's trace-time hooks
@@ -41,9 +54,9 @@ Generic kinds execute in :func:`fire` itself, as the reference's do:
 ``exception`` raises :class:`WorkerFault`, ``slow`` sleeps
 ``payload["sleep_s"]`` (default 0.01) and ``preempt`` calls
 :func:`~paddle_tpu_torch.resilience.preemption.request_preemption` on
-the installed handler. ``rank_kill`` (a real SIGKILL) and ``wedge`` (a
-SIGSTOP) raise NotImplementedError until the port has the fleet whose
-watchdog they test (ROADMAP A.4).
+the installed handler, ``rank_kill`` flushes stdout and stderr and
+sends the process a real SIGKILL, and ``wedge`` a real SIGSTOP (or,
+with ``payload["park_s"]``, sleeps the calling thread that long).
 
 Every injection records a ``resilience.fault`` span and bumps
 ``resilience_faults_injected_total{site,kind}``; every recovery
@@ -62,7 +75,10 @@ Usage::
 from __future__ import annotations
 
 import contextlib
+import os
 import random
+import signal
+import sys
 import threading
 import time
 
@@ -78,7 +94,6 @@ __all__ = [
 
 KINDS = ("torn_write", "exception", "preempt", "pool_exhaust", "slow",
          "rank_kill", "wedge", "bitflip", "nan_grad", "qps_surge")
-_NOT_PORTED = ("rank_kill", "wedge")
 
 
 class WorkerFault(RuntimeError):
@@ -269,8 +284,10 @@ def fire(site, **ctx):
     installed or no fault is due at this occurrence; raises
     :class:`WorkerFault` for an ``exception`` fault; sleeps for ``slow``
     and requests a preemption for ``preempt`` (returning the spec);
-    returns the spec of a site-specific kind (``bitflip``, ``nan_grad``,
-    ``torn_write``, ...) for the caller to apply."""
+    SIGKILLs the process for ``rank_kill``; SIGSTOPs it, or parks the
+    calling thread ``payload["park_s"]``, for ``wedge``; returns the spec
+    of a site-specific kind (``bitflip``, ``nan_grad``, ``torn_write``,
+    ...) for the caller to apply."""
     inj = _active
     if inj is None or getattr(_quiet, "depth", 0):
         return None
@@ -284,10 +301,23 @@ def fire(site, **ctx):
     elif spec.kind == "preempt":
         from paddle_tpu_torch.resilience import preemption
         preemption.request_preemption(reason=f"injected at {site}")
-    elif spec.kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"fault kind {spec.kind!r} needs the fleet, not ported yet "
-            f"(ROADMAP A.4)")
+    elif spec.kind == "rank_kill":
+        # the dead-host fault: an unhandleable SIGKILL, no atexit, no
+        # drain; the flushed output is the process's last testimony
+        sys.stderr.flush()
+        sys.stdout.flush()
+        os.kill(os.getpid(), signal.SIGKILL)
+    elif spec.kind == "wedge":
+        # the wedged-host fault: alive to the OS, silent to the fleet
+        # (every thread stops, the heartbeat publisher's too), so only
+        # the watchdog's DEAD verdict unblocks the fleet
+        park_s = spec.payload.get("park_s")
+        if park_s is not None:
+            time.sleep(float(park_s))
+        else:
+            sys.stderr.flush()
+            sys.stdout.flush()
+            os.kill(os.getpid(), signal.SIGSTOP)
     return spec
 
 

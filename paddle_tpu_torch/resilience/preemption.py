@@ -13,9 +13,8 @@ cooperative protocol:
    (optionally) exits with a distinct code the launcher maps to
    "restart me".
 
-The reference's drain also beats its elastic watchdog around the save,
-so that a slow final save is not taken for a stall; the port has no
-elastic watchdog yet (ROADMAP A.5), so its drain has no beat.
+The drain beats the elastic watchdog (``distributed/elastic.py``)
+around the save, so that a slow final save is not taken for a stall.
 
 The fault-injection kind ``preempt`` calls :func:`request_preemption`
 on the installed handler, so chaos plans exercise exactly the
@@ -182,11 +181,15 @@ class PreemptionHandler:
         """Save ``state_fn()`` at ``step`` (with a checkpointer and a
         state), wait for the checkpointer's queued writes, and record
         the drain."""
+        from paddle_tpu_torch.distributed import elastic
         t0 = time.perf_counter()
+        # heartbeat around the save: a drain is progress, not a stall
+        elastic.notify_progress()
         if self.checkpointer is not None and state_fn is not None:
             self.checkpointer.save(step, state_fn())
         if self.checkpointer is not None:
             self.checkpointer.wait()
+        elastic.notify_progress()
         self.drained = True
         self.drain_step = step
         self.drain_ms = round((time.perf_counter() - t0) * 1e3, 3)

@@ -20,8 +20,8 @@ Digests: :func:`tree_digest` is the reference's sha256 over a tree of
 tensors and arrays, byte for byte (a bf16 leaf is spelled ``bfloat16``
 with its 2-byte payload, as numpy's bf16 extension type writes it), so
 ranks of both packages can compare digests. :func:`digest_vote` votes
-in a world of one; a vote across ranks needs the fleet's coordination
-KV and raises until that is ported (ROADMAP A.4).
+across the fleet's ranks through its coordination store and names a
+dissenting rank SDC-suspect.
 
 Telemetry (:mod:`paddle_tpu_torch.observability`), as the reference's:
 ``sentinel_anomaly_total{kind,site}`` and the
@@ -494,26 +494,109 @@ class DigestVote:
                 f"suspects={list(self.suspects)})")
 
 
+# own-key reap bookkeeping: votes are collective and lockstep, so when
+# this rank starts round r it has finished gathering its previous round,
+# which proves every rank finished every round before that one; the
+# keys of those rounds are deleted (each rank its own), bounding the
+# store to two live rounds per (namespace, site)
+_vote_rounds = {}
+_vote_lock = threading.Lock()
+
+
 def digest_vote(value, *, step, site="grads", client=None,
                 world_view=None, timeout_s=None, monitor=None):
-    """One digest vote round. ``value`` is a tree (digested by
-    :func:`tree_digest`) or a digest string. In a world of one
-    (``world_view`` with ``size`` 1, or none and no initialized
-    ``torch.distributed`` group of more than one rank) the vote is this
-    rank's digest, agreed. A vote across ranks exchanges digests through
-    the fleet's coordination KV, not ported yet (ROADMAP A.4): it
-    raises NotImplementedError."""
+    """One cross-rank digest vote round (collective: every member calls
+    it with the same ``step`` and ``site``). ``value`` is a tree
+    (digested by :func:`tree_digest`) or a digest string. In a world of
+    one (``world_view``, default ``fleet.world()``) the vote is this
+    rank's digest, agreed. Across ranks the digests travel through the
+    fleet's coordination store (``client``, default the launcher's)
+    under one shared deadline, a DEAD verdict of ``monitor`` aborting
+    the wait as :class:`~paddle_tpu_torch.resilience.fleet.
+    CollectiveTimeout`. A strict majority names the dissenting ranks
+    SUSPECT (``monitor.mark_suspect`` quarantines them); anything less
+    is inconclusive. Each rank deletes its keys of rounds every rank
+    has provably finished."""
+    from paddle_tpu_torch.resilience import fleet
+
     mine = value if isinstance(value, str) else tree_digest(value)
-    if world_view is not None:
-        size, rank = int(world_view.size), int(world_view.global_rank)
-    elif torch.distributed.is_available() \
-            and torch.distributed.is_initialized():
-        size = torch.distributed.get_world_size()
-        rank = torch.distributed.get_rank()
+    wv = world_view if world_view is not None else fleet.world()
+    if wv.size <= 1:
+        return DigestVote(step, site, {wv.global_rank: mine}, mine, (),
+                          mine)
+    cl = client if client is not None else fleet.get_client()
+    if cl is None:
+        raise RuntimeError(
+            "digest_vote in a multi-rank world needs the coordination "
+            "store (the launcher's client) or an explicit client=")
+    cfg = fleet.get_config()
+    timeout_s = (float(timeout_s) if timeout_s is not None
+                 else cfg.collective_timeout_s)
+    ns = wv.namespace
+    rnd = int(step)
+
+    def key_for(fleet_rank, r=rnd):
+        return f"{ns}/sentinel/vote/{site}/s{r}/r{fleet_rank}"
+
+    hist_key = (ns, str(site), wv.rank)
+    with _vote_lock:
+        prior = _vote_rounds.get(hist_key, [])
+        reap = prior[:-1]                   # all but my previous round
+        _vote_rounds[hist_key] = prior[-1:] + [rnd]
+    for r in reap:
+        try:
+            cl.key_value_delete(key_for(wv.rank, r))
+        except Exception:
+            pass
+
+    fleet.kv_set_bytes(cl, key_for(wv.rank), mine.encode())
+    abort_if = None
+    if monitor is not None:
+        members = wv.members
+
+        def abort_if():   # noqa: F811
+            return any(monitor.is_dead(m) for m in members)
+
+    digests = {wv.global_rank: mine}
+    deadline = time.monotonic() + timeout_s
+    for i, grank in enumerate(wv.members):
+        if i == wv.rank:
+            continue
+        remaining = max(0.05, deadline - time.monotonic())
+        raw = fleet.kv_get_bytes(cl, key_for(i), remaining,
+                                 site="sentinel.vote", missing_rank=grank,
+                                 abort_if=abort_if, config=cfg)
+        digests[grank] = bytes(raw).decode().rstrip("\x00")
+
+    counts = {}
+    for d in digests.values():
+        counts[d] = counts.get(d, 0) + 1
+    top = max(counts.values())
+    if top * 2 > len(digests):
+        # strict majority only: it is unique, so every rank names the
+        # same suspects; a tie or a split is inconclusive
+        majority = next(d for d, c in counts.items() if c == top)
+        suspects = tuple(sorted(r for r, d in digests.items()
+                                if d != majority))
     else:
-        size, rank = 1, 0
-    if size > 1:
-        raise NotImplementedError(
-            "digest_vote across ranks needs the fleet's coordination KV "
-            "(resilience/fleet.py), not ported yet: ROADMAP A.4")
-    return DigestVote(step, site, {rank: mine}, mine, (), mine)
+        majority, suspects = None, ()
+    vote = DigestVote(step, site, digests, majority, suspects, mine)
+    with obs.span("resilience.sentinel.vote", step=vote.step,
+                  site=vote.site, suspects=list(suspects)):
+        pass
+    reg = obs.registry()
+    reg.counter("sentinel_digest_votes_total",
+                help="cross-rank digest vote rounds").inc()
+    if not vote.conclusive:
+        reg.counter("sentinel_vote_inconclusive_total",
+                    help="digest votes with no strict majority").inc()
+    if suspects:
+        reg.counter("sentinel_sdc_suspects_total",
+                    help="ranks named SDC-suspect by a digest vote").inc(
+                        len(suspects))
+    for s in suspects:
+        note_anomaly("sdc_suspect", f"sentinel.vote.{site}", step=step,
+                     rank=s)
+        if monitor is not None:
+            monitor.mark_suspect(s, reason=f"digest vote {site}@{step}")
+    return vote

@@ -95,7 +95,7 @@ import torch
 
 from paddle_tpu_torch.core import cuda_graph
 from paddle_tpu_torch.core.device import resolve_device
-from paddle_tpu_torch.observability import (current_context,
+from paddle_tpu_torch.observability import (TraceContext, current_context,
                                             next_instance_label,
                                             note_aot_compile, registry, span)
 from paddle_tpu_torch.incubate.nn.paged_attention import (
@@ -378,7 +378,8 @@ class LLMEngine:
     or a directory) keeps the records of cold builds for warm ones.
 
     Public surface: :meth:`add_request`, :meth:`adopt_request`,
-    :meth:`release_waiting`, :meth:`step`, :meth:`generate`,
+    :meth:`release_waiting`, :meth:`export_page_state`,
+    :meth:`import_page_state`, :meth:`step`, :meth:`generate`,
     :meth:`warmup`, :meth:`audit_programs`, :attr:`metrics`,
     :meth:`shutdown`.
     """
@@ -616,6 +617,165 @@ class LLMEngine:
             with span("serving.release_waiting", count=len(reqs)):
                 pass
         return reqs
+
+    # ------------------------------------- disaggregated page handoff
+    def _geometry(self):
+        cfg = self.config
+        return {"page_size": cfg.page_size,
+                "num_layers": self._num_layers,
+                "num_heads": self._num_heads,
+                "head_dim": self._head_dim,
+                "kv_cache_dtype": cfg.kv_cache_dtype,
+                "dtype": str(cfg.dtype).replace("torch.", "")}
+
+    def _pool_parts(self, li):
+        """Layer ``li``'s pool tensors by their handoff names."""
+        k, v = self._k_pools[li], self._v_pools[li]
+        if self._kv_quant is None:
+            return {"k": k, "v": v}
+        return {"k_codes": k[0], "k_scales": k[1],
+                "v_codes": v[0], "v_scales": v[1]}
+
+    def export_page_state(self, request_id, release=True):
+        """Disaggregated prefill → decode: snapshot one RUNNING request's
+        KV pages and scheduler state into a host dict another engine can
+        :meth:`import_page_state` (the page-moving counterpart of
+        token-only adoption). Per layer, the request's owned pages
+        gathered from the pools into host tensors (``k`` / ``v``, or
+        ``k_codes`` / ``k_scales`` / ``v_codes`` / ``v_scales`` over
+        quantized pools); the prompt and generated tokens, sampling
+        params, stream watermark, deadline AGE (never an absolute clock
+        reading), arrival index, trace and the pool geometry. With
+        ``release`` (default) the request leaves this engine: slot,
+        pages and live entry."""
+        req = self._requests.get(request_id)
+        if req is None or req.slot is None:
+            raise ValueError(
+                f"request {request_id!r} is not running here: only a "
+                f"RUNNING (slot-owning) request has pages to export")
+        slot = req.slot
+        L = int(self._lens[slot])
+        pages = self._alloc.owned_pages(slot)
+        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        layers = [{name: t.index_select(0, idx).cpu()
+                   for name, t in self._pool_parts(li).items()}
+                  for li in range(self._num_layers)]
+        sp = req.sampling_params
+        state = {
+            "prompt_token_ids": list(req.prompt_token_ids),
+            "output_token_ids": list(req.output_token_ids),
+            "streamed": int(req._streamed),
+            "age_s": max(0.0, self.metrics.clock() - req.arrive_t),
+            "arrival_index": int(req.arrival_index),
+            "len": L,
+            "sampling_params": {
+                "max_new_tokens": sp.max_new_tokens,
+                "temperature": sp.temperature,
+                "top_k": sp.top_k, "top_p": sp.top_p, "seed": sp.seed,
+                "eos_token_id": sp.eos_token_id,
+                "deadline_s": sp.deadline_s,
+            },
+            "geometry": self._geometry(),
+            "layers": layers,
+        }
+        if req.trace is not None:
+            # the decode engine's spans join the request's trace
+            state["trace"] = req.trace.to_dict()
+        with span("serving.page_export", ctx=req.trace,
+                  request=request_id, pages=len(pages), tokens=L,
+                  release=bool(release)):
+            if release:
+                req.transition(RequestState.EVICTED)
+                self._release_slot(req)
+                self._requests.pop(request_id, None)
+        return state
+
+    def import_page_state(self, state, stream=None):
+        """Decode side of the handoff: rebuild the exported request here.
+        Fresh pages are allocated and the shipped blocks written IN
+        PLACE into the pool tensors the captured decode graph reads
+        (``index_copy_``), the row's table and length into the host
+        arrays each replay copies in; no program is built, so
+        ``serving_compile_total`` and the recompile log do not move.
+        The request enters at DECODE and the (seed, position) sampler
+        continues where the exporter stopped. Returns the new request
+        id. Raises ValueError on a geometry mismatch or a cache length
+        other than ``len(prompt) + len(generated) - 1``, and
+        :class:`AdmissionRejected` when no slot or pages are free or
+        this engine drains (the caller keeps ``state`` and can retry)."""
+        geo = state["geometry"]
+        for k, want in self._geometry().items():
+            if geo.get(k) != want:
+                raise ValueError(
+                    f"page-state geometry mismatch on {k!r}: exporter "
+                    f"{geo.get(k)!r} vs importer {want!r}")
+        sp = SamplingParams(**state["sampling_params"])
+        prompt = [int(t) for t in state["prompt_token_ids"]]
+        generated = [int(t) for t in state["output_token_ids"]]
+        self._validate_request(prompt, sp)
+        L = int(state["len"])
+        if L != len(prompt) + len(generated) - 1:
+            raise ValueError(
+                f"page-state cache length {L} does not match "
+                f"prompt+generated-1 = {len(prompt) + len(generated) - 1}"
+                f" (the newest token's KV is written by the NEXT decode "
+                f"step)")
+        if not self.health.admitting:
+            self.metrics.requests_rejected += 1
+            raise AdmissionRejected(
+                "draining",
+                f"engine {self._metrics_name} page-pool pressure "
+                f"{self.health.last_pressure:.2f}")
+        names = list(self._pool_parts(0))
+        n_pages = len(state["layers"][0][names[0]])
+        try:
+            slot = self._slots.index(None)
+        except ValueError:
+            self.metrics.requests_rejected += 1
+            raise AdmissionRejected(
+                "no_slot", f"engine {self._metrics_name} has no free "
+                f"decode slot for an imported request") from None
+        if not self._alloc.can_allocate(slot, n_pages):
+            self.metrics.requests_rejected += 1
+            raise AdmissionRejected(
+                "no_pages", f"engine {self._metrics_name} cannot allocate "
+                f"{n_pages} pages for an imported request")
+        rid = f"req-{self._next_id}"
+        req = Request(rid, prompt, sp,
+                      arrival_index=int(state.get("arrival_index",
+                                                  self._next_id)),
+                      stream=stream)
+        req.output_token_ids = generated
+        req._streamed = min(int(state.get("streamed", len(generated))),
+                            len(generated))
+        req.num_evictions = 1     # admission and TTFT were the exporter's
+        req.trace = (TraceContext.from_dict(state.get("trace"))
+                     or current_context())
+        req.arrive_t = self.metrics.clock() - float(state.get("age_s", 0.0))
+        req._resume_t = self.metrics.clock()
+        if sp.deadline_s is not None:
+            req.deadline_t = req.arrive_t + sp.deadline_s
+        self._next_id += 1
+        self._slots[slot] = req
+        req.slot = slot
+        pages = [page for _pos, page in self._alloc.allocate(slot, n_pages)]
+        self._tables[slot, :len(pages)] = pages
+        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        for li in range(self._num_layers):
+            blk = state["layers"][li]
+            for name, pool in self._pool_parts(li).items():
+                src = torch.as_tensor(blk[name])
+                pool.index_copy_(0, idx, src.to(device=self.device,
+                                                 dtype=pool.dtype))
+        self._lens[slot] = L
+        req.transition(RequestState.PREFILL)
+        req.transition(RequestState.DECODE)
+        self._requests[rid] = req
+        self.metrics.requests_adopted += 1
+        with span("serving.page_import", ctx=req.trace, request=rid,
+                  pages=n_pages, tokens=L):
+            pass
+        return rid
 
     def has_unfinished(self):
         return (self.scheduler.has_waiting()

@@ -578,8 +578,13 @@ def test_spool_merged_by_both_packages(engines, tmp_path, monkeypatch):
     rec = fleettrace.flight_record(str(tmp_path), 0)
     assert rec["in_flight_requests"] == [] and rec["spans_total"] > 0
     assert rec["last_metrics"] is not None
-    with pytest.raises(NotImplementedError, match="A.4"):
-        fleettrace.arm_spool(str(tmp_path), rank=0, client=object())
+    # a client arms the KV clock handshake: the reference rank's offset
+    from paddle_tpu_torch.resilience.fleet import LocalKVClient
+    armed = fleettrace.arm_spool(str(tmp_path / "armed"), rank=0,
+                                 client=LocalKVClient())
+    fleettrace.disarm()
+    (proc,) = fleettrace.merge_spools(str(tmp_path / "armed")).processes
+    assert armed.rank == 0 and proc.clock["offset_ns"] == 0
     assert fleettrace.active_spool() is None
     monkeypatch.setenv(fleettrace.SPOOL_ENV, str(tmp_path))
     monkeypatch.setenv(fleettrace.SUPPRESS_ENV, "off")

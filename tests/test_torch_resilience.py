@@ -96,11 +96,11 @@ def test_tree_digest_is_sensitive_and_votes_alone():
     assert vote.to_dict()["digests"] == {0: TR.tree_digest({"w": x})}
     assert TR.digest_vote("abc", step=1).majority == "abc"
 
-    class World:
-        size, global_rank = 2, 1
-
-    with pytest.raises(NotImplementedError, match="A.4"):
-        TR.digest_vote(x, step=1, world_view=World())
+    # a vote across ranks goes through the fleet's coordination store,
+    # which a process outside a launched fleet does not have
+    from paddle_tpu_torch.resilience.fleet import WorldView
+    with pytest.raises(RuntimeError, match="client"):
+        TR.digest_vote(x, step=1, world_view=WorldView([0, 1], 1))
 
 
 # ---------------------------------------------------------------- retry
@@ -438,10 +438,16 @@ def test_slow_fault_sleeps_and_fleet_kinds_raise():
         _moved(ref_before, _numbers(robs)) == {
             "resilience_faults_injected_total{kind=slow,site=io.save}": 2,
             "span:resilience.fault": 2}
-    for kind in ("rank_kill", "wedge"):
-        with TR.FaultInjector(TR.FaultPlan([TR.FaultSpec("x", kind)])):
-            with pytest.raises(NotImplementedError, match="A.4"):
-                faultinject.fire("x")
+    # the fleet kinds: a parked wedge sleeps the calling thread (the
+    # SIGSTOP and SIGKILL forms act on child processes in
+    # tests/test_torch_fleet.py)
+    plan = TR.FaultPlan([TR.FaultSpec("x", "wedge",
+                                      payload={"park_s": 0.05})])
+    with TR.FaultInjector(plan) as inj:
+        t0 = time.perf_counter()
+        assert faultinject.fire("x").kind == "wedge"
+        assert time.perf_counter() - t0 >= 0.05
+    assert len(inj.injected) == 1
 
 
 # ------------------------------------------------------------ telemetry

@@ -198,9 +198,10 @@ Phases, in order (any failure raises and exits non-zero):
    sequence and a new registry version; six captured steps, and the
    same six with a ``preempt`` fault at the third ``optimizer.step``
    under a ``PreemptionHandler``: it drains a checkpoint of step 3 and
-   a fresh model and optimizer resumed from it take steps 4-6 captured,
-   losses bit for bit, the parameters' ``tree_digest`` equal before the
-   save and after the load; and ``localize_poison`` over a
+   a fresh model and optimizer resumed from it take steps 4-6 captured
+   (the fresh optimizer drops the saved moments, as the reference's
+   does), bit for bit as an eager twin resumed the same way, the
+   parameters' ``tree_digest`` equal before the save and after the load; and ``localize_poison`` over a
    ``BatchLineage`` (a checkpoint at step 2, a ``nan_grad`` planted at
    step 5 of 8) names step 5;
 21. router and traffic: GPT-1.3B behind a ``Router`` of 2 replicas
@@ -256,7 +257,36 @@ Phases, in order (any failure raises and exits non-zero):
    merge onto rank 0's clock and the post-mortems name the dead ranks'
    requests; the verdict latencies, respawn and boot ms, the handoff's
    bytes and ms by part, tokens/s, peaks and the wall seconds are
-   printed.
+   printed;
+23. mixture of experts: ``gpt3_1p3b(fused_ln=True, moe_num_experts=8,
+   moe_top_k=2, moe_every=2, moe_gate="gshard")`` (GShard's top 2 of 8
+   experts in every other block, capacity (2.0, 2.0), 4.13 B params)
+   serves phase 4's 8 requests at 24 layers in bf16 as CUDA graphs: 10
+   programs, 64 tokens a request, finite logits, the LayerNorm launches
+   of every forward (25 / 24), the decode graph's logits and pools
+   bit-identical to its uncaptured program; continuous against
+   sequential is printed, not gated (a prefill routes its padded bucket
+   and a decode all 8 rows, so capacity and drops depend on the batch);
+   tokens/s, decode step, TTFT and peaks printed. Then at 12 layers
+   (2.12 B f32 params) it trains on 4 x 1024 tokens at dropout 0 under
+   ``to_static(amp_policy="bf16")`` with loss = criterion + 0.01 x
+   ``moe_aux_loss()``, with ``AdamW(fused=True, guard=True)`` and with
+   ``AdamW(fused=False)``: an eager twin through ``dygraph_function``
+   and the captured run from one seed equal bit for bit (losses, aux
+   losses, weights; GShard's random routing drawn from the key), losses
+   falling, aux losses finite and positive, launches exact (one
+   keep-mask launch a MoE block: the routing's draw); step ms, tokens/s,
+   the first call's peak, a profiled replay and an eager step's kernel
+   time split into the experts, the dispatch and combine, and the rest;
+24. eager collectives: 3 processes through the launcher run
+   ``tests/_torch_fleet_worker.py`` with their tensors on the card, one
+   AVG ``all_reduce`` of [loss, grad] a step through the fleet's store,
+   a quorum checkpoint after step 5, ``rank_kill`` on rank 2 at step 8:
+   both survivors name it in their ``CollectiveTimeout``, reconfigure to
+   2 and reload the checkpoint resharded; then 2 fresh processes run the
+   fault-free baseline from the same checkpoint, and the resumed losses
+   equal it exactly; an all_reduce's ms, the DEAD verdict's latency
+   against ``dead_after_s`` and ``reconfigure``'s seconds printed.
 
 The phases print their seconds as they end.
 
@@ -776,7 +806,7 @@ def _clone_pool(p):
     return tuple(t.clone() for t in p) if isinstance(p, tuple) else p.clone()
 
 
-def check_decode_graph(eng, prompts, sps):
+def check_decode_graph(eng, prompts, sps, exact=False):
     """One decode step at full width: the decode graph's outputs (logits;
     and the guard's flags) against one uncaptured call of the same
     ``_decode_program()`` function on copies of the same pools (plain or
@@ -786,19 +816,19 @@ def check_decode_graph(eng, prompts, sps):
         eng.add_request(p, sp)
     eng.step()                         # admits and prefills all 8
     eng.step()
-    err = decode_graph_vs_program(eng)
+    err = decode_graph_vs_program(eng, exact)
     eng.shutdown()
     return err
 
 
-def decode_graph_vs_program(eng):
+def decode_graph_vs_program(eng, exact=False):
     """The next decode step of ``eng``'s running requests through its
     decode graph against one uncaptured call of ``_decode_program()`` on
     copies of the pools: the pools after bit-identical (and the guard's
-    outputs too), the logits within ``check_close``'s bf16 limit. The
-    step's pages are allocated as ``_decode_step`` would, so serving on
-    after it replays the same step (the same KV rewritten). Returns the
-    max abs error."""
+    outputs too, or with ``exact`` the logits), the logits within
+    ``check_close``'s bf16 limit. The step's pages are allocated as
+    ``_decode_step`` would, so serving on after it replays the same step
+    (the same KV rewritten). Returns the max abs error."""
     # the next step's inputs, as LLMEngine._decode_step makes them
     page = eng.config.page_size
     tokens = np.zeros((eng.config.max_num_seqs, 1), np.int64)
@@ -837,9 +867,9 @@ def decode_graph_vs_program(eng):
     if not pools_same:
         raise AssertionError("decode graph: the pools differ from the "
                              "uncaptured program's")
-    if eng.config.guard and not same:
-        raise AssertionError("guarded decode graph: logits or flags differ "
-                             "from the uncaptured program's")
+    if (eng.config.guard or exact) and not same:
+        raise AssertionError("decode graph: logits (or the guard's flags) "
+                             "differ from the uncaptured program's")
     return err
 
 
@@ -3732,9 +3762,12 @@ def _obs_recompiles():
 def _obs_preempt(ckpt_dir):
     """Six captured steps; then the same six with a ``preempt`` fault at
     the third ``optimizer.step`` (eager steps, under a PreemptionHandler):
-    it drains a checkpoint of step 3, and a fresh model and optimizer
-    resumed from it take steps 4-6 captured: losses bit for bit, the
-    parameters' digest equal before the save and after the load."""
+    it drains a checkpoint of step 3 (losses 1-3 bit for bit), and a
+    fresh model and optimizer resumed from it take steps 4-6 captured.
+    The fresh optimizer drops the saved moments, as the reference's
+    does, so the resumed steps are held bit for bit to a twin resumed
+    the same way that takes them eagerly; the parameters' digest is
+    equal before the save and after the load."""
     from paddle_tpu_torch.framework.io import numpy_state_dict
     from paddle_tpu_torch.resilience import (Checkpointer, FaultInjector,
                                              FaultPlan, FaultSpec,
@@ -3769,7 +3802,13 @@ def _obs_preempt(ckpt_dir):
     gc.collect()
     cfg, model, opt, step_fn = _obs_model()
     start, _ = auto_resume(ck, model, opt)
+    twin = [_eager(step_fn, batches[s]) for s in range(start, OBS_STEPS + 1)]
+    del model, opt, step_fn
+    gc.collect()
+    cfg, model, opt, step_fn = _obs_model()
+    start, _ = auto_resume(ck, model, opt)
     loaded = tree_digest(numpy_state_dict(model))
+    drained = list(losses)
     losses += [_captured(step_fn, batches[s])
                for s in range(start, OBS_STEPS + 1)]
     print(f"[observability] preempt fault at step {OBS_PREEMPT}: drained "
@@ -3778,15 +3817,19 @@ def _obs_preempt(ckpt_dir):
           f"after the load {loaded}")
     print(f"[observability] uninterrupted losses {clean}")
     print(f"[observability] resumed losses       {losses}")
+    print(f"[observability] eager twin's resumed {twin}")
     if pre.drain_step != OBS_PREEMPT or start != OBS_PREEMPT + 1:
         raise AssertionError(f"drained at {pre.drain_step}, resumed at "
                              f"{start}")
     if digest != loaded:
         raise AssertionError("the parameters' digest changed through the "
                              "checkpoint")
-    if losses != clean:
-        raise AssertionError("the resumed run's losses differ from the "
+    if drained != clean[:OBS_PREEMPT]:
+        raise AssertionError("the drained run's losses differ from the "
                              "uninterrupted run's")
+    if losses[OBS_PREEMPT:] != twin:
+        raise AssertionError("the captured resumed steps differ from the "
+                             "eager twin's")
     return drain_ms
 
 
@@ -5021,6 +5064,397 @@ def phase_fleet(bf16_serving):
     return launches
 
 
+# ------------------------------------------------------- mixture of experts
+MOE = dict(moe_num_experts=8, moe_top_k=2, moe_every=2, moe_gate="gshard")
+MOE_TRAIN_LAYERS = 12                # 2.12 B params: the f32 state fits
+MOE_TRAIN_STEPS = 5
+MOE_AUX = 0.01                       # examples/train_gpt_moe.py's weight
+
+
+def _moe_cfg(**kw):
+    """GPT-1.3B's widths with GShard's top-2 of 8 experts in every other
+    block, at the repo's capacity (2.0, 2.0)."""
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+    return gpt3_1p3b(fused_ln=True, **MOE, **kw)
+
+
+def _moe_serving():
+    """The 24-layer MoE GPT in bf16 serving phase 4's 8 requests as CUDA
+    graphs: 10 programs, 64 tokens a request, finite logits, the
+    LayerNorm launches of every forward, the decode graph bit-identical
+    to its uncaptured program; continuous against sequential printed
+    (capacity depends on the batch: at capacity x top_k 4 < 8 experts a
+    token may be dropped). Returns the launches."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    cfg = _moe_cfg()
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[moe serving] gpt3_1p3b(fused_ln=True, {MOE}): "
+          f"{n_params / 1e9:.3f} B params in bf16, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompts, sps = _serving_requests(cfg.vocab_size)
+    eng = _serving_engine(model)
+    bound = eng.config.compile_bound
+    boot = eng.warmup()
+    if not boot["programs"] == boot["compiled"] == bound == 10:
+        raise AssertionError(f"warmup built {boot}, bound {bound}")
+    finite = []
+    originals = _watch_finite(eng, finite)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, sps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches("moe serving")
+    peak = (torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+    m = eng.metrics
+    if m.compile_count != bound:
+        raise AssertionError(f"generate captured {m.compile_count - bound} "
+                             f"more programs")
+    forwards = m.prefill_steps + m.decode_steps
+    expect = {k: 0 for k in launches}
+    expect.update(ln_fwd=forwards * (cfg.num_layers + 1),
+                  ln_res_fwd=forwards * cfg.num_layers)
+    print(f"[moe serving] {m.prefill_steps} prefills + {m.decode_steps} "
+          f"decode steps, all graph replays; launches {launches}")
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} != {expect}")
+    if len(finite) != forwards or not bool(torch.stack(finite).all()):
+        raise AssertionError("non-finite logits (or a forward not seen)")
+    if any(len(r.output_token_ids) != 64 for r in results):
+        raise AssertionError("a request without 64 tokens")
+    eng._programs.update(originals)
+    eng.shutdown()
+    tokens = [r.output_token_ids for r in results]
+    seq = _serving_engine(model)
+    alone = [seq.generate([p], [sp])[0].output_token_ids
+             for p, sp in zip(prompts, sps)]
+    seq.shutdown()
+    same = [a == b for a, b in zip(alone, tokens)]
+    parts = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+             for a, b in zip(alone, tokens)]
+    print(f"[moe serving] sequential == continuous for {sum(same)} of 8 "
+          f"requests (not asserted: a prefill routes its padded bucket, a "
+          f"decode all 8 rows, so capacity and drops depend on the batch); "
+          f"first differing token {parts}")
+    err = check_decode_graph(_serving_engine(model), prompts, sps,
+                             exact=True)
+    snap = m.snapshot()
+    print(f"[moe serving] {card_line()}: {m.generated_tokens / wall:.1f} "
+          f"tokens/s ({m.generated_tokens} tokens in {wall:.2f} s), mean "
+          f"decode step {snap['decode_step_ms']['mean']:.2f} ms, mean "
+          f"prefill {snap['prefill_step_ms']['mean']:.2f} ms, TTFT p50 "
+          f"{snap['ttft_ms']['p50']:.1f} ms p99 {snap['ttft_ms']['p99']:.1f}"
+          f" ms, boot {boot['boot_ms']:.1f} ms, peak {peak[0] / 2**30:.2f} "
+          f"GiB allocated / {peak[1] / 2**30:.2f} reserved; decode graph "
+          f"vs program max abs err {err}")
+    return launches
+
+
+def _moe_train_step(model, opt, guard):
+    """The MoE train step: the criterion plus 0.01 x the gates' balance
+    losses (``examples/train_gpt_moe.py``), under
+    ``to_static(amp_policy="bf16")``; returns ``[loss, aux]``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    crit = GPTPretrainingCriterion()
+
+    @pt.jit.to_static(amp_policy="bf16", guard=guard)
+    def train_step(ids, labels):
+        opt.clear_grad()
+        loss = crit(model(ids), labels)
+        aux = model.gpt.moe_aux_loss()
+        total = loss + MOE_AUX * aux
+        total.backward()
+        opt.step()
+        return torch.stack([total.detach(), aux.detach()])
+
+    return train_step
+
+
+def _moe_step_launches(cfg, steps, guard):
+    """Each kernel's launches over ``steps`` MoE train steps: the dense
+    path's call sites, one fused guarded update of each rank-2 parameter
+    (qkv and out_proj a block, then fc1 and fc2, or the router and the
+    experts' stacked biases b1 and b2; the two embeddings) with its sums
+    of squares (the rank-3 expert weights take the per-parameter loop),
+    and one keep-mask launch a MoE block (the random routing's draw
+    splits the key)."""
+    n = cfg.num_layers
+    moe = sum((i + 1) % cfg.moe_every == 0 for i in range(n))
+    rank2 = 4 * (n - moe) + 5 * moe + 2
+    per_step = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                "ln_fwd": n + 1, "ln_res_fwd": n, "ln_bwd": n + 1,
+                "ln_bwd_res": n, "adam_update": 0,
+                "adam_update_guard": rank2 if guard else 0,
+                "adam_guard_sumsq": rank2 if guard else 0,
+                "rms_fwd": 0, "bsa_fwd": 0, "keep_mask": moe}
+    return {k: steps * v for k, v in per_step.items()}
+
+
+def _moe_split(step_fn, batch, cfg):
+    """Where a MoE step's kernel time goes: one eager step under
+    ``torch.profiler`` with input shapes, each operator's own kernel time
+    booked to the experts (rank-3 operands of E experts over C, d and h),
+    the routing, dispatch and combine (an operand holding E x C, or one
+    of the routing tensors [n, E], [n, K], [n, K, E], [n, E, C], [n, K, E,
+    C]) or the rest. Returns the three ms."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.moe import _capacity
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    n, e, k = B * S, cfg.moe_num_experts, cfg.moe_top_k
+    c = _capacity(n, e, k, cfg.moe_capacity_factor[0])
+    d, h = cfg.hidden_size, cfg.ffn_hidden_size
+    routing = {(n, k, e, c), (n, e, c), (n, k, e), (n, e), (n, k)}
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       record_shapes=True) as prof:
+        with pt.amp.activation_residency("bf16"):
+            step_fn.dygraph_function(*batch)
+        torch.cuda.synchronize()
+    split = {"experts": 0.0, "routing, dispatch and combine": 0.0,
+             "rest": 0.0}
+    for ev in prof.key_averages(group_by_input_shape=True):
+        # the operators' rows: a kernel's own row repeats its time
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        us = ev.self_device_time_total
+        if not us:
+            continue
+        shapes = [tuple(s) for s in (ev.input_shapes or []) if s]
+        if any(e * c in s or s in routing for s in shapes):
+            split["routing, dispatch and combine"] += us / 1e3
+        elif any(len(s) == 3 and s[0] == e and set(s[1:]) <= {c, d, h, 1}
+                 for s in shapes):
+            split["experts"] += us / 1e3
+        else:
+            split["rest"] += us / 1e3
+    return split
+
+
+def _moe_train(guard):
+    """The MoE GPT at ``MOE_TRAIN_LAYERS``, full width, 4 x 1024 tokens,
+    dropout 0 (flash on the path): an eager twin through
+    ``dygraph_function`` first, then the captured run from the same
+    weights and seed, equal bit for bit (losses, aux losses, weights);
+    losses falling, aux losses finite and positive, launches exact."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    tag = "moe train, guarded fused" if guard else "moe train, unfused"
+    cfg = _moe_cfg(num_layers=MOE_TRAIN_LAYERS, dropout=0.0,
+                   attention_dropout=0.0)
+
+    def build():
+        model = GPTForCausalLM(
+            cfg, device="cuda",
+            generator=torch.Generator("cuda").manual_seed(0))
+        model.train()
+        opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters(),
+                                 fused=guard, guard=guard)
+        return model, opt, _moe_train_step(model, opt, guard)
+
+    ids, labels = _batch(cfg.vocab_size, 1)
+    twin, twin_opt, eager_step = build()
+    n_params = sum(p.numel() for p in twin.parameters())
+    pt.seed(SEED)
+    reset_launches()
+    eager = []
+    for _ in range(MOE_TRAIN_STEPS):
+        with pt.amp.activation_residency("bf16"):
+            eager.append(eager_step.dygraph_function(ids, labels).tolist())
+    eager_launches = read_launches(f"{tag}, dygraph_function")
+    if eager_launches != _moe_step_launches(cfg, MOE_TRAIN_STEPS, guard):
+        raise AssertionError(f"dygraph launches {eager_launches}")
+    eager_weights = [p.detach().cpu() for p in twin.parameters()]
+    # one more eager step of the twin, profiled: it runs before any
+    # capture holds its own pool on the card
+    split = _moe_split(eager_step, (ids, labels), cfg) if guard else None
+    del twin, twin_opt, eager_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, opt, step_fn = build()
+    pt.seed(SEED)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, step_s = [], []
+    for i in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out.append(step_fn(ids, labels).tolist())         # synchronises
+        step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            first = (torch.cuda.max_memory_allocated(),
+                     torch.cuda.max_memory_reserved())
+            torch.cuda.reset_peak_memory_stats()
+    launches = read_launches(tag)
+    expect = _moe_step_launches(cfg, MOE_TRAIN_STEPS + WARMUP_CALLS, guard)
+    losses, aux = [o[0] for o in out], [o[1] for o in out]
+    print(f"[{tag}] {MOE_TRAIN_LAYERS} layers, {n_params / 1e9:.3f} B f32 "
+          f"params; losses {losses}; aux losses {aux}; launches {launches}")
+    if launches != expect:
+        raise AssertionError(f"launches {launches} != {expect}")
+    if len(step_fn._compiled) != 1:
+        raise AssertionError(f"{len(step_fn._compiled)} captures")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    if not all(math.isfinite(a) and a > 0 for a in aux):
+        raise AssertionError(f"aux losses not finite and positive: {aux}")
+    differ = [n for (n, a), b in zip(model.named_parameters(), eager_weights)
+              if not torch.equal(a.cpu(), b)]
+    if eager != out or differ:
+        raise AssertionError(f"captured and eager runs differ: {out} / "
+                             f"{eager}, weights {differ}")
+    del eager_weights
+    steady = statistics.median(step_s[1:])
+    gib = 2 ** 30
+    print(f"[{tag}] {card_line()}: captured == eager bit for bit (losses, "
+          f"aux losses, {len(list(model.parameters()))} weights); step "
+          f"{steady * 1e3:.1f} ms (median of steps 2-{MOE_TRAIN_STEPS}), "
+          f"{B * S / steady:.0f} tokens/s; first call {step_s[0] * 1e3:.1f}"
+          f" ms, peak {first[0] / gib:.2f} GiB allocated / "
+          f"{first[1] / gib:.2f} reserved; steady peak "
+          f"{torch.cuda.max_memory_allocated() / gib:.2f} / "
+          f"{torch.cuda.max_memory_reserved() / gib:.2f} GiB")
+    if guard:
+        profile_train_step(step_fn, (ids, labels), steady, tag=tag)
+        print(f"[{tag}] an eager step's kernel time by part: " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in split.items())
+            + f" ({sum(split.values()):.1f} ms in all)")
+    return launches
+
+
+def phase_moe():
+    """GPT-1.3B's widths with 8 GShard experts in every other block:
+    served at 24 layers in bf16, trained at ``MOE_TRAIN_LAYERS`` with the
+    guarded fused and the unfused AdamW."""
+    launches = _moe_serving()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for guard in (True, False):
+        for k, v in _moe_train(guard).items():
+            launches[k] += v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------ eager collectives
+COLL_ENV = {"PTPU_FLEET_TIMEOUT_S": "60", "PTPU_FLEET_KV_SLICE_S": "0.25",
+            "PTPU_FLEET_HB_INTERVAL_S": "0.5",
+            "PTPU_FLEET_RENDEZVOUS_TIMEOUT_S": "60",
+            "TORCH_CPP_LOG_LEVEL": "ERROR"}
+COLL_KILL_RANK, COLL_KILL_STEP, COLL_CKPT_STEP, COLL_STEPS = 2, 8, 5, 12
+COLL_DEADLINE_S = 240
+
+
+def _run_workers(tmp, nnodes, mode, launch_id):
+    """``nnodes`` processes of ``tests/_torch_fleet_worker.py`` through
+    the launcher, tensors on the card; every child killed in
+    ``finally``. Returns each rank's exit code and the wall seconds."""
+    root = Path(__file__).resolve().parent
+    worker = root / "tests" / "_torch_fleet_worker.py"
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, **COLL_ENV, "PYTHONPATH": str(root),
+           "PADDLE_LAUNCH_ID": launch_id}
+    args = [str(tmp / "out"), "cuda", mode, str(tmp / "ckpt"),
+            *map(str, (COLL_KILL_RANK, COLL_KILL_STEP, COLL_CKPT_STEP,
+                       COLL_STEPS))]
+    logs = {r: open(tmp / f"{mode}-rank{r}.log", "w") for r in range(nnodes)}
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for r in range(nnodes):
+            procs[r] = subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+                 "--master", f"127.0.0.1:{port}", "--nnodes", str(nnodes),
+                 "--rank", str(r), str(worker), *args], cwd=root, env=env,
+                stdout=logs[r], stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + COLL_DEADLINE_S
+        codes = {r: p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                 for r, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+    return codes, time.perf_counter() - t0
+
+
+def phase_collectives():
+    """The eager collectives over the fleet's store with the training
+    chaos proof: 3 launcher processes, one AVG all_reduce of [loss, grad]
+    a step with its tensor on the card, a quorum checkpoint after step
+    5, rank 2 SIGKILLed at step 8; the survivors name it, reconfigure to
+    2, reload resharded and resume; then the fault-free 2-rank baseline
+    from the same checkpoint. The resumed losses equal it exactly."""
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        (tmp / "out").mkdir()
+        runs = {}
+        for nnodes, mode in ((3, "chaos"), (2, "baseline")):
+            codes, wall = _run_workers(tmp, nnodes, mode, f"smoke{mode}")
+            want = {r: -9 if mode == "chaos" and r == COLL_KILL_RANK else 0
+                    for r in range(nnodes)}
+            logs = "\n".join(
+                f"--- {f.name} ---\n{f.read_text()[-3000:]}"
+                for f in sorted(tmp.glob(f"{mode}-rank*.log")))
+            if codes != want:
+                raise AssertionError(f"{mode}: exit codes {codes} != {want}"
+                                     f"\n{logs}")
+            runs[mode] = ({r: json.loads((tmp / "out" /
+                                          f"{mode}-rank{r}.json").read_text())
+                           for r in range(nnodes) if want[r] == 0}, wall)
+    chaos, chaos_s = runs["chaos"]
+    base, base_s = runs["baseline"]
+    for r, res in chaos.items():
+        det = res["detection"]
+        if det is None or det["missing_rank"] != COLL_KILL_RANK:
+            raise AssertionError(f"rank {r} did not name the dead rank: "
+                                 f"{det}")
+        nw = res["new_world"]
+        if nw["members"] != [0, 1] or not res["reshard_ok"]:
+            raise AssertionError(f"rank {r}: world {nw}, reshard "
+                                 f"{res['reshard_ok']}")
+    resumed = [chaos[r]["losses_resumed"] for r in (0, 1)]
+    baseline = [base[r]["losses_resumed"] for r in (0, 1)]
+    if len(resumed[0]) != COLL_STEPS - COLL_CKPT_STEP or \
+            not resumed[0] == resumed[1] == baseline[0] == baseline[1]:
+        raise AssertionError(f"resumed {resumed} != baseline {baseline}")
+    ms = [t for res in (*chaos.values(), *base.values())
+          for t in res["allreduce_ms"]]
+    numbers = {
+        "allreduce_ms_median": statistics.median(ms),
+        "allreduce_ms_p90": sorted(ms)[int(0.9 * (len(ms) - 1))],
+        "dead_after_s": chaos[0]["dead_after_s"],
+        "verdict_s_since_last_beat": {r: res.get("verdict_s")
+                                      for r, res in chaos.items()},
+        "detection": {r: res["detection"] for r, res in chaos.items()},
+        "reconfigure_s": {r: res["reconfigure_s"]
+                          for r, res in chaos.items()},
+        "recovery_s": {r: res["recovery_s"] for r, res in chaos.items()},
+        "chaos_wall_s": chaos_s, "baseline_wall_s": base_s}
+    print(f"[collectives] {card_line()}: rank {COLL_KILL_RANK} named DEAD "
+          f"by both survivors, the resumed losses equal the 2-rank "
+          f"baseline's exactly: {resumed[0]}")
+    print(f"[collectives] {card_line()}: " + json.dumps(numbers))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5070,6 +5504,8 @@ def main(argv=None):
     paths["router"] = phase("router and traffic", phase_router_traffic,
                             bf16_serving)
     paths["fleet"] = phase("fleet", phase_fleet, bf16_serving)
+    paths["moe"] = phase("moe", phase_moe)
+    phase("collectives", phase_collectives)
     print(f"[phase] seconds: {seconds}, {sum(seconds.values()):.1f} in all")
     max_err.update(train_err)
     max_err.update(adam_err)

@@ -19,8 +19,8 @@ __all__ = ["BLACK_LIST", "WHITE_LIST", "auto_cast", "downcast_inputs",
 # the ops of the reference's lists (paddle_tpu/amp/auto_cast.py) whose
 # functionals the port has: an op joins with the functional that calls
 # downcast_inputs for it
-WHITE_LIST = {"linear", "matmul"}
-BLACK_LIST = {"cross_entropy"}
+WHITE_LIST = {"einsum", "linear", "matmul"}
+BLACK_LIST = {"cross_entropy", "softmax"}
 _NARROW = (torch.bfloat16, torch.float16)
 
 

@@ -13,17 +13,22 @@
   installed :class:`ElasticManager`'s watchdog and the fleet's heartbeat
   publisher (``resilience.fleet.notify_fleet_progress``), so a slow
   gradient-merge window or a long preemption save reads as progress.
+- :class:`Command`: elastic scale control, the target world size ``np``
+  in a JSON file of the temporary directory shared by node-local
+  processes (the reference's own store; its upstream keeps it in etcd).
 """
 from __future__ import annotations
 
 import faulthandler
+import json
 import os
 import sys
+import tempfile
 import threading
 import time
 
-__all__ = ["ElasticManager", "HeartbeatServer", "Watchdog", "get_manager",
-           "install_manager", "notify_progress"]
+__all__ = ["Command", "ElasticManager", "HeartbeatServer", "Watchdog",
+           "get_manager", "install_manager", "notify_progress"]
 
 
 class Watchdog:
@@ -216,3 +221,40 @@ def notify_progress():
     from paddle_tpu_torch.resilience import fleet
     fleet.notify_fleet_progress()
 
+
+
+class Command:
+    """Elastic scale control: ``np``, the target world size, in
+    ``<tmpdir>/ptpu_elastic_<name>.json`` (the reference's file, so the
+    two packages' processes on one node share it). ``server`` is
+    accepted and unused, as in the reference."""
+
+    def __init__(self, server=None, name="default"):
+        self.path = os.path.join(tempfile.gettempdir(),
+                                 f"ptpu_elastic_{name}.json")
+
+    def _read(self):
+        try:
+            with open(self.path) as fh:
+                return json.load(fh)
+        except (OSError, ValueError):
+            return {}
+
+    def set_np(self, np):
+        state = self._read()
+        state["np"] = int(np)
+        with open(self.path, "w") as fh:
+            json.dump(state, fh)
+
+    def scale_np(self, np):
+        """Set ``np`` only when a target was set before; True if so."""
+        if self._read().get("np") is not None:
+            self.set_np(np)
+            return True
+        return False
+
+    def clean(self):
+        try:
+            os.remove(self.path)
+        except FileNotFoundError:
+            pass

@@ -11,6 +11,8 @@ the reference's order: the embeddings', then per layer the attention
 probabilities' and the two residual dropouts'. With ``use_recompute``,
 or under ``to_static(remat=...)``, each decoder block in training is a
 recompute region (:mod:`paddle_tpu_torch.distributed.recompute`).
+With ``moe_num_experts > 0`` every ``moe_every``-th block's FFN is a
+GShard MoE, and :meth:`GPTModel.moe_aux_loss` gives its balance losses.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from paddle_tpu_torch.amp.policy import remat_active
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.distributed.fleet.meta_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+from paddle_tpu_torch.distributed.moe import MoELayer, StackedExpertFFN
 from paddle_tpu_torch.distributed.recompute import recompute
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import Dropout, Embedding, LayerNorm
@@ -163,16 +166,33 @@ class GPTMLP(nn.Module):
 
 
 class GPTDecoderLayer(nn.Module):
-    """Pre-LN transformer decoder block."""
+    """Pre-LN transformer decoder block. With ``moe_num_experts`` set and
+    this block selected by ``moe_every`` (``(layer_idx + 1) % moe_every
+    == 0``), the dense FFN is a GShard MoE over stacked experts
+    (:mod:`paddle_tpu_torch.distributed.moe`), as in the reference."""
 
-    def __init__(self, config, device=None, dtype=None, generator=None):
+    def __init__(self, config, layer_idx=0, device=None, dtype=None,
+                 generator=None):
         super().__init__()
         factory = dict(device=device, dtype=dtype)
         self._fused_ln = config.fused_ln
         self.ln1 = _ln(config, factory)
         self.attn = GPTAttention(config, generator=generator, **factory)
         self.ln2 = _ln(config, factory)
-        self.mlp = GPTMLP(config, generator=generator, **factory)
+        if (config.moe_num_experts > 0
+                and (layer_idx + 1) % config.moe_every == 0):
+            self.mlp = MoELayer(
+                config.hidden_size,
+                StackedExpertFFN(config.moe_num_experts, config.hidden_size,
+                                 config.ffn_hidden_size,
+                                 ep_axis=config.moe_ep_axis,
+                                 generator=generator, **factory),
+                gate={"type": config.moe_gate, "top_k": config.moe_top_k},
+                ep_axis=config.moe_ep_axis,
+                capacity_factor=config.moe_capacity_factor,
+                generator=generator, **factory)
+        else:
+            self.mlp = GPTMLP(config, generator=generator, **factory)
         self.dropout = Dropout(config.dropout)
 
     def forward(self, x, kv_ctx=None):
@@ -193,16 +213,14 @@ class GPTDecoderLayer(nn.Module):
 class GPTModel(nn.Module):
     def __init__(self, config, device=None, dtype=None, generator=None):
         super().__init__()
-        if config.moe_num_experts > 0:
-            raise NotImplementedError(
-                "GPT with MoE blocks (moe_num_experts > 0) is not ported yet")
         self.config = config
         factory = dict(device=device, dtype=dtype)
         self.embeddings = GPTEmbeddings(config, generator=generator,
                                         **factory)
         self.layers = nn.ModuleList(
-            [GPTDecoderLayer(config, generator=generator, **factory)
-             for _ in range(config.num_layers)])
+            [GPTDecoderLayer(config, layer_idx=i, generator=generator,
+                             **factory)
+             for i in range(config.num_layers)])
         self.final_ln = _ln(config, factory)
 
     def forward(self, input_ids, position_ids=None, kv_ctx=None):
@@ -219,6 +237,21 @@ class GPTModel(nn.Module):
         for layer in self.layers:
             h = recompute(layer, h) if use_rc else layer(h, kv_ctx=kv_ctx)
         return self.final_ln(h)
+
+    def moe_aux_loss(self):
+        """The sum of the MoE gates' balance losses from the last forward
+        (cleared on read); a zero scalar for a model without MoE
+        blocks."""
+        total = None
+        for layer in self.layers:
+            gate = getattr(layer.mlp, "gate", None)
+            if gate is not None and hasattr(gate, "get_loss"):
+                loss = gate.get_loss()
+                if loss is not None:
+                    total = loss if total is None else total + loss
+        if total is None:
+            return torch.zeros((), device=self.final_ln.weight.device)
+        return total
 
 
 class GPTForCausalLM(nn.Module):

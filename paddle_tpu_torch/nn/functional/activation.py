@@ -4,7 +4,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gelu"]
+from paddle_tpu_torch.amp.auto_cast import downcast_inputs
+
+__all__ = ["gelu", "softmax"]
 
 
 def gelu(x, approximate=False):
@@ -12,3 +14,14 @@ def gelu(x, approximate=False):
     ``0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))``."""
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
+
+
+def softmax(x, axis=-1, dtype=None):
+    """Softmax along ``axis``, in ``dtype`` when given; else under
+    autocast a narrow-float input is raised to f32 first (``softmax`` is
+    on the reference's black list)."""
+    if dtype is not None:
+        x = x.to(dtype)
+    else:
+        (x,) = downcast_inputs(x, opname="softmax")
+    return torch.softmax(x, dim=axis)

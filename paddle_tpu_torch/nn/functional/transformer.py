@@ -250,15 +250,14 @@ def sparse_attention(query, key, value, sparse_csr_offset,
     heads, seq, head_dim]``, ``sparse_csr_offset`` ``[batch, heads, seq_q
     + 1]`` and ``sparse_csr_columns`` ``[batch, heads, nnz]`` (integer
     tensors or arrays); scale 1/sqrt(head_dim). A query row with no stored
-    entry gives zeros. ``key_padding_mask`` and ``attn_mask`` raise
-    NotImplementedError: the reference accepts them but ignores them
-    (its kernel path is skipped and its dense path never reads them), so
-    no port of its result can honour them."""
+    entry gives zeros. With ``key_padding_mask`` or ``attn_mask`` given
+    the block-sparse kernel is skipped and the dense CSR composition
+    runs, which reads neither mask: the reference's behaviour
+    (``paddle_tpu/nn/functional/transformer.py:130``), a defect both
+    packages share."""
     if key_padding_mask is not None or attn_mask is not None:
-        raise NotImplementedError(
-            "sparse_attention(key_padding_mask=, attn_mask=) is not ported: "
-            "the reference ignores both masks (its dense path never reads "
-            "them), so its results cannot be reproduced with them applied")
+        return _sparse_attention_dense(query, key, value, sparse_csr_offset,
+                                       sparse_csr_columns)
     ql, kl = query.shape[2], key.shape[2]
     hit = _block_pattern(sparse_csr_offset, sparse_csr_columns, ql, kl)
     if hit is not None:

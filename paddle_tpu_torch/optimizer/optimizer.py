@@ -95,7 +95,6 @@ class Optimizer:
         self._accumulators = {}
         self._inits = {}
         self._acc_keys = {}         # id(p) -> its accumulators' keys
-        self._restored = {}         # state-dict key -> value not made yet
         # subclasses with a fused single-pass update kernel set this
         self._fused = False
         self._guard = bool(guard)
@@ -134,20 +133,11 @@ class Optimizer:
     # ---- accumulators ----
     def _acc(self, name, p, init=0.0, shape=None, dtype=torch.float32):
         """The accumulator ``name`` of ``p`` (p's shape unless ``shape``
-        is given), filled with ``init`` when first asked for, or with
-        the value :meth:`set_state_dict` kept for it (which is then its
-        init)."""
+        is given), filled with ``init`` when first asked for."""
         key = (name, id(p))
         if key not in self._accumulators:
             shape = tuple(p.shape) if shape is None else tuple(shape)
             t = torch.full(shape, init, dtype=dtype, device=p.device)
-            kept = self._restored.pop(f"{self._keys[id(p)]}_{name}", None)
-            if kept is not None:
-                # the init stays on the host: a restore copies it in
-                if not isinstance(kept, torch.Tensor):
-                    kept = torch.from_numpy(np.asarray(kept))
-                init = kept.reshape(shape).to(dtype)
-                t.copy_(init)
             register_state_tensor(t, init=init)
             self._accumulators[key] = t
             self._inits[key] = init
@@ -324,24 +314,17 @@ class Optimizer:
         """Copy the accumulators that appear in ``state_dict`` (tensors or
         arrays) back in, each in its own type and device, and a bound
         scheduler's ``last_epoch`` (the reference restores only that:
-        the lr follows at the scheduler's next step). An entry whose
-        accumulator is not made yet (a fresh optimizer resuming from a
-        checkpoint) is kept, and the accumulator starts from it when the
-        first step makes it; the reference drops such entries."""
-        made = set()
+        the lr follows at the scheduler's next step). As in the
+        reference, an entry whose accumulator is not made yet (a fresh
+        optimizer before its first step) is dropped."""
         with torch.no_grad():
             for (name, pid), t in self._accumulators.items():
                 key = f"{self._keys[pid]}_{name}"
-                made.add(key)
                 if key in state_dict:
                     v = state_dict[key]
                     if not isinstance(v, torch.Tensor):
                         v = torch.from_numpy(np.asarray(v))
                     t.copy_(v)
-        self._restored = {k: v.detach().cpu().clone()
-                          if isinstance(v, torch.Tensor) else v
-                          for k, v in state_dict.items()
-                          if k != "LR_Scheduler" and k not in made}
         sched = state_dict.get("LR_Scheduler")
         if sched and self._lr_scheduler is not None:
             self._lr_scheduler.last_epoch = sched.get("last_epoch", 0)

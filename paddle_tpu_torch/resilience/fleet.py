@@ -1226,6 +1226,10 @@ def reconfigure(dead_ranks, client=None, config=None, world_view=None,
                     f"job")
     if install:
         _set_world(new)
+        # a fresh namespace: fresh round counters for the eager
+        # store collectives
+        from paddle_tpu_torch.distributed import collective
+        collective.reset_coord_rounds()
     reap = install if reap is None else reap
     if reap and client is not None and new.rank == 0:
         try:

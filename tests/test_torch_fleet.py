@@ -37,7 +37,8 @@ from paddle_tpu_torch.distributed import elastic
 from paddle_tpu_torch.distributed import launch as L
 from paddle_tpu_torch.distributed.launch import StoreKVClient
 from paddle_tpu_torch.observability import fleettrace
-from paddle_tpu_torch.resilience import faultinject, fleet, sentinel
+from paddle_tpu_torch.resilience import (faultinject, fleet, preemption,
+                                         sentinel)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIENTS = ("local", "store")
@@ -667,6 +668,7 @@ def test_progress_beats_reach_the_publisher_and_watchdog():
     finally:
         mgr.stop()
         elastic.install_manager(None)
+        preemption.uninstall()      # the handler installed itself
     wd = elastic.Watchdog(timeout=0.05, poll_interval=0.01,
                           on_stall=lambda idle, step: stalls.append(step))
     wd.beat(5)

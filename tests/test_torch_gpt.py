@@ -101,11 +101,9 @@ def test_init_is_seeded_normal():
 
 
 def test_unported_configs_raise():
-    """MoE blocks still raise; the untied head is ported: its weight
-    crosses by the reference's name and its logits are the reference's
-    (f32, atol = rtol = 1e-4)."""
-    with pytest.raises(NotImplementedError, match="MoE"):
-        GPTForCausalLM(gpt3_tiny(moe_num_experts=4), device="cpu")
+    """The untied head is ported: its weight crosses by the reference's
+    name and its logits are the reference's (f32, atol = rtol = 1e-4).
+    (MoE blocks are ported too: ``tests/test_torch_moe.py``.)"""
     P.seed(0)
     ref = RefGPT(ref_tiny(tie_word_embeddings=False))
     ref.eval()

@@ -406,13 +406,32 @@ def test_all_empty_pattern_stays_dense():
     assert bool((got == 0).all())
 
 
-def test_masks_raise_not_implemented():
-    q, k, v = map(torch.tensor, _qkv(7))
-    offs, cols = map(torch.tensor, _csr(PATTERNS["window"](), BLOCK, B, H))
-    for kw in ({"key_padding_mask": torch.ones(B, S)},
-               {"attn_mask": torch.ones(S, S)}):
-        with pytest.raises(NotImplementedError, match="ignores"):
-            F.sparse_attention(q, k, v, offs, cols, **kw)
+def test_masks_take_the_dense_path_as_the_reference(monkeypatch):
+    """With either mask given both packages skip the block-sparse kernel
+    and take their dense CSR path, which reads neither mask: the port
+    equals the reference (within 5e-5, f32) and launches no kernel,
+    even on a block-aligned pattern the kernel would take."""
+    transformer._block_mask_cache.clear()
+    transformer._pattern_identity_memo.clear()
+    q, k, v = _qkv(7)
+    offs, cols = _csr(PATTERNS["window"](), BLOCK, B, H)
+    (tq, tk, tv, to, tc), (pq, pk, pv, po, pc) = _torch_and_paddle(
+        q, k, v, offs, cols)
+    unmasked = F.sparse_attention(tq, tk, tv, to, tc)    # the kernel path
+    kernel = []
+    monkeypatch.setattr(transformer, "block_sparse_flash_attention",
+                        lambda *a, **kw: kernel.append(a))
+    pad = np.ones((B, S), np.float32)
+    pad[:, S // 2:] = 0.0
+    causal = np.tril(np.ones((S, S), np.float32))
+    for name, mask in (("key_padding_mask", pad), ("attn_mask", causal)):
+        want = PF.sparse_attention(pq, pk, pv, po, pc,
+                                   **{name: P.to_tensor(mask)}).numpy()
+        got = F.sparse_attention(tq, tk, tv, to, tc,
+                                 **{name: torch.tensor(mask)})
+        assert _max_err(got, want) < 5e-5, name
+        assert _max_err(unmasked, want) < 5e-5, name   # the mask is unread
+    assert not kernel
 
 
 # ------------------------------------------------------- the whole slice

@@ -286,7 +286,28 @@ Phases, in order (any failure raises and exits non-zero):
    2 and reload the checkpoint resharded; then 2 fresh processes run the
    fault-free baseline from the same checkpoint, and the resumed losses
    equal it exactly; an all_reduce's ms, the DEAD verdict's latency
-   against ``dead_after_s`` and ``reconfigure``'s seconds printed.
+   against ``dead_after_s`` and ``reconfigure``'s seconds printed;
+25. flash at head_dim 64: the three flash kernels' head_dim-64
+   instances against their plain versions, f32 and bf16, at BERT's
+   ``[16, 512, 12, 64]``, ViT-B/16's ragged ``[128, 197, 12, 64]`` and a
+   causal ``[4, 1024, 16, 64]``; then their bf16 times at BERT's and
+   ViT's shapes beside bound, plain version and SDPA;
+26. encoders: ERNIE-3.0-base and BERT-base (dropout 0) through the
+   reference's MLM step (``bench.py:_bench_ernie`` / ``_bench_bert``:
+   ``to_static``, ``auto_cast(level="O1", dtype="bfloat16")``,
+   ``AdamW(1e-4)``, ``cross_entropy`` over the vocabulary) on 16 x 512
+   tokens (ERNIE with task ids 0): 4 steps of an eager twin, then 4
+   captured, equal bit for bit (losses and every state tensor), losses
+   finite and falling, ``ln_fwd`` and ``ln_bwd`` 26 and each flash kernel
+   12 launches a step, nothing routed; step ms, tokens/s, the first
+   call's ms and peaks;
+27. vision: ResNet-50 NHWC (``bench.py:_resnet_variant``:
+   ``Momentum(0.1, momentum=0.9)``, O1) on 256 images of 224^2, cuDNN
+   deterministic, the captured run equal to the eager twin in its
+   weights and all 106 BatchNorm statistics, no port kernel launched;
+   ViT-B/16 (``tools/profile_vit.py``: ``AdamW(1e-4)``, O1) on 128
+   images, ``ln_fwd`` / ``ln_bwd`` 25 and flash 12 each a step at 197
+   tokens; images/s, the first call's ms and peaks.
 
 The phases print their seconds as they end.
 
@@ -1256,6 +1277,38 @@ def _flash_terms(q, k, v, do, lse, delta, causal, scale):
     return tuple(t.transpose(1, 2) for t in terms)
 
 
+def check_flash_cases(err, gen, dtype, cases):
+    """Each flash kernel against its plain version on the same inputs, at
+    each ``(causal, shape)`` of ``cases`` in ``dtype``; the largest
+    errors go into ``err`` ({kernel: max abs err})."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    for causal, shape in cases:
+        q, k, v, do = _attention_inputs(dtype, gen, **shape)
+        tag = f"{tuple(q.shape)}x{k.shape[1]} causal={causal} " \
+              f"{str(dtype).split('.')[1]}"
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        o, lse = fa.flash_fwd(q, k, v, causal, scale)
+        o_ref, lse_ref = fa._flash_fwd_ref(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        args = (q, k, v, do, lse_ref, _delta(do, o_ref), causal, scale)
+        t_o, t_dq, t_dk, t_dv = _flash_terms(*args)
+        err["flash_fwd"] = max(
+            err["flash_fwd"],
+            check_terms(f"flash_fwd o {tag}", o, o_ref, t_o),
+            check_sum(f"flash_fwd lse {tag}", lse, lse_ref))
+        dq = fa.flash_bwd_dq(*args)
+        dk, dv = fa.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], check_terms(
+            f"flash_bwd_dq {tag}", dq, fa._flash_bwd_dq_ref(*args), t_dq))
+        dk_ref, dv_ref = fa._flash_bwd_dkv_ref(*args)
+        err["flash_bwd_dkv"] = max(
+            err["flash_bwd_dkv"],
+            check_terms(f"flash_bwd_dkv dk {tag}", dk, dk_ref, t_dk),
+            check_terms(f"flash_bwd_dkv dv {tag}", dv, dv_ref, t_dv))
+    return err
+
+
 def check_flash(gen):
     """Each flash kernel against its plain version on the same inputs,
     then the autograd Function against the plain versions and against
@@ -1272,30 +1325,7 @@ def check_flash(gen):
              (True, dict(b=2, sq=1000, sk=1000, h=4, d=D)),
              (True, dict(b=1, sq=S, sk=S, h=1, d=D))]
     for dtype in (torch.float32, torch.bfloat16):
-        for causal, shape in cases:
-            q, k, v, do = _attention_inputs(dtype, gen, **shape)
-            tag = f"{tuple(q.shape)}x{k.shape[1]} causal={causal} " \
-                  f"{str(dtype).split('.')[1]}"
-            scale = 1.0 / math.sqrt(q.shape[-1])
-            o, lse = fa.flash_fwd(q, k, v, causal, scale)
-            o_ref, lse_ref = fa._flash_fwd_ref(q, k, v, causal, scale)
-            torch.cuda.synchronize()
-            args = (q, k, v, do, lse_ref, _delta(do, o_ref), causal, scale)
-            t_o, t_dq, t_dk, t_dv = _flash_terms(*args)
-            err["flash_fwd"] = max(
-                err["flash_fwd"],
-                check_terms(f"flash_fwd o {tag}", o, o_ref, t_o),
-                check_sum(f"flash_fwd lse {tag}", lse, lse_ref))
-            dq = fa.flash_bwd_dq(*args)
-            dk, dv = fa.flash_bwd_dkv(*args)
-            torch.cuda.synchronize()
-            err["flash_bwd_dq"] = max(err["flash_bwd_dq"], check_terms(
-                f"flash_bwd_dq {tag}", dq, fa._flash_bwd_dq_ref(*args), t_dq))
-            dk_ref, dv_ref = fa._flash_bwd_dkv_ref(*args)
-            err["flash_bwd_dkv"] = max(
-                err["flash_bwd_dkv"],
-                check_terms(f"flash_bwd_dkv dk {tag}", dk, dk_ref, t_dk),
-                check_terms(f"flash_bwd_dkv dv {tag}", dv, dv_ref, t_dv))
+        check_flash_cases(err, gen, dtype, cases)
         # the autograd Function (kernel path) on a fused projection's
         # views, against (1) the plain versions chained by hand on the
         # same tensors, delta taken from the Function's o as its
@@ -1400,40 +1430,34 @@ def _bound(costs, name=None):
     return cost.bound_ms(c.bytes, c.flops, c.peak)
 
 
-def time_train_kernels(gen):
-    """Each training kernel at the path's shapes (bf16), by CUDA events:
-    kernel, plain version, bound and the library call where there is
-    one."""
-    from paddle_tpu_torch.ops.cuda import cost, norm
+def time_flash(gen, shape, causal):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv at one bf16 ``(b, s, h,
+    d)`` by CUDA events: kernel, plain version, bound, and the library
+    call (SDPA's forward; for the backward pair, SDPA's backward alone:
+    ``autograd.grad`` on a retained graph, the one library call that
+    computes dq, dk and dv). Returns (rows, the inputs' two sets, the
+    forward's arguments, SDPA's [b, h, s, d] copies)."""
+    from paddle_tpu_torch.ops.cuda import cost
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, s, h, d = shape
     t = {}
-    scale = 1.0 / math.sqrt(D)
-    sets = [_attention_inputs(torch.bfloat16, gen) for _ in range(2)]
+    scale = 1.0 / math.sqrt(d)
+    sets = [_attention_inputs(torch.bfloat16, gen, b, s, s, h, d)
+            for _ in range(2)]
     stats = []
     for q, k, v, do in sets:
-        o, lse = fa.flash_fwd(q, k, v, True, scale)
+        o, lse = fa.flash_fwd(q, k, v, causal, scale)
         stats.append((lse, _delta(do, o)))
-    fwd_args = [(q, k, v, True, scale) for q, k, v, _ in sets]
-    bwd_args = [(q, k, v, do, lse, dl, True, scale)
+    fwd_args = [(q, k, v, causal, scale) for q, k, v, _ in sets]
+    bwd_args = [(q, k, v, do, lse, dl, causal, scale)
                 for (q, k, v, do), (lse, dl) in zip(sets, stats)]
     lib_sets = [tuple(x.transpose(1, 2).contiguous() for x in (q, k, v, do))
                 for q, k, v, do in sets]
-
-    def lib_fwd_bwd(q, k, v, do):
-        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        out = sdpa(*leaves, is_causal=True)
-        return torch.autograd.grad(out, leaves, do)
-
-    def kernel_fwd_bwd(q, k, v, do):
-        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        out = fa.flash_attention_bshd(*leaves, causal=True, scale=scale)
-        return torch.autograd.grad(out, leaves, do)
-
     few = dict(reps=10, per_rep=5)
     rows = [
         ("flash_fwd", fa.flash_fwd, fa._flash_fwd_ref, fwd_args,
-         (lambda q, k, v, do: sdpa(q, k, v, is_causal=True), lib_sets)),
+         (lambda q, k, v, do: sdpa(q, k, v, is_causal=causal), lib_sets)),
         ("flash_bwd_dq", fa.flash_bwd_dq, fa._flash_bwd_dq_ref, bwd_args,
          None),
         ("flash_bwd_dkv", fa.flash_bwd_dkv, fa._flash_bwd_dkv_ref, bwd_args,
@@ -1446,16 +1470,12 @@ def time_train_kernels(gen):
                    "bound_ms": bound, "bound_by": by,
                    "library_ms": device_ms(lib[0], lib[1], **few)
                    if lib else None,
-                   "shape": [B, S, H, D], "causal": True, "dtype": "bfloat16"}
-    t["flash_fwd_bwd"] = {
-        "ms": device_ms(kernel_fwd_bwd, [x for x in sets], **few),
-        "library_ms": device_ms(lib_fwd_bwd, lib_sets, **few)}
-    # the backward pair against SDPA's backward alone (autograd.grad on a
-    # retained graph), the one library call that computes dq, dk and dv
+                   "shape": list(shape), "causal": causal,
+                   "dtype": "bfloat16"}
     graphs = []
     for q, k, v, do in lib_sets:
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        graphs.append((sdpa(*leaves, is_causal=True), leaves, do))
+        graphs.append((sdpa(*leaves, is_causal=causal), leaves, do))
     t["flash_bwd_pair"] = {
         "ms": t["flash_bwd_dq"]["ms"] + t["flash_bwd_dkv"]["ms"],
         "library_ms": device_ms(
@@ -1465,6 +1485,33 @@ def time_train_kernels(gen):
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         t[name]["pair_ms"] = t["flash_bwd_pair"]["ms"]
         t[name]["pair_library_ms"] = t["flash_bwd_pair"]["library_ms"]
+    return t, sets, fwd_args, lib_sets
+
+
+def time_train_kernels(gen):
+    """Each training kernel at the path's shapes (bf16), by CUDA events:
+    kernel, plain version, bound and the library call where there is
+    one."""
+    from paddle_tpu_torch.ops.cuda import cost, norm
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = 1.0 / math.sqrt(D)
+    t, sets, fwd_args, lib_sets = time_flash(gen, (B, S, H, D), True)
+
+    def lib_fwd_bwd(q, k, v, do):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = sdpa(*leaves, is_causal=True)
+        return torch.autograd.grad(out, leaves, do)
+
+    def kernel_fwd_bwd(q, k, v, do):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fa.flash_attention_bshd(*leaves, causal=True, scale=scale)
+        return torch.autograd.grad(out, leaves, do)
+
+    few = dict(reps=10, per_rep=5)
+    t["flash_fwd_bwd"] = {
+        "ms": device_ms(kernel_fwd_bwd, [x for x in sets], **few),
+        "library_ms": device_ms(lib_fwd_bwd, lib_sets, **few)}
     # the forward without the causal mask: every block runs all 8 key
     # tiles, so the wave tail of the causal grid is out of the reading
     bound, by = _bound(cost.flash_fwd(*fwd_args[0][:3], False, scale))
@@ -5455,6 +5502,229 @@ def phase_collectives():
     print(f"[collectives] {card_line()}: " + json.dumps(numbers))
 
 
+# ------------------------------------------------ the headline trainers
+ENC_B, ENC_S = 16, 512               # bench.py's BERT / ERNIE MLM batch
+RESNET_B, RESNET_SIDE = 256, 224     # bench.py's ResNet-50 batch
+VIT_B, VIT_TOKENS = 128, 197         # tools/profile_vit.py's; 14^2 + 1
+HEADLINE_STEPS = 4
+# the flash kernels at head_dim 64: BERT's and ViT-B/16's attention
+FLASH64 = {"bert": (ENC_B, ENC_S, 12, 64), "vit": (VIT_B, VIT_TOKENS, 12, 64)}
+FLASH64_CASES = [(False, dict(b=ENC_B, sq=ENC_S, sk=ENC_S, h=12, d=64)),
+                 (False, dict(b=VIT_B, sq=VIT_TOKENS, sk=VIT_TOKENS, h=12,
+                              d=64)),
+                 (True, dict(b=4, sq=1024, sk=1024, h=16, d=64))]
+
+
+def phase_flash64():
+    """The flash kernels' head_dim-64 instances: each kernel against its
+    plain version, f32 and bf16, at BERT's shape ([16, 512, 12, 64]),
+    ViT-B/16's ragged one ([128, 197, 12, 64]: TMA fills the rows past
+    197 with zeros) and a causal [4, 1024, 16, 64]; then their bf16
+    times at BERT's and ViT's shapes beside bound, plain version and
+    SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    err = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        check_flash_cases(err, gen, dtype, FLASH64_CASES)
+    print(f"[flash64] head_dim 64 agrees with the plain versions; max abs "
+          f"err {err}; largest share of its limit "
+          f"{shares('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')}")
+    timings = {}
+    for tag, shape in FLASH64.items():
+        timings[tag] = time_flash(gen, shape, False)[0]
+        for key, v in timings[tag].items():
+            print(f"[flash64] {tag} {key}: " + ", ".join(
+                f"{k} {x:.5f}" if isinstance(x, float) else f"{k} {x}"
+                for k, x in v.items()))
+    return err, timings
+
+
+def _headline_path(tag, build, batch, per_step, items, unit, falling=True):
+    """One of the repo's headline trainers through its reference step
+    (``build()`` gives the model and its ``to_static`` step, from seed 0):
+    ``HEADLINE_STEPS`` steps of a twin through ``dygraph_function``
+    (eagerly), then of a fresh build captured, which must equal the eager
+    run bit for bit, its losses and every state tensor (the weights and
+    any BatchNorm statistics); losses finite, and with ``falling`` the
+    last below the first; the kernels' launches exactly ``per_step`` a
+    step (the captured run counts its first call's warm-ups too) and
+    nothing routed to a composition.
+    Prints the step's time, ``items`` / step in ``unit`` a second, the
+    first call's time and peaks, and one replay's kernels by time
+    (``profile_train_step``). Returns (launches, numbers)."""
+    from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
+    t0 = time.perf_counter()
+    twin, step = build()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in twin.parameters())
+    print(f"[{tag}] {n_params / 1e6:.1f} M f32 params, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    expect = dict.fromkeys(_launches(), 0)
+    expect.update(per_step)
+    reset_launches()
+    eager = [step.dygraph_function(*batch).item()
+             for _ in range(HEADLINE_STEPS)]
+    got = read_launches(f"{tag}, dygraph_function")
+    if got != {k: HEADLINE_STEPS * v for k, v in expect.items()}:
+        raise AssertionError(f"{tag} dygraph launches {got}")
+    eager_state = {k: v.detach().clone() for k, v in twin.state_dict().items()}
+    del twin, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, step = build()
+    reset_launches()
+    losses, step_s, first = captured_run(step, [batch] * HEADLINE_STEPS)
+    launches = read_launches(tag)
+    want = {k: (HEADLINE_STEPS + WARMUP_CALLS) * v for k, v in expect.items()}
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches} != {want}")
+    if len(step._compiled) != 1:
+        raise AssertionError(f"{tag}: {len(step._compiled)} captures")
+    if not all(math.isfinite(x) for x in losses) or \
+            (falling and not losses[-1] < losses[0]):
+        raise AssertionError(f"{tag}: losses not finite (or not falling): "
+                             f"{losses}")
+    state = model.state_dict()
+    differ = [k for k, v in state.items()
+              if not torch.equal(v, eager_state[k])]
+    stats = sum(k.endswith(("_mean", "_variance")) for k in state)
+    if eager != losses or differ:
+        raise AssertionError(f"{tag}: captured and eager runs differ: losses "
+                             f"{losses} / {eager}, state {differ[:8]}")
+    steady = statistics.median(step_s[1:])
+    print(f"[{tag}] losses {losses}: the captured run equals the eager one "
+          f"bit for bit, losses and all {len(state)} state tensors ({stats} "
+          f"BatchNorm statistics); launches a step {per_step}")
+    print(f"[{tag}] {card_line()}: step {steady * 1e3:.1f} ms (median of "
+          f"steps 2-{HEADLINE_STEPS}), {items / steady:.1f} {unit}/s; "
+          f"{first}")
+    profile_train_step(step, batch, steady, tag)
+    return launches, {"step_ms": steady * 1e3, f"{unit}_per_s": items / steady,
+                      "first_ms": step_s[0] * 1e3}
+
+
+def _mlm_build(kind):
+    """``bench.py:_bench_ernie`` / ``_bench_bert``: ERNIE-3.0-base or
+    BERT-base at dropout 0, ``AdamW(1e-4)``, the masked-LM step under
+    ``to_static`` and ``auto_cast(level="O1", dtype="bfloat16")``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator("cuda").manual_seed(0)
+    if kind == "ernie":
+        cfg = models.ernie_3_0_base(dropout=0.0, attention_dropout=0.0)
+        model = models.ErnieForPretraining(cfg, generator=gen)
+    else:
+        cfg = models.BertConfig(dropout=0.0, attention_dropout=0.0)
+        model = models.BertForPretraining(cfg, generator=gen)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters())
+    vocab = cfg.vocab_size
+
+    @pt.jit.to_static
+    def train_step(ids, task_ids, labels):
+        opt.clear_grad()
+        with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            if kind == "ernie":
+                pred = model(ids, task_type_ids=task_ids)
+            else:
+                pred, _ = model(ids)
+        loss = F.cross_entropy(pred.reshape([-1, vocab]),
+                               labels.reshape([-1]))
+        loss.backward()
+        opt.step()
+        return loss
+
+    return model, train_step
+
+
+def _vision_build(kind):
+    """``bench.py:_resnet_variant`` (ResNet-50 NHWC, ``Momentum(0.1,
+    momentum=0.9)``) or ``tools/profile_vit.py`` (ViT-B/16 at dropout 0,
+    ``AdamW(1e-4)``): the step under ``to_static`` and
+    ``auto_cast(level="O1", dtype="bfloat16")``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision.models import resnet50
+    gen = torch.Generator("cuda").manual_seed(0)
+    if kind == "resnet":
+        model = resnet50(num_classes=1000, data_format="NHWC", remat=False,
+                         generator=gen)
+        opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                    parameters=model.parameters())
+    else:
+        model = models.VisionTransformer(
+            models.vit_b_16(dropout=0.0, attention_dropout=0.0),
+            generator=gen)
+        opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+
+    @pt.jit.to_static
+    def train_step(x, y):
+        opt.clear_grad()
+        with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            logits = model(x)
+        loss = F.cross_entropy(logits, y)
+        loss.backward()
+        opt.step()
+        return loss
+
+    return model, train_step
+
+
+def phase_encoders():
+    """ERNIE-3.0-base and BERT-base masked-LM steps at 16 x 512 tokens
+    (``_headline_path``): a step launches each LayerNorm kernel 26 times
+    (the embeddings', two a layer, the LM head's) and each flash kernel
+    12 times, at head_dim 64."""
+    data = torch.Generator("cuda").manual_seed(3)
+    out = {}
+    for kind, vocab in (("ernie", 40000), ("bert", 30522)):
+        ids = torch.randint(0, vocab, (ENC_B, ENC_S), device="cuda",
+                            generator=data)
+        labels = torch.randint(0, vocab, (ENC_B, ENC_S), device="cuda",
+                               generator=data)
+        task = torch.zeros_like(ids)
+        out[kind] = _headline_path(
+            kind, lambda kind=kind: _mlm_build(kind), (ids, task, labels),
+            {"ln_fwd": 26, "ln_bwd": 26, "flash_fwd": 12, "flash_bwd_dq": 12,
+             "flash_bwd_dkv": 12}, ENC_B * ENC_S, "tokens")
+    return out
+
+
+def phase_vision():
+    """ResNet-50 NHWC at 256 x 224^2 (no kernel of the port on its path:
+    its convs, BatchNorm and pools are cuDNN and torch, as they are XLA
+    in the reference; cuDNN deterministic, so the captured step can equal
+    the eager one) and ViT-B/16 at 128 x 224^2 (LayerNorm 25 launches a
+    step each way, flash 12 each at 197 tokens), through
+    ``_headline_path``."""
+    data = torch.Generator("cuda").manual_seed(4)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        x = torch.randn(RESNET_B, RESNET_SIDE, RESNET_SIDE, 3, device="cuda",
+                        generator=data)
+        y = torch.randint(0, 1000, (RESNET_B,), device="cuda", generator=data)
+        out = {"resnet": _headline_path(
+            "resnet", lambda: _vision_build("resnet"), (x, y), {}, RESNET_B,
+            "images", falling=False)}
+        del x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+        x = torch.randn(VIT_B, 3, 224, 224, device="cuda", generator=data)
+        y = torch.randint(0, 1000, (VIT_B,), device="cuda", generator=data)
+        out["vit"] = _headline_path(
+            "vit", lambda: _vision_build("vit"), (x, y),
+            {"ln_fwd": 25, "ln_bwd": 25, "flash_fwd": 12, "flash_bwd_dq": 12,
+             "flash_bwd_dkv": 12}, VIT_B, "images", falling=False)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5506,6 +5776,12 @@ def main(argv=None):
     paths["fleet"] = phase("fleet", phase_fleet, bf16_serving)
     paths["moe"] = phase("moe", phase_moe)
     phase("collectives", phase_collectives)
+    flash64_err, flash64_timings = phase("flash64", phase_flash64)
+    headline = phase("encoders", phase_encoders)
+    headline.update(phase("vision", phase_vision))
+    print("[headline] " + "; ".join(
+        f"{tag}: " + ", ".join(f"{k} {v:.1f}" for k, v in numbers.items())
+        for tag, (_, numbers) in headline.items()))
     print(f"[phase] seconds: {seconds}, {sum(seconds.values()):.1f} in all")
     max_err.update(train_err)
     max_err.update(adam_err)
@@ -5544,7 +5820,11 @@ def main(argv=None):
                 shape.update({f"{k}_{case}": c[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "shape", "block")})
-        by_path = {path: counts[name] for path, counts in paths.items()}
+        # the headline paths run the LayerNorm kernels as the others do,
+        # and the flash kernels at head_dim 64: those are the rows below
+        drives = paths if name.startswith("flash") else {
+            **paths, **{tag: counts for tag, (counts, _) in headline.items()}}
+        by_path = {path: counts[name] for path, counts in drives.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -5555,6 +5835,22 @@ def main(argv=None):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **shape})
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        t, vit = flash64_timings["bert"][name], flash64_timings["vit"][name]
+        by_path = {tag: counts[name] for tag, (counts, _) in headline.items()}
+        kernels.append({
+            "name": f"{name}_d64", "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": flash64_err[name],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "shape", "causal", "dtype")},
+            **{f"{k}_vit": vit[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms",
+                                            "shape")},
+            **({"pair_ms": t["pair_ms"], "pair_library_ms":
+                t["pair_library_ms"], "pair_ms_vit": vit["pair_ms"],
+                "pair_library_ms_vit": vit["pair_library_ms"]}
+               if "pair_ms" in t else {})})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["device_name", "resolve_device"]
+__all__ = ["device_name", "model_factory", "resolve_device"]
 
 
 def resolve_device(device=None):
@@ -25,6 +25,17 @@ def resolve_device(device=None):
     elif dev.type != "cpu":
         raise ValueError(f"paddle_tpu_torch runs on cuda or cpu, not {dev}")
     return dev
+
+
+def model_factory(device=None, dtype=None, generator=None):
+    """A model's construction arguments: the resolved device (see
+    :func:`resolve_device`), the dtype, and one generator on that device
+    that draws every weight in construction order (seeded 0 when none is
+    given)."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return dict(device=device, dtype=dtype, generator=generator)
 
 
 def device_name(device):

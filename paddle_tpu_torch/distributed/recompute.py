@@ -44,7 +44,7 @@ import threading
 import torch
 from torch import nn
 
-from paddle_tpu_torch.amp.auto_cast import auto_cast, is_enabled
+from paddle_tpu_torch.amp.auto_cast import amp_state, auto_cast
 from paddle_tpu_torch.amp.policy import (activation_residency,
                                          current_policy, remat_active)
 from paddle_tpu_torch.framework import state
@@ -85,15 +85,26 @@ def _owner_params(function):
     return list(params.values())
 
 
+def _autocast_args():
+    """``auto_cast``'s arguments for this thread's autocast, or None when
+    it is off."""
+    st = amp_state()
+    if not st.enabled:
+        return None
+    return dict(custom_white_list=st.custom_white,
+                custom_black_list=st.custom_black, level=st.level,
+                dtype="bfloat16" if st.dtype == torch.bfloat16 else "float16")
+
+
 @contextlib.contextmanager
 def _amp(policy, autocast):
-    """The policy and autocast a region's forward ran under, entered on
-    the re-run's thread."""
+    """The policy and autocast (``auto_cast``'s arguments, or None) a
+    region's forward ran under, entered on the re-run's thread."""
     with contextlib.ExitStack() as stack:
         if policy is not None:
             stack.enter_context(activation_residency(policy))
-        if autocast and (policy is None or policy.dtype is None):
-            stack.enter_context(auto_cast())
+        if autocast is not None and (policy is None or policy.dtype is None):
+            stack.enter_context(auto_cast(**autocast))
         yield
 
 
@@ -105,7 +116,7 @@ class _Recompute(torch.autograd.Function):
         args, params = inputs[:n_args], inputs[n_args:]
         ctx.function, ctx.kwargs, ctx.params = function, kwargs, params
         ctx.policy = current_policy()
-        ctx.autocast = is_enabled()
+        ctx.autocast = _autocast_args()
         ctx.key = state._rng.key
         ctx.key_start = None if ctx.key is None else ctx.key.clone()
         ctx.args = [a.detach() if isinstance(a, torch.Tensor) else a

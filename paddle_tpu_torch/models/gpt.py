@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.amp.policy import remat_active
-from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.device import model_factory
 from paddle_tpu_torch.distributed.fleet.meta_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
 from paddle_tpu_torch.distributed.moe import MoELayer, StackedExpertFFN
@@ -269,16 +269,13 @@ class GPTForCausalLM(nn.Module):
 
     def __init__(self, config, device=None, dtype=None, generator=None):
         super().__init__()
-        device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
+        factory = model_factory(device, dtype, generator)
         self.config = config
-        self.gpt = GPTModel(config, device=device, dtype=dtype,
-                            generator=generator)
+        self.gpt = GPTModel(config, **factory)
         if not config.tie_word_embeddings:
             self.lm_head_weight = normal_parameter(
                 (config.hidden_size, config.vocab_size),
-                config.initializer_range, device, dtype, generator)
+                config.initializer_range, **factory)
 
     def _head_weight(self):
         """The head as ``[hidden, vocab]``."""

@@ -2,9 +2,8 @@
 from paddle_tpu_torch.nn import functional
 from paddle_tpu_torch.nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
                                       ClipGradByValue)
-from paddle_tpu_torch.nn.layer import (Dropout, Embedding, LayerNorm, Linear,
-                                      RMSNorm)
+from paddle_tpu_torch.nn.layer import *  # noqa: F401,F403
+from paddle_tpu_torch.nn.layer import __all__ as _layers
 
 __all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
-           "Dropout", "Embedding", "LayerNorm", "Linear", "RMSNorm",
-           "functional"]
+           "functional"] + _layers

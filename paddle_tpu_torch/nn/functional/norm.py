@@ -17,9 +17,37 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.amp.auto_cast import downcast_inputs
+from paddle_tpu_torch.amp.policy import current_policy
 from paddle_tpu_torch.ops.cuda import norm as _kernels
 
-__all__ = ["fused_ln_residual", "layer_norm", "rms_norm"]
+__all__ = ["batch_norm", "fused_ln_residual", "layer_norm", "rms_norm"]
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-05,
+               data_format="NCHW", use_global_stats=None):
+    """Paddle's batch norm (``paddle_tpu/nn/functional/norm.py:24``) on
+    ``torch.nn.functional.batch_norm`` (cuDNN on the card; the reference's
+    is XLA's, no Pallas kernel). In training (and not
+    ``use_global_stats``) it normalises with the batch's statistics,
+    taken in f32 and centred (never as E[x^2] - E[x]^2), and updates the
+    running ones in place on their device, so a captured step replays the
+    update: ``r = m r + (1 -
+    m) b`` with paddle's ``momentum`` m (torch's is ``1 - m``), the
+    variance unbiased (``n / (n - 1)``). Otherwise it uses the running
+    statistics. The output has x's type; the statistics and the affine
+    are f32. ``data_format`` ``"N...C"`` is normalised through its
+    channels-first view."""
+    use_batch = training and not use_global_stats
+
+    def fn(v):
+        return torch.nn.functional.batch_norm(
+            v, running_mean, running_var, weight, bias, training=use_batch,
+            momentum=1.0 - momentum, eps=epsilon)
+    if data_format.startswith("NC"):
+        return fn(x)
+    return fn(x.movedim(-1, 1)).movedim(1, -1)
 
 
 def _use_fused(fused, x):
@@ -33,6 +61,10 @@ def _use_fused(fused, x):
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
                fused=None):
+    """LayerNorm over the trailing ``normalized_shape`` axes. The
+    composition is the reference's: under autocast a narrow x is raised to
+    f32 first (``layer_norm`` is on the black list), and under a bf16
+    activation policy the result returns to x's type."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     nd = len(tuple(normalized_shape))
@@ -41,6 +73,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
         if _kernels.ln_kernel_takes(xc, weight, bias):
             return _kernels.ln_fwd(xc, weight, bias, epsilon)
         _kernels.ROUTED["layer_norm"] += 1
+    orig_dtype = x.dtype
+    (x,) = downcast_inputs(x, opname="layer_norm")
     axes = tuple(range(x.dim() - nd, x.dim()))
     mean = x.mean(dim=axes, keepdim=True)
     var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
@@ -49,6 +83,9 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
         out = out * weight
     if bias is not None:
         out = out + bias
+    pol = current_policy()
+    if pol is not None and pol.dtype is not None and out.dtype != orig_dtype:
+        out = out.to(orig_dtype)
     return out
 
 

@@ -3,10 +3,10 @@
 
 Without a mask and without dropout in training, attention runs the flash
 kernels (:mod:`paddle_tpu_torch.ops.cuda.flash_attention`) when
-``kernel_takes`` says they take the operands (head_dim 128, f32 or bf16):
-on a CUDA tensor they launch or raise, with no fallback; on a CPU tensor
-they compute their plain version. Other shapes and types go, before any
-launch, to autograd through flash's plain forward (counted in
+``kernel_takes`` says they take the operands (head_dim 64 or 128, f32
+or bf16): on a CUDA tensor they launch or raise, with no fallback; on a
+CPU tensor they compute their plain version. Other shapes and types go,
+before any launch, to autograd through flash's plain forward (counted in
 ``flash_attention.ROUTED``), so every head_dim returns what the
 reference's Pallas kernel returns, causal mask top-left aligned. With a
 mask, or with dropout in training, it is the plain composition of the

@@ -50,7 +50,7 @@ class Embedding(nn.Module):
                                        device, dtype, generator)
 
     def forward(self, ids):
-        return torch.nn.functional.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight)
 
 
 class Dropout(nn.Module):

@@ -78,6 +78,19 @@
 // f32 is the checking path). bsa_fwd's f32 kernel shares these tiles
 // (block_sparse_attention.cu).
 //
+// head_dim: every kernel is a template on D, instantiated at 64 (BERT-base,
+// ERNIE-3.0-base, ViT-B/16) and 128 (GPT-1.3B), as bsa_fwd is. At D 64 a
+// 64-row tile is one 128-byte TMA box, the wgmma products whose N is the
+// head (o += p v, dq += ds k, dv += p^T do, dk += ds^T q) are m64n64k16,
+// each thread holds 32 accumulators a product instead of 64, and the
+// shared memory a block needs halves (81 KB forward, 67 KB backward). The
+// products over keys keep their widths, so a step does half the work of
+// D 128 on the same tiles. At BERT's shape ([16, 512, 12, 64], not causal)
+// the forward moves 50 MB (15 us at 3.35 TB/s) and does 12.9 GFLOP (13 us):
+// level again; at ViT-B's ([128, 197, 12, 64], ragged: 197 = 128 + 69
+// rows) bytes lead, and TMA fills the rows past 197 with zeros, which the
+// masks of the last tile and the stores' row bounds keep out.
+//
 // Numerics follow the Pallas kernels: base-2 softmax with scale*log2(e)
 // folded into the scores, masked scores set to -1e30 (not -inf), the
 // causal mask top-left aligned (col <= row), l == 0 rows divided by 1,
@@ -97,7 +110,6 @@
 namespace {
 
 constexpr int kBlockQi = 32;  // dk/dv: query rows a step
-constexpr int kHeadDim = 128; // the one head_dim instantiated (GPT-1.3B's)
 
 // Key tiles a query tile starting at q0 visits (the causal diagonal bound).
 __device__ __forceinline__ int key_tiles(int q0, int seq_k, int causal) {
@@ -112,9 +124,13 @@ constexpr int kWgKeys = 128;                 // keys a step
 constexpr int kWgStages = 2;                 // depth of the K/V ring
 constexpr int kBox = 64;                     // head_dim values a TMA box row holds (128 B)
 constexpr int kBoxBytes = kWgRows * kBox * 2;              // 16 KB
-constexpr int kTileBytes = kWgRows * kHeadDim * 2;         // 32 KB: two boxes
 constexpr int kWgThreads = 256;              // two warpgroups of 64 query rows
-constexpr int kWgSmem = (1 + 2 * kWgStages) * kTileBytes + 128 + 1024;  // + barriers, alignment
+// A 128-row tile of head_dim D: D / 64 boxes side by side (32 KB at D 128,
+// one 16 KB box at D 64).
+template <int D>
+constexpr int kTileBytes = kWgRows * D * 2;
+template <int D>
+constexpr int kWgSmem = (1 + 2 * kWgStages) * kTileBytes<D> + 128 + 1024;  // + barriers, alignment
 
 struct WgBarriers {
   uint64_t q;
@@ -133,7 +149,9 @@ struct WgBarriers {
 // softmax in the accumulator registers (a thread holds rows row_a and
 // row_a + 8, columns 8j + 2t + {0, 1}), rounds p to bf16 in registers and
 // adds p v by wgmma with p as the register A operand (v MN-major, read
-// through the transpose bit).
+// through the transpose bit). At D 64 a tile is one box and o += p v is
+// wgmma.m64n64k16 (32 accumulators a thread, not 64).
+template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
@@ -141,11 +159,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                            __nv_bfloat16* __restrict__ o, float* __restrict__ lse, Strides os,
                            int heads, int bh_count, int q_tiles, int seq_q, int seq_k, float sl2,
                            int causal) {
+  constexpr int TB = kTileBytes<D>;
+  constexpr int NA = D / 2;  // accumulator registers a thread: 64 x D over 128 threads
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = hopper::align_1024(smem_raw);
-  unsigned char* sk = sq + kTileBytes;
-  unsigned char* sv = sk + kWgStages * kTileBytes;
-  WgBarriers& bar = *reinterpret_cast<WgBarriers*>(sv + kWgStages * kTileBytes);
+  unsigned char* sk = sq + TB;
+  unsigned char* sv = sk + kWgStages * TB;
+  WgBarriers& bar = *reinterpret_cast<WgBarriers*>(sv + kWgStages * TB);
 
   const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x) / bh_count;
   const int bh = static_cast<int>(blockIdx.x) % bh_count;
@@ -157,9 +177,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // key tile kt's K (or V) into stage kt % kWgStages
   auto load_kv = [&](const CUtensorMap* map, unsigned char* ring, uint64_t* full, int kt) {
     const int s = kt % kWgStages;
-    hopper::mbar_expect_tx(&full[s], kTileBytes);
-    for (int x = 0; x < kHeadDim / kBox; ++x)
-      hopper::tma_load_4d(ring + s * kTileBytes + x * kBoxBytes, map, &full[s], x * kBox, h,
+    hopper::mbar_expect_tx(&full[s], TB);
+    for (int x = 0; x < D / kBox; ++x)
+      hopper::tma_load_4d(ring + s * TB + x * kBoxBytes, map, &full[s], x * kBox, h,
                           kt * kWgKeys, b);
   };
   if (threadIdx.x == 0) {
@@ -171,8 +191,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       hopper::mbar_init(&bar.empty_v[s], 8);
     }
     hopper::fence_barrier_init();
-    hopper::mbar_expect_tx(&bar.q, kTileBytes);
-    for (int x = 0; x < kHeadDim / kBox; ++x)
+    hopper::mbar_expect_tx(&bar.q, TB);
+    for (int x = 0; x < D / kBox; ++x)
       hopper::tma_load_4d(sq + x * kBoxBytes, &qmap, &bar.q, x * kBox, h, q0, b);
     for (int kt = 0; kt < min(nk, kWgStages); ++kt) {
       load_kv(&kmap, sk, bar.full_k, kt);
@@ -186,9 +206,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int g = lane >> 2, t = lane & 3;
   const int row_a = q0 + wg * 64 + warp * 16 + g;  // and row_a + 8
   const unsigned char* qw = sq + wg * 64 * 128;     // this warpgroup's 64 rows
-  float acc[64];
+  float acc[NA];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   // this warp is done with key tile kt's K (or V): release it; thread 0
@@ -247,10 +267,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     hopper::mbar_wait(&bar.full_k[s], parity);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
       const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
       hopper::wgmma_m64n128k16_ss(sc, hopper::smem_desc(qw + off, 16, 1024),
-                                  hopper::smem_desc(sk + s * kTileBytes + off, 16, 1024),
+                                  hopper::smem_desc(sk + s * TB + off, 16, 1024),
                                   kk > 0);
     }
     hopper::wgmma_commit();
@@ -265,13 +285,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       softmax(sc, kt * kWgKeys, std::false_type{}, corr, rs);
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(rs[i]);
-    uint32_t p[32];  // p as the A operand: 2j and 2j + 1 are rows row_a and row_a + 8
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < NA / 4; ++j) {
       acc[4 * j] *= corr[0];
       acc[4 * j + 1] *= corr[0];
       acc[4 * j + 2] *= corr[1];
       acc[4 * j + 3] *= corr[1];
+    }
+    uint32_t p[32];  // p as the A operand: 2j and 2j + 1 are rows row_a and row_a + 8
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
       p[2 * j] = hopper::pack_bf16x2(sc[4 * j], sc[4 * j + 1]);
       p[2 * j + 1] = hopper::pack_bf16x2(sc[4 * j + 2], sc[4 * j + 3]);
     }
@@ -283,8 +306,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < kWgKeys / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-      hopper::wgmma_m64n128k16_rs_mn(
-          acc, a, hopper::smem_desc(sv + s * kTileBytes + kk * 16 * 128, kBoxBytes, 1024));
+      const uint64_t desc = hopper::smem_desc(sv + s * TB + kk * 16 * 128, kBoxBytes, 1024);
+      if constexpr (D == 128)
+        hopper::wgmma_m64n128k16_rs_mn(acc, a, desc);
+      else
+        hopper::wgmma_m64n64k16_rs_mn(acc, a, desc);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -298,7 +324,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const float lb = l[1] == 0.f ? 1.f : l[1];
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < NA / 4; ++j) {
     const int col = 8 * j + 2 * t;
     if (row_a < seq_q)
       *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(row_a) * os.s + col) =
@@ -321,34 +347,39 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // ring (one full and one empty barrier a stage, refilled by thread 0 once
 // all 8 warps released it). Every TMA box is 64 head values (128 bytes,
 // the swizzle width) by 64 rows (flash_attention.py:tma_geometry, rows
-// 64); a 64-row tile is two boxes side by side, a 128-row one two such
-// tiles, warpgroup 0's rows first.
+// 64); a 64-row tile is D / 64 boxes side by side (two at D 128, one at
+// D 64), a 128-row one two such tiles, warpgroup 0's rows first.
 constexpr int kBwOwn = 128;                               // rows a block owns
 constexpr int kBwStep = 64;                               // rows a step
 constexpr int kBwStages = 2;
 constexpr int kBwBoxBytes = kBwStep * kBox * 2;           // 8 KB
-constexpr int kBwStepBytes = kBwStep * kHeadDim * 2;      // 16 KB: a 64-row tile
-constexpr int kBwOwnBytes = kBwOwn * kHeadDim * 2;        // 32 KB
-constexpr int kBwSmem = 4 * kBwOwnBytes + 2 * 2 * 2 * kBwStep * 4 + 128 + 1024;
+template <int D>
+constexpr int kBwStepBytes = kBwStep * D * 2;             // a 64-row tile: 16 KB at D 128
+template <int D>
+constexpr int kBwOwnBytes = kBwOwn * D * 2;               // 32 KB at D 128
+template <int D>
+constexpr int kBwSmem = 4 * kBwOwnBytes<D> + 2 * 2 * 2 * kBwStep * 4 + 128 + 1024;
 
 struct BwBarriers {
   uint64_t own;                                   // the block's own two tiles
   uint64_t full[kBwStages], empty[kBwStages];     // the ring
 };
 
-// Rows [row0, row0 + 64) of head h, batch b: two boxes into dst (16 KB).
+// Rows [row0, row0 + 64) of head h, batch b: D / 64 boxes into dst.
+template <int D>
 __device__ __forceinline__ void tma_rows64(unsigned char* dst, const CUtensorMap* map,
                                            uint64_t* bar, int h, int row0, int b) {
-  for (int x = 0; x < kHeadDim / kBox; ++x)
+  for (int x = 0; x < D / kBox; ++x)
     hopper::tma_load_4d(dst + x * kBwBoxBytes, map, bar, x * kBox, h, row0, b);
 }
 
 // acc (+)= A B^T over head_dim for two 64-row tiles, both K-major (rows of
 // head values): A this warpgroup's rows, B a step's 64 rows.
+template <int D>
 __device__ __forceinline__ void wgmma_rows_dot(float (&acc)[32], const unsigned char* a,
                                                const unsigned char* b) {
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     const int off = (kk / 4) * kBwBoxBytes + (kk % 4) * 32;
     hopper::wgmma_m64n64k16_ss(acc, hopper::smem_desc(a + off, 16, 1024),
                                hopper::smem_desc(b + off, 16, 1024), kk > 0);
@@ -356,23 +387,29 @@ __device__ __forceinline__ void wgmma_rows_dot(float (&acc)[32], const unsigned 
 }
 
 // acc += A B with A 64 x 64 in registers (pairs of the accumulator layout)
-// and B a step's 64 rows of 128 head values, read MN-major.
-__device__ __forceinline__ void wgmma_frag_rows(float (&acc)[64], const uint32_t (&a)[16],
+// and B a step's 64 rows of D head values, read MN-major.
+template <int D>
+__device__ __forceinline__ void wgmma_frag_rows(float (&acc)[D / 2], const uint32_t (&a)[16],
                                                 const unsigned char* b) {
 #pragma unroll
   for (int kk = 0; kk < kBwStep / 16; ++kk) {
     const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
-    hopper::wgmma_m64n128k16_rs_mn(acc, ak, hopper::smem_desc(b + kk * 16 * 128, kBwBoxBytes, 1024));
+    const uint64_t desc = hopper::smem_desc(b + kk * 16 * 128, kBwBoxBytes, 1024);
+    if constexpr (D == 128)
+      hopper::wgmma_m64n128k16_rs_mn(acc, ak, desc);
+    else
+      hopper::wgmma_m64n64k16_rs_mn(acc, ak, desc);
   }
 }
 
-// A 64 x 128 accumulator (rows row_a and row_a + 8 of this thread) to
+// A 64 x D accumulator (rows row_a and row_a + 8 of this thread) to
 // global rows below seq through the row stride.
+template <int D>
 __device__ __forceinline__ void store_acc_rows(__nv_bfloat16* base, long long stride, int row_a,
-                                               int seq, const float (&acc)[64]) {
+                                               int seq, const float (&acc)[D / 2]) {
   const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (row_a < seq)
       *reinterpret_cast<uint32_t*>(base + static_cast<long long>(row_a) * stride + col) =
@@ -392,6 +429,7 @@ __device__ __forceinline__ void store_acc_rows(__nv_bfloat16* base, long long st
 // the tiles that hold any) and ds = p (dP - delta) scale, rounds ds to
 // bf16 in registers and adds ds k by wgmma (k read MN-major). lse and
 // delta of the thread's two rows stay in registers.
+template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                               const __grid_constant__ CUtensorMap kmap,
@@ -401,12 +439,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                               __nv_bfloat16* __restrict__ dq, Strides dqs, int heads,
                               int bh_count, int q_tiles, int seq_q, int seq_k, float scale,
                               int causal) {
+  constexpr int SB = kBwStepBytes<D>, OB = kBwOwnBytes<D>;
+  constexpr int NA = D / 2;  // accumulator registers a thread
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = hopper::align_1024(smem_raw);
-  unsigned char* sdo = sq + kBwOwnBytes;
-  unsigned char* sk = sdo + kBwOwnBytes;
-  unsigned char* sv = sk + kBwStages * kBwStepBytes;
-  BwBarriers& bar = *reinterpret_cast<BwBarriers*>(sv + kBwStages * kBwStepBytes);
+  unsigned char* sdo = sq + OB;
+  unsigned char* sk = sdo + OB;
+  unsigned char* sv = sk + kBwStages * SB;
+  BwBarriers& bar = *reinterpret_cast<BwBarriers*>(sv + kBwStages * SB);
 
   const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x) / bh_count;
   const int bh = static_cast<int>(blockIdx.x) % bh_count;
@@ -417,9 +457,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   auto load_kv = [&](int kt) {
     const int s = kt % kBwStages;
-    hopper::mbar_expect_tx(&bar.full[s], 2 * kBwStepBytes);
-    tma_rows64(sk + s * kBwStepBytes, &kmap, &bar.full[s], h, kt * kBwStep, b);
-    tma_rows64(sv + s * kBwStepBytes, &vmap, &bar.full[s], h, kt * kBwStep, b);
+    hopper::mbar_expect_tx(&bar.full[s], 2 * SB);
+    tma_rows64<D>(sk + s * SB, &kmap, &bar.full[s], h, kt * kBwStep, b);
+    tma_rows64<D>(sv + s * SB, &vmap, &bar.full[s], h, kt * kBwStep, b);
   };
   if (threadIdx.x == 0) {
     hopper::mbar_init(&bar.own, 1);
@@ -428,10 +468,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       hopper::mbar_init(&bar.empty[s], 8);
     }
     hopper::fence_barrier_init();
-    hopper::mbar_expect_tx(&bar.own, 2 * kBwOwnBytes);
+    hopper::mbar_expect_tx(&bar.own, 2 * OB);
     for (int half = 0; half < 2; ++half) {
-      tma_rows64(sq + half * kBwStepBytes, &qmap, &bar.own, h, q0 + half * kBwStep, b);
-      tma_rows64(sdo + half * kBwStepBytes, &domap, &bar.own, h, q0 + half * kBwStep, b);
+      tma_rows64<D>(sq + half * SB, &qmap, &bar.own, h, q0 + half * kBwStep, b);
+      tma_rows64<D>(sdo + half * SB, &domap, &bar.own, h, q0 + half * kBwStep, b);
     }
     for (int kt = 0; kt < min(nk, kBwStages); ++kt) load_kv(kt);
   }
@@ -442,8 +482,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int g = lane >> 2, t = lane & 3;
   const int q0w = q0 + wg * kBwStep;                // this warpgroup's first row
   const int row_a = q0w + warp * 16 + g;            // and row_a + 8
-  const unsigned char* qw = sq + wg * kBwStepBytes;
-  const unsigned char* dow = sdo + wg * kBwStepBytes;
+  const unsigned char* qw = sq + wg * SB;
+  const unsigned char* dow = sdo + wg * SB;
   const float sl2 = scale * kLog2e;
   float lse2[2], dl[2];
 #pragma unroll
@@ -453,9 +493,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     lse2[i] = row < seq_q ? lse[at] * kLog2e : 0.f;
     dl[i] = row < seq_q ? delta[at] : 0.f;
   }
-  float acc[64];
+  float acc[NA];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
 
   // ds of one key step in S's layout, rounded to bf16 pairs (the A
   // fragment of ds k); `masked` sets keys past seq_k and, under causal,
@@ -483,12 +523,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   hopper::mbar_wait(&bar.own, 0);
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % kBwStages;
-    const unsigned char* kst = sk + s * kBwStepBytes;
+    const unsigned char* kst = sk + s * SB;
     float sc[32], dp[32];
     hopper::mbar_wait(&bar.full[s], (kt / kBwStages) & 1);
     hopper::wgmma_fence();
-    wgmma_rows_dot(sc, qw, kst);
-    wgmma_rows_dot(dp, dow, sv + s * kBwStepBytes);
+    wgmma_rows_dot<D>(sc, qw, kst);
+    wgmma_rows_dot<D>(dp, dow, sv + s * SB);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
@@ -504,7 +544,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     hopper::fence_regs(acc);
     hopper::fence_regs(da);
     hopper::wgmma_fence();
-    wgmma_frag_rows(acc, da, kst);
+    wgmma_frag_rows<D>(acc, da, kst);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
@@ -519,7 +559,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     __syncwarp();
   }
-  store_acc_rows(dq + b * dqs.b + h * dqs.h, dqs.s, row_a, seq_q, acc);
+  store_acc_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.s, row_a, seq_q, acc);
 }
 
 // dk and dv. Block (b*h, 128 keys), the first key tiles first (under
@@ -536,6 +576,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // thread reads those of its columns 8j + 2t + {0, 1}. Queries past seq_q
 // and, under causal, key > query are set to -1e30 on the steps that hold
 // any.
+template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                const __grid_constant__ CUtensorMap kmap,
@@ -545,12 +586,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                                Strides dks, Strides dvs, int heads, int bh_count, int seq_q,
                                int seq_k, float scale, int causal) {
+  constexpr int SB = kBwStepBytes<D>, OB = kBwOwnBytes<D>;
+  constexpr int NA = D / 2;  // accumulator registers a thread
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sk = hopper::align_1024(smem_raw);
-  unsigned char* sv = sk + kBwOwnBytes;
-  unsigned char* sq = sv + kBwOwnBytes;
-  unsigned char* sdo = sq + kBwStages * kBwStepBytes;
-  float* stats_all = reinterpret_cast<float*>(sdo + kBwStages * kBwStepBytes);
+  unsigned char* sv = sk + OB;
+  unsigned char* sq = sv + OB;
+  unsigned char* sdo = sq + kBwStages * SB;
+  float* stats_all = reinterpret_cast<float*>(sdo + kBwStages * SB);
   BwBarriers& bar = *reinterpret_cast<BwBarriers*>(stats_all + 2 * 2 * 2 * kBwStep);
 
   const int kt = static_cast<int>(blockIdx.x) / bh_count;
@@ -562,9 +605,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   auto load_qdo = [&](int i) {
     const int s = i % kBwStages;
-    hopper::mbar_expect_tx(&bar.full[s], 2 * kBwStepBytes);
-    tma_rows64(sq + s * kBwStepBytes, &qmap, &bar.full[s], h, (first + i) * kBwStep, b);
-    tma_rows64(sdo + s * kBwStepBytes, &domap, &bar.full[s], h, (first + i) * kBwStep, b);
+    hopper::mbar_expect_tx(&bar.full[s], 2 * SB);
+    tma_rows64<D>(sq + s * SB, &qmap, &bar.full[s], h, (first + i) * kBwStep, b);
+    tma_rows64<D>(sdo + s * SB, &domap, &bar.full[s], h, (first + i) * kBwStep, b);
   };
   if (threadIdx.x == 0) {
     hopper::mbar_init(&bar.own, 1);
@@ -573,10 +616,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       hopper::mbar_init(&bar.empty[s], 8);
     }
     hopper::fence_barrier_init();
-    hopper::mbar_expect_tx(&bar.own, 2 * kBwOwnBytes);
+    hopper::mbar_expect_tx(&bar.own, 2 * OB);
     for (int half = 0; half < 2; ++half) {
-      tma_rows64(sk + half * kBwStepBytes, &kmap, &bar.own, h, k0 + half * kBwStep, b);
-      tma_rows64(sv + half * kBwStepBytes, &vmap, &bar.own, h, k0 + half * kBwStep, b);
+      tma_rows64<D>(sk + half * SB, &kmap, &bar.own, h, k0 + half * kBwStep, b);
+      tma_rows64<D>(sv + half * SB, &vmap, &bar.own, h, k0 + half * kBwStep, b);
     }
     for (int i = 0; i < min(steps, kBwStages); ++i) load_qdo(i);
   }
@@ -587,15 +630,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int g = lane >> 2, t = lane & 3;
   const int k0w = k0 + wg * kBwStep;                // this warpgroup's first key
   const int key_a = k0w + warp * 16 + g;            // and key_a + 8
-  const unsigned char* kw = sk + wg * kBwStepBytes;
-  const unsigned char* vw = sv + wg * kBwStepBytes;
+  const unsigned char* kw = sk + wg * SB;
+  const unsigned char* vw = sv + wg * SB;
   float* stats = stats_all + wg * 2 * 2 * kBwStep;  // [buffer][lse | delta][64]
   const float* lrow = lse + static_cast<long long>(bh) * seq_q;
   const float* drow = delta + static_cast<long long>(bh) * seq_q;
   const float sl2 = scale * kLog2e;
-  float dka[64], dva[64];
+  float dka[NA], dva[NA];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < NA; ++i) dka[i] = dva[i] = 0.f;
 
   // p^T and ds^T of one query step in S^T's layout, rounded to bf16 pairs
   // (the A fragments of p^T do and ds^T q); st holds the stats of the
@@ -627,8 +670,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   for (int i = 0; i < steps; ++i) {
     const int s = i % kBwStages;
     const int q0 = (first + i) * kBwStep;
-    const unsigned char* qst = sq + s * kBwStepBytes;
-    const unsigned char* dost = sdo + s * kBwStepBytes;
+    const unsigned char* qst = sq + s * SB;
+    const unsigned char* dost = sdo + s * SB;
     // this step's lse (threads 0-63 of the warpgroup) or delta (64-127),
     // loaded before the wait so the read overlaps it
     const int row = q0 + (tid & 63);
@@ -638,8 +681,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     float sc[32], dp[32];
     hopper::mbar_wait(&bar.full[s], (i / kBwStages) & 1);
     hopper::wgmma_fence();
-    wgmma_rows_dot(sc, kw, qst);
-    wgmma_rows_dot(dp, vw, dost);
+    wgmma_rows_dot<D>(sc, kw, qst);
+    wgmma_rows_dot<D>(dp, vw, dost);
     hopper::wgmma_commit();
     float* st = stats + (i & 1) * 2 * kBwStep;
     st[tid] = stat;
@@ -659,8 +702,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     hopper::fence_regs(pa);
     hopper::fence_regs(da);
     hopper::wgmma_fence();
-    wgmma_frag_rows(dva, pa, dost);
-    wgmma_frag_rows(dka, da, qst);
+    wgmma_frag_rows<D>(dva, pa, dost);
+    wgmma_frag_rows<D>(dka, da, qst);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dva);
@@ -675,8 +718,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     __syncwarp();
   }
-  store_acc_rows(dk + b * dks.b + h * dks.h, dks.s, key_a, seq_k, dka);
-  store_acc_rows(dv + b * dvs.b + h * dvs.h, dvs.s, key_a, seq_k, dva);
+  store_acc_rows<D>(dk + b * dks.b + h * dks.h, dks.s, key_a, seq_k, dka);
+  store_acc_rows<D>(dv + b * dvs.b + h * dvs.h, dvs.s, key_a, seq_k, dva);
 }
 
 // The f32 forward: FMAs in the mma.sync register layout (attention_tiles.cuh).
@@ -890,12 +933,12 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   return cudaGetLastError();
 }
 
-// A [batch, seq, heads, 128] bf16 operand as a 4-D tensor map (head_dim,
+// A [batch, seq, heads, d] bf16 operand as a 4-D tensor map (head_dim,
 // heads, seq, batch) through its strides, boxes of 64 x 1 x rows x 1
 // (flash_attention.py:tma_geometry).
 bool encode_operand(CUtensorMap* map, const void* base, Strides s, int batch, int heads, int seq,
-                    int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(heads),
+                    int d, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
   const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(s.h) * 2, static_cast<cuuint64_t>(s.s) * 2,
                                static_cast<cuuint64_t>(s.b) * 2};
@@ -905,6 +948,7 @@ bool encode_operand(CUtensorMap* map, const void* base, Strides s, int batch, in
 
 // q, k, v in boxes of 128 rows, encoded on every call; one block per
 // (b*h, 128 query rows).
+template <int D>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
                              const long long* st, int batch, int heads, int seq_q, int seq_k,
                              float scale, int causal, cudaStream_t stream) {
@@ -912,13 +956,14 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   const void* base[3] = {q, k, v};
   const int seq[3] = {seq_q, seq_k, seq_k};
   for (int i = 0; i < 3; ++i)
-    if (!encode_operand(&maps[i], base[i], strides_at(st, i), batch, heads, seq[i], kWgRows))
+    if (!encode_operand(&maps[i], base[i], strides_at(st, i), batch, heads, seq[i], D, kWgRows))
       return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+  constexpr int smem = kWgSmem<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int q_tiles = (seq_q + kWgRows - 1) / kWgRows;
-  flash_fwd_wgmma_kernel<<<q_tiles * batch * heads, kWgThreads, kWgSmem, stream>>>(
+  flash_fwd_wgmma_kernel<D><<<q_tiles * batch * heads, kWgThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       strides_at(st, 3), heads, batch * heads, q_tiles, seq_q, seq_k, scale * kLog2e, causal);
   return cudaGetLastError();
@@ -927,28 +972,30 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
 // q, k, v, do (strides 0..3) in boxes of 64 rows, for both backward kernels.
 bool encode_bwd_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
                      const void* dout, const long long* st, int batch, int heads, int seq_q,
-                     int seq_k) {
+                     int seq_k, int d) {
   const void* base[4] = {q, k, v, dout};
   const int seq[4] = {seq_q, seq_k, seq_k, seq_q};
   for (int i = 0; i < 4; ++i)
-    if (!encode_operand(&maps[i], base[i], strides_at(st, i), batch, heads, seq[i], kBwStep))
+    if (!encode_operand(&maps[i], base[i], strides_at(st, i), batch, heads, seq[i], d, kBwStep))
       return false;
   return true;
 }
 
 // one block per (b*h, 128 query rows); dq's strides are st[4]
+template <int D>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, const long long* st,
                             int batch, int heads, int seq_q, int seq_k, float scale, int causal,
                             cudaStream_t stream) {
   CUtensorMap maps[4];
-  if (!encode_bwd_maps(maps, q, k, v, dout, st, batch, heads, seq_q, seq_k))
+  if (!encode_bwd_maps(maps, q, k, v, dout, st, batch, heads, seq_q, seq_k, D))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kBwSmem);
+  constexpr int smem = kBwSmem<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int q_tiles = (seq_q + kBwOwn - 1) / kBwOwn;
-  flash_bwd_dq_wgmma_kernel<<<q_tiles * batch * heads, kWgThreads, kBwSmem, stream>>>(
+  flash_bwd_dq_wgmma_kernel<D><<<q_tiles * batch * heads, kWgThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), strides_at(st, 4), heads,
       batch * heads, q_tiles, seq_q, seq_k, scale, causal);
@@ -956,18 +1003,20 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const v
 }
 
 // one block per (b*h, 128 keys); dk's and dv's strides are st[4], st[5]
+template <int D>
 cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv,
                              const long long* st, int batch, int heads, int seq_q, int seq_k,
                              float scale, int causal, cudaStream_t stream) {
   CUtensorMap maps[4];
-  if (!encode_bwd_maps(maps, q, k, v, dout, st, batch, heads, seq_q, seq_k))
+  if (!encode_bwd_maps(maps, q, k, v, dout, st, batch, heads, seq_q, seq_k, D))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kBwSmem);
+  constexpr int smem = kBwSmem<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int k_tiles = (seq_k + kBwOwn - 1) / kBwOwn;
-  flash_bwd_dkv_wgmma_kernel<<<k_tiles * batch * heads, kWgThreads, kBwSmem, stream>>>(
+  flash_bwd_dkv_wgmma_kernel<D><<<k_tiles * batch * heads, kWgThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), strides_at(st, 4), strides_at(st, 5), heads, batch * heads,
@@ -1015,17 +1064,23 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 bool valid_shape(int batch, int heads, int seq_q, int seq_k, int head_dim, int dtype) {
   return batch > 0 && heads > 0 && seq_q > 0 && seq_k > 0 && batch * heads <= 65535 &&
-         head_dim == kHeadDim && (dtype == kF32 || dtype == kBF16);
+         (head_dim == 64 || head_dim == 128) && (dtype == kF32 || dtype == kBF16);
 }
 
 }  // namespace
 
+// Each entry point picks the instance of its head_dim (64: BERT's, ViT's;
+// 128: GPT-1.3B's) and its dtype: bf16 the wgmma kernels (q, k and v
+// 16-byte aligned with strides of whole 16-byte units), f32 the mma.sync
+// tiles. The two instances of a kernel compute alike.
+#define FLASH_DISPATCH(BF16_CALL, F32_CALL)                                   \
+  (dtype == kBF16 ? (head_dim == 128 ? BF16_CALL(128) : BF16_CALL(64))        \
+                  : (head_dim == 128 ? F32_CALL(128) : F32_CALL(64)))
+
 // o = softmax(scale * q k^T (+ causal mask)) v and its f32 row log-sum-exp.
 // q, o: [batch, seq_q, heads, head_dim]; k, v: [batch, seq_k, heads,
 // head_dim]; strides: 12 values, (batch, seq, head) strides in elements of
-// q, k, v, o. lse: contiguous [batch*heads, seq_q] f32. head_dim 128.
-// bf16 runs flash_fwd_wgmma_kernel (q, k and v 16-byte aligned with
-// strides of whole 16-byte units), f32 flash_fwd_kernel.
+// q, k, v, o. lse: contiguous [batch*heads, seq_q] f32. head_dim 64 or 128.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          const long long* strides, int batch, int heads, int seq_q,
                          int seq_k, int head_dim, int dtype, float scale, int causal,
@@ -1035,10 +1090,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    err = launch_fwd_wgmma(q, k, v, o, lse, strides, batch, heads, seq_q, seq_k, scale, causal, s);
-  else
-    err = launch_fwd<float, kHeadDim>(q, k, v, o, lse, strides, batch, heads, seq_q, seq_k, scale, causal, s);
+#define FWD_BF16(D) \
+  launch_fwd_wgmma<D>(q, k, v, o, lse, strides, batch, heads, seq_q, seq_k, scale, causal, s)
+#define FWD_F32(D) \
+  launch_fwd<float, D>(q, k, v, o, lse, strides, batch, heads, seq_q, seq_k, scale, causal, s)
+  err = FLASH_DISPATCH(FWD_BF16, FWD_F32);
+#undef FWD_BF16
+#undef FWD_F32
   return static_cast<int>(err);
 }
 
@@ -1054,10 +1112,15 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    err = launch_dq_wgmma(q, k, v, dout, lse, delta, dq, strides, batch, heads, seq_q, seq_k, scale, causal, s);
-  else
-    err = launch_dq<float, kHeadDim>(q, k, v, dout, lse, delta, dq, strides, batch, heads, seq_q, seq_k, scale, causal, s);
+#define DQ_BF16(D)                                                                         \
+  launch_dq_wgmma<D>(q, k, v, dout, lse, delta, dq, strides, batch, heads, seq_q, seq_k, scale, \
+                     causal, s)
+#define DQ_F32(D)                                                                          \
+  launch_dq<float, D>(q, k, v, dout, lse, delta, dq, strides, batch, heads, seq_q, seq_k,  \
+                      scale, causal, s)
+  err = FLASH_DISPATCH(DQ_BF16, DQ_F32);
+#undef DQ_BF16
+#undef DQ_F32
   return static_cast<int>(err);
 }
 
@@ -1072,9 +1135,16 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    err = launch_dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, strides, batch, heads, seq_q, seq_k, scale, causal, s);
-  else
-    err = launch_dkv<float, kHeadDim>(q, k, v, dout, lse, delta, dk, dv, strides, batch, heads, seq_q, seq_k, scale, causal, s);
+#define DKV_BF16(D)                                                                          \
+  launch_dkv_wgmma<D>(q, k, v, dout, lse, delta, dk, dv, strides, batch, heads, seq_q, seq_k, \
+                      scale, causal, s)
+#define DKV_F32(D)                                                                           \
+  launch_dkv<float, D>(q, k, v, dout, lse, delta, dk, dv, strides, batch, heads, seq_q,      \
+                       seq_k, scale, causal, s)
+  err = FLASH_DISPATCH(DKV_BF16, DKV_F32);
+#undef DKV_BF16
+#undef DKV_F32
   return static_cast<int>(err);
 }
+
+#undef FLASH_DISPATCH

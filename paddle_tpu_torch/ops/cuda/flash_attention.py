@@ -31,7 +31,7 @@ same. The f32 kernels keep the mma.sync tiles of
 ``csrc/attention_tiles.cuh``.
 
 :func:`kernel_takes` says whether the kernels take a call's q, k and v
-(head_dim 128, f32 or bf16 alike, TMA-aligned strides). The attention
+(head_dim 64 or 128, f32 or bf16 alike, TMA-aligned strides). The attention
 functional asks it before the call and sends what it refuses to a
 composition, counting those calls in ``ROUTED``; the wrappers themselves
 still raise on what they do not take.
@@ -52,7 +52,8 @@ import torch
 
 from paddle_tpu_torch.ops.cuda import cost, launch
 
-__all__ = ["BWD_STEP", "BWD_TILE", "FWD_TILE", "HEAD_DIM", "LAUNCHES", "ROUTED",
+__all__ = ["BWD_STEP", "BWD_TILE", "FWD_TILE", "HEAD_DIMS", "LAUNCHES",
+           "ROUTED",
            "TMA_BOX", "dkv_query_start", "dkv_tile_order", "dq_key_tiles",
            "flash_attention_bshd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
            "fwd_key_tiles", "fwd_tile_order", "kernel_takes", "tma_geometry"]
@@ -61,7 +62,7 @@ LAUNCHES = launch.counts(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
 # calls the attention functional sent to a composition because the
 # kernels do not take their shape or type (kernel_takes)
 ROUTED = launch.counts(("flash_attention",))
-HEAD_DIM = 128                 # the instantiated kernels' (GPT-1.3B's)
+HEAD_DIMS = (64, 128)          # the instances: BERT's and ViT's, GPT-1.3B's
 FWD_TILE = 128                 # bf16 forward: query rows a block, keys a step
 BWD_TILE = 128                 # bf16 dq / dk,dv: query rows / keys a block owns
 BWD_STEP = 64                  # bf16 dq / dk,dv: keys / query rows a step
@@ -237,9 +238,9 @@ def _operand_fault(name, t, dtype):
     if t.dtype != dtype or t.dtype not in _DTYPES:
         return TypeError(f"flash attention {name}: dtype {t.dtype} (float32 "
                          f"or bfloat16, all operands alike)")
-    if t.shape[-1] != HEAD_DIM:
+    if t.shape[-1] not in HEAD_DIMS:
         return ValueError(f"flash attention {name}: head_dim {t.shape[-1]} "
-                          f"is not {HEAD_DIM}")
+                          f"is not one of {HEAD_DIMS}")
     e = t.element_size()
     if t.stride(-1) != 1 or t.data_ptr() % 16 or \
             any(s * e % 16 for s in t.stride()[:3]):
@@ -263,9 +264,9 @@ def _check_kernel_operand(name, t, dtype):
 
 def kernel_takes(q, k, v):
     """True exactly when the kernels take these operands (the checks of
-    :func:`flash_fwd` pass): ``[b, s, h, 128]`` q, k and v of one type,
-    f32 or bf16, with a contiguous last axis and 16-byte aligned rows and
-    base. It asks nothing of the device."""
+    :func:`flash_fwd` pass): ``[b, s, h, d]`` q, k and v of one type,
+    f32 or bf16, d in ``HEAD_DIMS``, with a contiguous last axis and
+    16-byte aligned rows and base. It asks nothing of the device."""
     return _shapes_fault(q, k, v) is None and all(
         _operand_fault(name, t, q.dtype) is None
         for name, t in (("q", q), ("k", k), ("v", v)))

@@ -26,7 +26,7 @@ from paddle_tpu.ops.pallas import flash_attention as pallas_flash
 
 import paddle_tpu_torch as T
 from paddle_tpu_torch.nn import functional as F
-from paddle_tpu_torch.ops.cuda import build
+from paddle_tpu_torch.ops.cuda import build, cost
 from paddle_tpu_torch.ops.cuda import flash_attention as flash
 
 BLOCK = 16            # reference blocks: s = 40 is a ragged 3 x 3 grid
@@ -292,12 +292,12 @@ def test_kernel_takes_the_gpt_1p3b_shapes(dtype):
     assert flash.kernel_takes(q, k[:, :200], v[:, :200])        # sq > sk
 
 
-@pytest.mark.parametrize("case", ["head_dim 16", "head_dim 64", "float16",
+@pytest.mark.parametrize("case", ["head_dim 16", "head_dim 96", "float16",
                                   "mixed types", "rows", "base", "shapes"])
 def test_kernel_takes_refuses_what_the_kernels_raise_on(case):
     views = {
         "head_dim 16": lambda: _fused_views(torch.bfloat16, 2, 40, 4, 16),
-        "head_dim 64": lambda: _fused_views(torch.float32, 2, 40, 4, 64),
+        "head_dim 96": lambda: _fused_views(torch.float32, 2, 40, 4, 96),
         "float16": lambda: _fused_views(torch.float16, 2, 40, 4),
         "mixed types": lambda: (torch.zeros(1, 8, 2, 128),) + tuple(
             _fused_views(torch.bfloat16, 1, 8, 2)[1:]),
@@ -318,6 +318,100 @@ def test_kernel_takes_refuses_what_the_kernels_raise_on(case):
         flash._check_shapes(q, k, v)
         for name, t in (("q", q), ("k", k), ("v", v)):
             flash._check_kernel_operand(name, t, q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_takes_head_dim_64_views(dtype):
+    """BERT-base's and ViT-B/16's q, k, v: strided views of a fused
+    ``[b, s, h, 3 * 64]`` projection, f32 and bf16, at seq 512 and at the
+    ragged 197 (batch 2: the strides do not depend on it), and sequences
+    cut short on either side."""
+    for s in (512, 197):
+        q, k, v = _fused_views(dtype, 2, s, 12, 64)
+        assert flash.kernel_takes(q, k, v)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            flash._check_kernel_operand(name, t, dtype)
+        assert flash.kernel_takes(*(t.contiguous() for t in (q, k, v)))
+    q, k, v = _fused_views(dtype, 2, 197, 12, 64)
+    assert flash.kernel_takes(q[:, :69], k, v)                  # sq < sk
+    assert flash.kernel_takes(q, k[:, :69], v[:, :69])          # sq > sk
+
+
+HEAD64_CASES = [  # (causal, sq, sk, dtype): one reference block of 128
+    (False, 100, 100, "float32"),
+    (True, 100, 100, "float32"),
+    (False, 69, 100, "float32"),
+    (False, 100, 100, "bfloat16"),
+    (True, 100, 100, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("causal,sq,sk,dtype", HEAD64_CASES)
+def test_head_dim_64_plain_versions_match_pallas_kernels(causal, sq, sk,
+                                                         dtype):
+    """At head_dim 64 the three plain versions (what the wrappers compute
+    on the CPU, and what the card's kernels are held to) against the
+    reference's Pallas kernels in interpret mode, one block of 128 over a
+    ragged length of 100 (69 queries in the sq != sk case)."""
+    b, h, d, block = 1, 2, 64, 128
+    q, k, v, do = _data(b, sq, sk, h, d, seed=sq + sk + int(causal) + 64)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv, jdo = (_jax(a, jdt) for a in (q, k, v, do))
+    want_o, want_lse = pallas_flash._flash_fwd(jq, jk, jv, causal, scale,
+                                               block, block, True)
+    tq, tk, tv, tdo = (_torch(a, tdt) for a in (q, k, v, do))
+    o, lse = flash.flash_fwd(tq, tk, tv, causal, scale)
+    _close(o.float().numpy(), _bshd(want_o), dtype)
+    _close(lse.numpy(), np.asarray(want_lse).reshape(b * h, sq), "float32")
+    delta = (tdo.float() * o.float()).sum(-1).transpose(1, 2)   # [b, h, sq]
+    want = pallas_flash._flash_bwd_impl(
+        jq, jk, jv, jdo, jnp.asarray(lse.numpy()).reshape(b, h, sq),
+        jnp.asarray(delta.numpy()), causal, scale, block, block, True)
+    args = (tq, tk, tv, tdo, lse, delta.reshape(b * h, sq), causal, scale)
+    got = (flash.flash_bwd_dq(*args),) + flash.flash_bwd_dkv(*args)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.shape == t.shape and g.dtype == tdt
+        _close(g.float().numpy(), _bshd(w), dtype)
+    assert not any(flash.LAUNCHES.values())     # CPU: plain versions only
+
+
+def test_cost_reads_head_dim_from_the_operands():
+    """``ops/cuda/cost.py`` books the head_dim-64 launches by their own
+    head_dim: BERT-base's forward moves q, k, v, o and lse (50.7 MB, the
+    bytes bound it) and does 4 d operations a pair; dq 6 d, dk/dv 8 d."""
+    b, s, h, d = 16, 512, 12, 64
+    q, k, v, do = (torch.empty(b, s, h, d, dtype=torch.bfloat16,
+                               device="meta") for _ in range(4))
+    stats = torch.empty(b * h, s, device="meta")
+    pairs = b * h * s * s
+    (fwd,) = cost.flash_fwd(q, k, v)
+    assert fwd.flops == 4 * pairs * d
+    assert fwd.bytes == 4 * b * s * h * d * 2 + b * h * s * 4
+    (dq,) = cost.flash_bwd_dq(q, k, v, do, stats, stats)
+    (dkv,) = cost.flash_bwd_dkv(q, k, v, do, stats, stats)
+    assert (dq.flops, dkv.flops) == (6 * pairs * d, 8 * pairs * d)
+
+
+def test_functional_at_head_dim_64_takes_the_kernel_path():
+    """A head_dim-64 call without mask or dropout goes to the flash
+    wrappers (plain versions on the CPU), not to the composition: ROUTED
+    stays, and the output and gradients equal autograd through
+    ``_sdpa_ref``'s composition, f32 at 1e-5."""
+    q, k, v, do = (torch.tensor(a) for a in _data(2, 40, 40, 2, 64, seed=11))
+    before = flash.ROUTED["flash_attention"]
+    grads = []
+    for fn in (lambda *a: F.scaled_dot_product_attention(*a),
+               lambda *a: _composition(*a, False, 0.125)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do)
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    assert flash.ROUTED["flash_attention"] == before
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("sq,sk", [(24, 40), (40, 24)])

@@ -13,7 +13,9 @@ Phases, in order (any failure raises and exits non-zero):
 3. kernels: the LayerNorm forwards against their plain PyTorch versions
    at the main path's shapes (hidden 2048; rows 8, 16, 512, 1000, 4096
    and the ragged 1001, 4097; f32, bf16 and the mixes bf16 x + f32 r,
-   bf16 x + f32 weights; ``act="gelu"`` too for ln_res_fwd), the same
+   bf16 x + f32 weights, bf16 x + f32 r and weights (the O1 post-LN
+   join); hidden 512 at 4096 rows too; ``act="gelu"`` too for
+   ln_res_fwd), the same
    bits from a second run and from a launch of the first rows alone;
    the dtypes the train path hands them (one forward of GPT-1.3B cut to
    a layer, watched); then their times (CUDA events) at rows 8, 16, 512,
@@ -40,7 +42,7 @@ Phases, in order (any failure raises and exits non-zero):
    views of a fused projection) plus a ragged non-causal one, causal
    ones with sq != sk both ways, a length of 1000 and a single (b, h),
    and the LayerNorm backward kernel (rows 4096, 8 and 4097 at hidden
-   2048, 4096 rows at hidden 1024 and 4096; plain and residual, ``act``
+   2048, 4096 rows at hidden 512, 1024 and 4096; plain and residual, ``act``
    None and gelu), f32 and bf16, each against its plain version; then
    the autograd Functions (kernel path) against autograd through the
    plain versions, and each kernel's time beside its bound, its plain
@@ -289,9 +291,12 @@ Phases, in order (any failure raises and exits non-zero):
    against ``dead_after_s`` and ``reconfigure``'s seconds printed;
 25. flash at head_dim 64: the three flash kernels' head_dim-64
    instances against their plain versions, f32 and bf16, at BERT's
-   ``[16, 512, 12, 64]``, ViT-B/16's ragged ``[128, 197, 12, 64]`` and a
-   causal ``[4, 1024, 16, 64]``; then their bf16 times at BERT's and
-   ViT's shapes beside bound, plain version and SDPA;
+   ``[16, 512, 12, 64]``, ViT-B/16's ragged ``[128, 197, 12, 64]``, a
+   causal ``[4, 1024, 16, 64]``, Transformer-base's ``[16, 256, 8, 64]``,
+   sq != sk both ways (200 / 328, causal and not) and one query row
+   against 256 and 255 keys (the decode; against 1 key forward only);
+   then their bf16 times at BERT's, ViT's and Transformer-base's shapes
+   beside bound, plain version and SDPA;
 26. encoders: ERNIE-3.0-base and BERT-base (dropout 0) through the
    reference's MLM step (``bench.py:_bench_ernie`` / ``_bench_bert``:
    ``to_static``, ``auto_cast(level="O1", dtype="bfloat16")``,
@@ -307,7 +312,35 @@ Phases, in order (any failure raises and exits non-zero):
    weights and all 106 BatchNorm statistics, no port kernel launched;
    ViT-B/16 (``tools/profile_vit.py``: ``AdamW(1e-4)``, O1) on 128
    images, ``ln_fwd`` / ``ln_bwd`` 25 and flash 12 each a step at 197
-   tokens; images/s, the first call's ms and peaks.
+   tokens; images/s, the first call's ms and peaks;
+28. transformer: Transformer-base (Vaswani et al. 2017, Table 3, "base":
+   ``nn.Transformer`` at 512 / 8 heads / 6 + 6 layers / FFN 2048, one
+   [37000, 512] embedding shared by source and target and tied to the
+   output, scaled by sqrt(512), plus the sinusoid table) trained on 16 x
+   256 source and target tokens with ``cross_entropy(label_smoothing=
+   0.1)`` and ``Adam(NoamDecay(512, 4000), 0.9, 0.98, 1e-9)`` under
+   ``to_static`` and ``auto_cast(level="O1", dtype="bfloat16")``, encoder
+   and decoder of ``fused_ln=True`` layers at dropout 0: 4 eager + 4
+   captured steps equal bit for bit (losses, weights, Adam moments, lr,
+   key), losses finite and falling, a step's launches ``ln_res_fwd`` 30,
+   ``ln_bwd`` 30, each flash kernel 12, nothing routed; step ms,
+   tokens/s, the first call and the peaks, a replay by kernel;
+29. transformer_defaults: ``nn.Transformer()`` at its own defaults
+   (dropout 0.1, ``fused_ln`` off) through the same step: ``ln_fwd`` 30,
+   ``ln_bwd`` 30, ``keep_mask`` 62 a step, no flash; captured = eager;
+30. transformer_decode: phase 28's model in eval, f32: 32 greedy tokens
+   for 16 sources of 256 through ``TransformerDecoder.gen_cache``
+   (``Cache`` + ``StaticCache``, flash at one query row against 1-32
+   and 256 keys) equal to 32 tokens from re-running the decoder on the
+   prefix under the causal mask, logits within 1e-4 of their largest
+   magnitude; launches exact; ms a token each way;
+31. lstm: the PTB "large" LSTM (Zaremba et al. 2014, §4: vocab 10,000,
+   ``nn.LSTM(1500, 1500, num_layers=2, dropout=0.65)``, dropout 0.65 on
+   the embedding and the output) on 20 x 35 tokens, ``SGD(1.0)`` with
+   ``ClipGradByGlobalNorm(10)``, f32, under ``to_static``: 4 eager + 4
+   captured steps equal bit for bit, ``keep_mask`` 3 a step and no other
+   port kernel (the time loop is torch's GEMMs and elementwise
+   kernels); step ms and tokens/s.
 
 The phases print their seconds as they end.
 
@@ -640,12 +673,18 @@ def check_ln_forwards(norm, gen):
     f32, bf16 = torch.float32, torch.bfloat16
     max_err = {"ln_fwd": 0.0, "ln_res_fwd": 0.0}
     # (x, residual, weights): uniform, then the mixes the kernels take
+    # (bf16, f32, f32): the O1 post-LN join of nn.Transformer, checked
+    # also at its hidden 512 and 4,096 rows
     mixes = ((f32, f32, f32), (bf16, bf16, bf16), (bf16, bf16, f32),
-             (bf16, f32, bf16), (f32, bf16, f32))
+             (bf16, f32, bf16), (f32, bf16, f32), (bf16, f32, f32))
+    shapes = [(rows, HIDDEN) for rows in LN_CHECK_ROWS] \
+        + [(TRAIN_LN_ROWS, 512)]
     for xd, rd, wd in mixes:
-        for rows in LN_CHECK_ROWS:
-            (x, r, w, b), = _inputs(rows, xd, gen, r_dtype=rd, w_dtype=wd)
-            tag = f"rows={rows} w={_dt(wd)} r={_dt(rd)} {_dt(xd)}"
+        for rows, hidden in shapes:
+            (x, r, w, b), = _inputs(rows, xd, gen, hidden=hidden,
+                                    r_dtype=rd, w_dtype=wd)
+            tag = f"rows={rows} hidden={hidden} w={_dt(wd)} r={_dt(rd)} " \
+                  f"{_dt(xd)}"
             got = norm.ln_fwd(x, w, b, EPS)
             torch.cuda.synchronize()
             max_err["ln_fwd"] = max(max_err["ln_fwd"], check_close(
@@ -662,7 +701,7 @@ def check_ln_forwards(norm, gen):
                     check_close(f"ln_res_fwd y act={act} {tag} out {out}",
                                 y, y_ref))
     print(f"[kernels] agree with their plain versions on "
-          f"{len(mixes) * len(LN_CHECK_ROWS)} shapes and dtype mixes; "
+          f"{len(mixes) * len(shapes)} shapes and dtype mixes; "
           f"max abs err {max_err}")
     for xd in (f32, bf16):
         (x, r, w, b), = _inputs(TRAIN_LN_ROWS, xd, gen)
@@ -1280,7 +1319,10 @@ def _flash_terms(q, k, v, do, lse, delta, causal, scale):
 def check_flash_cases(err, gen, dtype, cases):
     """Each flash kernel against its plain version on the same inputs, at
     each ``(causal, shape)`` of ``cases`` in ``dtype``; the largest
-    errors go into ``err`` ({kernel: max abs err})."""
+    errors go into ``err`` ({kernel: max abs err}). Against a single key
+    p is 1 and ds = p (dP - D) is exactly 0: dq and dk are the rounding
+    noise of that cancellation on both sides, held within 1e-5 absolute;
+    dv (= do) as everywhere."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     for causal, shape in cases:
         q, k, v, do = _attention_inputs(dtype, gen, **shape)
@@ -1299,12 +1341,21 @@ def check_flash_cases(err, gen, dtype, cases):
         dq = fa.flash_bwd_dq(*args)
         dk, dv = fa.flash_bwd_dkv(*args)
         torch.cuda.synchronize()
-        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], check_terms(
-            f"flash_bwd_dq {tag}", dq, fa._flash_bwd_dq_ref(*args), t_dq))
+        dq_ref = fa._flash_bwd_dq_ref(*args)
         dk_ref, dv_ref = fa._flash_bwd_dkv_ref(*args)
+        if k.shape[1] == 1:
+            e_dq = _held(f"flash_bwd_dq {tag}", dq,
+                         (dq.float() - dq_ref.float()).abs(),
+                         torch.full_like(t_dq, 1e-5))
+            e_dk = _held(f"flash_bwd_dkv dk {tag}", dk,
+                         (dk.float() - dk_ref.float()).abs(),
+                         torch.full_like(t_dk, 1e-5))
+        else:
+            e_dq = check_terms(f"flash_bwd_dq {tag}", dq, dq_ref, t_dq)
+            e_dk = check_terms(f"flash_bwd_dkv dk {tag}", dk, dk_ref, t_dk)
+        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], e_dq)
         err["flash_bwd_dkv"] = max(
-            err["flash_bwd_dkv"],
-            check_terms(f"flash_bwd_dkv dk {tag}", dk, dk_ref, t_dk),
+            err["flash_bwd_dkv"], e_dk,
             check_terms(f"flash_bwd_dkv dv {tag}", dv, dv_ref, t_dv))
     return err
 
@@ -1373,7 +1424,7 @@ def check_ln_bwd(gen):
     err = {"ln_bwd": 0.0, "ln_bwd_res": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for rows, hidden in ((B * S, HIDDEN), (8, HIDDEN), (B * S + 1, HIDDEN),
-                             (B * S, 1024), (B * S, 4096)):
+                             (B * S, 512), (B * S, 1024), (B * S, 4096)):
             (h, gy, _w, _b), = _inputs(rows, dtype, gen, hidden=hidden)
             (gh, _x, w, b), = _inputs(rows, torch.float32, gen, hidden=hidden)
             gh = gh.to(dtype)
@@ -1983,11 +2034,12 @@ def phase_train():
     return launches, losses
 
 
-def captured_run(train_step, batches):
-    """Call a ``to_static`` step once a batch: (losses, wall seconds a
-    step, the first call's line). The first call discovers, captures
-    and replays once: its time and its peak memory are its own, and the
-    peak statistics are reset after it for the steady peak."""
+def captured_run(train_step, batches, after=None):
+    """Call a ``to_static`` step once a batch (and ``after()``, untimed,
+    after each): (losses, wall seconds a step, the first call's line).
+    The first call discovers, captures and replays once: its time and
+    its peak memory are its own, and the peak statistics are reset after
+    it for the steady peak."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
@@ -1995,6 +2047,8 @@ def captured_run(train_step, batches):
         t0 = time.perf_counter()
         losses.append(train_step(*batch).item())          # synchronises
         step_s.append(time.perf_counter() - t0)
+        if after is not None:
+            after()
         if i == 0:
             first = (torch.cuda.max_memory_allocated(),
                      torch.cuda.max_memory_reserved())
@@ -2073,7 +2127,8 @@ def breakdown(model, opt, ids, labels, vocab, step_s, tag="train"):
 def profile_train_step(train_step, batch, step_s, tag="train"):
     """Device time by kernel over one train step (``train_step(*batch)``)
     under torch.profiler, and its share of the step's unprofiled wall
-    time."""
+    time. The step's own ``record_function`` range, which the profiler
+    lists on the device too, spans the kernels and is not counted."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     torch.cuda.synchronize()
@@ -2082,7 +2137,8 @@ def profile_train_step(train_step, batch, step_s, tag="train"):
         train_step(*batch)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"[{tag} profile] one step: {busy_ms:.1f} ms of kernel time in "
           f"{sum(e.count for e in events)} kernels, "
@@ -5508,20 +5564,35 @@ RESNET_B, RESNET_SIDE = 256, 224     # bench.py's ResNet-50 batch
 VIT_B, VIT_TOKENS = 128, 197         # tools/profile_vit.py's; 14^2 + 1
 HEADLINE_STEPS = 4
 # the flash kernels at head_dim 64: BERT's and ViT-B/16's attention
-FLASH64 = {"bert": (ENC_B, ENC_S, 12, 64), "vit": (VIT_B, VIT_TOKENS, 12, 64)}
+FLASH64 = {"bert": (ENC_B, ENC_S, 12, 64), "vit": (VIT_B, VIT_TOKENS, 12, 64),
+           "transformer": (16, 256, 8, 64)}
 FLASH64_CASES = [(False, dict(b=ENC_B, sq=ENC_S, sk=ENC_S, h=12, d=64)),
                  (False, dict(b=VIT_B, sq=VIT_TOKENS, sk=VIT_TOKENS, h=12,
                               d=64)),
-                 (True, dict(b=4, sq=1024, sk=1024, h=16, d=64))]
+                 (True, dict(b=4, sq=1024, sk=1024, h=16, d=64)),
+                 # Transformer-base: its attention, cross-attention
+                 # between lengths that differ, and the decode's one
+                 # query row against a cache and the 256-token memory
+                 (False, dict(b=16, sq=256, sk=256, h=8, d=64)),
+                 (False, dict(b=2, sq=200, sk=328, h=8, d=64)),
+                 (False, dict(b=2, sq=328, sk=200, h=8, d=64)),
+                 (True, dict(b=2, sq=200, sk=328, h=8, d=64)),
+                 (True, dict(b=2, sq=328, sk=200, h=8, d=64)),
+                 (False, dict(b=16, sq=1, sk=256, h=8, d=64)),
+                 (False, dict(b=16, sq=1, sk=255, h=8, d=64)),
+                 # the cached decode's first self-attention: one key
+                 (False, dict(b=16, sq=1, sk=1, h=8, d=64))]
 
 
 def phase_flash64():
     """The flash kernels' head_dim-64 instances: each kernel against its
     plain version, f32 and bf16, at BERT's shape ([16, 512, 12, 64]),
     ViT-B/16's ragged one ([128, 197, 12, 64]: TMA fills the rows past
-    197 with zeros) and a causal [4, 1024, 16, 64]; then their bf16
-    times at BERT's and ViT's shapes beside bound, plain version and
-    SDPA."""
+    197 with zeros), a causal [4, 1024, 16, 64], Transformer-base's
+    [16, 256, 8, 64], sq != sk both ways (200 / 328, causal and not) and
+    one query row against 256, 255 and 1 keys (the decode); then their
+    bf16 times at BERT's, ViT's and Transformer-base's shapes beside
+    bound, plain version and SDPA."""
     gen = torch.Generator(device="cuda").manual_seed(64)
     err = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -5539,22 +5610,40 @@ def phase_flash64():
     return err, timings
 
 
+def _state_tensors(model, opt=None):
+    """A train path's state by name: the model's and, given its
+    optimizer, each accumulator (the Adam moments and beta powers), the
+    lr tensor and the global key."""
+    from paddle_tpu_torch.framework.state import key_tensor
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    if opt is not None:
+        state.update({f"opt:{k}": v.detach().clone()
+                      for k, v in opt.state_dict().items()
+                      if isinstance(v, torch.Tensor)})
+        state["opt:lr"] = opt._lr_tensor.detach().clone()
+        state["rng:key"] = key_tensor().detach().clone()
+    return state
+
+
 def _headline_path(tag, build, batch, per_step, items, unit, falling=True):
-    """One of the repo's headline trainers through its reference step
-    (``build()`` gives the model and its ``to_static`` step, from seed 0):
-    ``HEADLINE_STEPS`` steps of a twin through ``dygraph_function``
-    (eagerly), then of a fresh build captured, which must equal the eager
-    run bit for bit, its losses and every state tensor (the weights and
-    any BatchNorm statistics); losses finite, and with ``falling`` the
-    last below the first; the kernels' launches exactly ``per_step`` a
-    step (the captured run counts its first call's warm-ups too) and
-    nothing routed to a composition.
+    """One trainer through its reference step (``build()`` gives the
+    model and its ``to_static`` step, from seed 0, and may add its
+    optimizer and a callable run after each step, untimed: a scheduler's
+    step): ``HEADLINE_STEPS`` steps of a twin through
+    ``dygraph_function`` (eagerly), then of a fresh build captured, which
+    must equal the eager run bit for bit, its losses and every state
+    tensor (the weights and any BatchNorm statistics; given the
+    optimizer, its accumulators, the lr and the global key too); losses
+    finite, and with ``falling`` the last below the first; the kernels'
+    launches exactly ``per_step`` a step (the captured run counts its
+    first call's warm-ups too) and nothing routed to a composition.
     Prints the step's time, ``items`` / step in ``unit`` a second, the
     first call's time and peaks, and one replay's kernels by time
-    (``profile_train_step``). Returns (launches, numbers)."""
+    (``profile_train_step``). Returns (launches, numbers, model)."""
     from paddle_tpu_torch.core.cuda_graph import WARMUP_CALLS
     t0 = time.perf_counter()
-    twin, step = build()
+    twin, step, *more = build()
+    opt, after = more or (None, None)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in twin.parameters())
     print(f"[{tag}] {n_params / 1e6:.1f} M f32 params, built in "
@@ -5562,19 +5651,24 @@ def _headline_path(tag, build, batch, per_step, items, unit, falling=True):
     expect = dict.fromkeys(_launches(), 0)
     expect.update(per_step)
     reset_launches()
-    eager = [step.dygraph_function(*batch).item()
-             for _ in range(HEADLINE_STEPS)]
+    eager = []
+    for _ in range(HEADLINE_STEPS):
+        eager.append(step.dygraph_function(*batch).item())
+        if after is not None:
+            after()
     got = read_launches(f"{tag}, dygraph_function")
     if got != {k: HEADLINE_STEPS * v for k, v in expect.items()}:
         raise AssertionError(f"{tag} dygraph launches {got}")
-    eager_state = {k: v.detach().clone() for k, v in twin.state_dict().items()}
-    del twin, step
+    eager_state = _state_tensors(twin, opt)
+    del twin, step, opt, after, more
     gc.collect()
     torch.cuda.empty_cache()
 
-    model, step = build()
+    model, step, *more = build()
+    opt, after = more or (None, None)
     reset_launches()
-    losses, step_s, first = captured_run(step, [batch] * HEADLINE_STEPS)
+    losses, step_s, first = captured_run(step, [batch] * HEADLINE_STEPS,
+                                         after)
     launches = read_launches(tag)
     want = {k: (HEADLINE_STEPS + WARMUP_CALLS) * v for k, v in expect.items()}
     if launches != want:
@@ -5585,23 +5679,24 @@ def _headline_path(tag, build, batch, per_step, items, unit, falling=True):
             (falling and not losses[-1] < losses[0]):
         raise AssertionError(f"{tag}: losses not finite (or not falling): "
                              f"{losses}")
-    state = model.state_dict()
+    state = _state_tensors(model, opt)
     differ = [k for k, v in state.items()
-              if not torch.equal(v, eager_state[k])]
+              if v.shape != eager_state[k].shape
+              or not torch.equal(v, eager_state[k])]
     stats = sum(k.endswith(("_mean", "_variance")) for k in state)
-    if eager != losses or differ:
+    if eager != losses or differ or set(state) != set(eager_state):
         raise AssertionError(f"{tag}: captured and eager runs differ: losses "
                              f"{losses} / {eager}, state {differ[:8]}")
     steady = statistics.median(step_s[1:])
     print(f"[{tag}] losses {losses}: the captured run equals the eager one "
           f"bit for bit, losses and all {len(state)} state tensors ({stats} "
           f"BatchNorm statistics); launches a step {per_step}")
-    print(f"[{tag}] {card_line()}: step {steady * 1e3:.1f} ms (median of "
+    print(f"[{tag}] {card_line()}: step {steady * 1e3:.2f} ms (median of "
           f"steps 2-{HEADLINE_STEPS}), {items / steady:.1f} {unit}/s; "
           f"{first}")
     profile_train_step(step, batch, steady, tag)
     return launches, {"step_ms": steady * 1e3, f"{unit}_per_s": items / steady,
-                      "first_ms": step_s[0] * 1e3}
+                      "first_ms": step_s[0] * 1e3}, model
 
 
 def _mlm_build(kind):
@@ -5690,7 +5785,7 @@ def phase_encoders():
         out[kind] = _headline_path(
             kind, lambda kind=kind: _mlm_build(kind), (ids, task, labels),
             {"ln_fwd": 26, "ln_bwd": 26, "flash_fwd": 12, "flash_bwd_dq": 12,
-             "flash_bwd_dkv": 12}, ENC_B * ENC_S, "tokens")
+             "flash_bwd_dkv": 12}, ENC_B * ENC_S, "tokens")[:2]
     return out
 
 
@@ -5710,7 +5805,7 @@ def phase_vision():
         y = torch.randint(0, 1000, (RESNET_B,), device="cuda", generator=data)
         out = {"resnet": _headline_path(
             "resnet", lambda: _vision_build("resnet"), (x, y), {}, RESNET_B,
-            "images", falling=False)}
+            "images", falling=False)[:2]}
         del x, y
         gc.collect()
         torch.cuda.empty_cache()
@@ -5719,10 +5814,318 @@ def phase_vision():
         out["vit"] = _headline_path(
             "vit", lambda: _vision_build("vit"), (x, y),
             {"ln_fwd": 25, "ln_bwd": 25, "flash_fwd": 12, "flash_bwd_dq": 12,
-             "flash_bwd_dkv": 12}, VIT_B, "images", falling=False)
+             "flash_bwd_dkv": 12}, VIT_B, "images", falling=False)[:2]
     finally:
         torch.backends.cudnn.deterministic = deterministic
     return out
+
+
+# ------------------------------------------------------ sequence models
+TB_VOCAB = 37000                     # WMT14 en-de shared BPE (Vaswani §5.1)
+TB_B, TB_S = 16, 256                 # 4,096 target tokens a step
+TB_DECODE = 32                       # greedy tokens of the decode reading
+TB_SMOOTHING = 0.1                   # label smoothing (Vaswani §5.4)
+TB_WARMUP = 4000                     # NoamDecay's warmup steps (§5.3)
+TB_SEED = 18                         # the global key of the dropout drives
+# PTB "large" (Zaremba et al. 2014, §4): 2 x 1500 LSTM, dropout 0.65,
+# 35 unrolled steps, batch 20, SGD at 1.0, gradients clipped at norm 10
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS = 10000, 1500, 2
+PTB_B, PTB_T, PTB_DROPOUT, PTB_CLIP = 20, 35, 0.65, 10.0
+
+
+def sinusoid_table(n, d):
+    """Vaswani et al.'s constant position table ``[n, d]`` (f32):
+    ``sin(p / 10000^(2i/d))`` in the even columns, ``cos`` in the odd
+    ones."""
+    pos = np.arange(n)[:, None]
+    col = np.arange(d)[None, :]
+    angle = pos / np.power(10000.0, (2 * (col // 2)) / d)
+    return np.where(col % 2 == 0, np.sin(angle), np.cos(angle)).astype(
+        np.float32)
+
+
+class TransformerLM(torch.nn.Module):
+    """Transformer-base (Vaswani et al. 2017, Table 3, "base") from the
+    port's public layers: one token embedding shared by source and target
+    and tied to the output projection, scaled by sqrt(d_model), plus the
+    constant sinusoid table, dropout on the sums; ``nn.Transformer`` at
+    ``widths`` (none: its defaults, 512 / 8 / 6 + 6 / 2048, dropout 0.1,
+    ReLU, post-LN), or with ``fused_ln`` an encoder and a decoder of
+    ``fused_ln=True`` layers at the same widths. The logits are f32 or
+    bf16 ``[b, s, vocab]`` (``F.matmul(h, embedding, transpose_y=True)``,
+    under autocast a bf16 product)."""
+
+    def __init__(self, vocab=TB_VOCAB, fused_ln=False, max_len=TB_S,
+                 device="cuda", generator=None, **widths):
+        super().__init__()
+        from paddle_tpu_torch import nn
+        factory = dict(device=device, generator=generator)
+        full = dict(d_model=512, nhead=8, num_encoder_layers=6,
+                    num_decoder_layers=6, dim_feedforward=2048, dropout=0.1)
+        full.update(widths)
+        d = full["d_model"]
+        self.embed = nn.Embedding(vocab, d, std=d ** -0.5, **factory)
+        if fused_ln:
+            layer = dict(d_model=d, nhead=full["nhead"],
+                         dim_feedforward=full["dim_feedforward"],
+                         dropout=full["dropout"], fused_ln=True, **factory)
+            widths = dict(widths, custom_encoder=nn.TransformerEncoder(
+                nn.TransformerEncoderLayer(**layer),
+                full["num_encoder_layers"]),
+                custom_decoder=nn.TransformerDecoder(
+                    nn.TransformerDecoderLayer(**layer),
+                    full["num_decoder_layers"]))
+        self.transformer = nn.Transformer(**widths, **factory)
+        self.drop = nn.Dropout(full["dropout"])
+        self.register_buffer("pos", torch.from_numpy(
+            sinusoid_table(max_len, d)).to(device), persistent=False)
+        self.scale = math.sqrt(d)
+
+    def embed_tokens(self, ids, start=0):
+        return self.drop(self.embed(ids) * self.scale
+                         + self.pos[start:start + ids.shape[1]])
+
+    def logits(self, h):
+        from paddle_tpu_torch.nn import functional as F
+        return F.matmul(h, self.embed.weight, transpose_y=True)
+
+    def forward(self, src, tgt, tgt_mask):
+        return self.logits(self.transformer(
+            self.embed_tokens(src), self.embed_tokens(tgt),
+            tgt_mask=tgt_mask))
+
+
+def transformer_build(fused_ln, device="cuda", vocab=TB_VOCAB, max_len=TB_S,
+                      **widths):
+    """Transformer-base's train step: ``Adam(NoamDecay(d_model, 4000),
+    beta1 0.9, beta2 0.98, epsilon 1e-9)`` (Vaswani §5.3; unfused, the
+    reference's default), cross entropy with label smoothing 0.1 over
+    the vocabulary, under ``to_static`` and ``auto_cast(level="O1",
+    dtype="bfloat16")``; weights from seed 0, the global key at
+    ``TB_SEED``. Returns (model, step, optimizer, the scheduler's step:
+    called after each train step)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator(device).manual_seed(0)
+    model = TransformerLM(vocab, fused_ln, max_len, device, gen, **widths)
+    sched = pt.optimizer.lr.NoamDecay(model.transformer.d_model, TB_WARMUP)
+    opt = pt.optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                            epsilon=1e-9, parameters=model.parameters())
+
+    @pt.jit.to_static
+    def train_step(src, tgt_in, tgt_out, tgt_mask):
+        opt.clear_grad()
+        with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            logits = model(src, tgt_in, tgt_mask)
+            loss = F.cross_entropy(logits.reshape([-1, vocab]),
+                                   tgt_out.reshape([-1]),
+                                   label_smoothing=TB_SMOOTHING)
+        loss.backward()
+        opt.step()
+        return loss
+
+    pt.seed(TB_SEED)
+    return model, train_step, opt, sched.step
+
+
+def transformer_batch(gen, device="cuda", b=TB_B, s=TB_S, vocab=TB_VOCAB):
+    """A seeded batch with no padding: source ``[b, s]``, the target's
+    input and its next tokens ``[b, s]``, and the causal mask."""
+    from paddle_tpu_torch import nn
+    src = torch.randint(1, vocab, (b, s), device=device, generator=gen)
+    tgt = torch.randint(1, vocab, (b, s + 1), device=device, generator=gen)
+    return (src, tgt[:, :-1].contiguous(), tgt[:, 1:].contiguous(),
+            nn.Transformer.generate_square_subsequent_mask(s, device))
+
+
+def phase_transformer():
+    """Transformer-base (``TransformerLM``) on 16 x 256 source and target
+    tokens, two readings through ``_headline_path``:
+
+    ``transformer``: encoder and decoder of ``fused_ln=True`` layers at
+    dropout 0. A step runs the post-LN join 30 times (2 an encoder layer,
+    3 a decoder layer): ``ln_res_fwd`` 30 and ``ln_bwd`` (no gh) 30, the
+    (bf16 x, f32 residual, f32 weights) mix; flash (forward, dq, dk/dv)
+    12 each, the encoder's 6 self-attentions and the decoder's 6
+    cross-attentions at [16, 256, 8, 64] bf16; the decoder's masked
+    self-attentions go to the composition (a mask), as in the reference;
+    ``ln_fwd`` 0, ``keep_mask`` 0.
+
+    ``transformer_defaults``: ``nn.Transformer()`` at its own defaults,
+    dropout 0.1 and ``fused_ln`` off: ``ln_fwd`` and ``ln_bwd`` 30 a step
+    (``norm(residual + delta)`` on the LayerNorm layer), flash 0 (dropout
+    sends every attention to the composition); ``keep_mask`` 62 a step:
+    the source's and the target's embedding dropout, 4 an encoder layer
+    (attention probabilities, the two residual dropouts, the FFN's) and 6
+    a decoder layer (two attentions, three residual dropouts, the FFN's).
+
+    Returns ({path: (launches, numbers)}, the ``transformer`` model, the
+    batch)."""
+    data = torch.Generator("cuda").manual_seed(5)
+    batch = transformer_batch(data)
+    items = TB_B * TB_S
+    flash = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+    out = {}
+    launches, numbers, model = _headline_path(
+        "transformer", lambda: transformer_build(True, dropout=0.0), batch,
+        {"ln_res_fwd": 30, "ln_bwd": 30, **flash}, items, "tokens")
+    out["transformer"] = (launches, numbers)
+    launches, numbers, defaults = _headline_path(
+        "transformer_defaults", lambda: transformer_build(False), batch,
+        {"ln_fwd": 30, "ln_bwd": 30, "keep_mask": 62}, items, "tokens",
+        falling=False)
+    out["transformer_defaults"] = (launches, numbers)
+    del defaults
+    return out, model, batch
+
+
+def _greedy(model, memory, start, cached, steps=TB_DECODE):
+    """``steps`` greedy tokens after ``start`` ``[b, 1]``: through
+    ``TransformerDecoder.gen_cache`` (a ``Cache`` of the self-attention's
+    keys and values and a ``StaticCache`` of the memory's, one query row
+    a step), or by running the whole decoder on the prefix under the
+    causal mask at every step. Returns (tokens ``[b, steps]``, the
+    last position's logits at each step, seconds)."""
+    from paddle_tpu_torch import nn
+    dec = model.transformer.decoder
+    seq, logits = start, []
+    caches = dec.gen_cache(memory) if cached else None
+    sync = torch.cuda.synchronize if memory.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        if cached:
+            h, caches = dec(model.embed_tokens(seq[:, -1:], t), memory,
+                            None, None, caches)
+        else:
+            mask = nn.Transformer.generate_square_subsequent_mask(
+                seq.shape[1], memory.device)
+            h = dec(model.embed_tokens(seq), memory, mask)
+        logits.append(model.logits(h[:, -1]))
+        seq = torch.cat([seq, logits[-1].argmax(-1, keepdim=True)], dim=1)
+    sync()
+    return seq[:, 1:], torch.stack(logits, 1), time.perf_counter() - t0
+
+
+def phase_transformer_decode(model, src):
+    """The ``transformer`` reading's model after its steps, in eval, f32,
+    no autocast: the encoder's memory of the 16 x 256 source (6 flash
+    forwards, 12 joins), then ``TB_DECODE`` greedy tokens twice from the
+    source's first tokens, cached (``_greedy``: a token runs flash 12
+    times at one query row, the 6 self-attentions against 1-32 keys and
+    the 6 cross-attentions against 256, and 18 joins) and uncached (a
+    token runs flash 6 times, its cross-attentions, and 18 joins; the
+    masked self-attentions go to the composition). The tokens are equal
+    and each step's last-position logits agree within 1e-4 of their
+    largest magnitude; nothing routed. Prints ms per token each way.
+    Returns (launches, numbers)."""
+    model.eval()
+    reset_launches()
+    with torch.no_grad():
+        memory = model.transformer.encoder(model.embed_tokens(src))
+        enc = read_launches("transformer_decode, encoder")
+        start = src[:, :1]
+        cached = _greedy(model, memory, start, True)
+        got = read_launches("transformer_decode, cached")
+        uncached = _greedy(model, memory, start, False)
+        total = read_launches("transformer_decode")
+    steps = TB_DECODE
+    want_enc = {"flash_fwd": 6, "ln_res_fwd": 12}
+    want_cached = {"flash_fwd": 6 + 12 * steps, "ln_res_fwd": 12 + 18 * steps}
+    want_total = {"flash_fwd": 6 + 18 * steps,
+                  "ln_res_fwd": 12 + 36 * steps}
+    for name, counts, want in (("encoder", enc, want_enc),
+                               ("cached", got, want_cached),
+                               ("both", total, want_total)):
+        if counts != {**dict.fromkeys(counts, 0), **want}:
+            raise AssertionError(f"transformer_decode {name} launches "
+                                 f"{counts}, want {want}")
+    if not torch.equal(cached[0], uncached[0]):
+        rows = (cached[0] != uncached[0]).any(1).nonzero().flatten().tolist()
+        raise AssertionError(f"cached and uncached greedy tokens differ in "
+                             f"rows {rows}")
+    err = (cached[1] - uncached[1]).abs().max().item()
+    scale = uncached[1].abs().max().item()
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"decode logits differ by {err} (limit "
+                             f"{1e-4 * scale})")
+    numbers = {"cached_ms_per_token": cached[2] * 1e3 / steps,
+               "uncached_ms_per_token": uncached[2] * 1e3 / steps}
+    print(f"[transformer_decode] {TB_B} rows x {steps} greedy tokens: the "
+          f"cached and uncached decodes agree token for token, logits "
+          f"within {err:.3g} (limit {1e-4 * scale:.3g}); launches {total}")
+    print(f"[transformer_decode] {card_line()}: cached "
+          f"{numbers['cached_ms_per_token']:.2f} ms a token, uncached "
+          f"{numbers['uncached_ms_per_token']:.2f} (host clock, {TB_B} "
+          f"rows, f32)")
+    model.train()
+    return total, numbers
+
+
+class PTBLarge(torch.nn.Module):
+    """Zaremba et al. 2014's large PTB language model from the port's
+    public layers: an embedding of 1500, dropout 0.65, ``nn.LSTM(1500,
+    1500, num_layers=2, dropout=0.65)``, dropout 0.65, a Linear to the
+    10,000-word vocabulary."""
+
+    def __init__(self, vocab=PTB_VOCAB, hidden=PTB_HIDDEN,
+                 layers=PTB_LAYERS, dropout=PTB_DROPOUT, device="cuda",
+                 generator=None):
+        super().__init__()
+        from paddle_tpu_torch import nn
+        factory = dict(device=device, generator=generator)
+        self.embed = nn.Embedding(vocab, hidden, std=0.04, **factory)
+        self.drop = nn.Dropout(dropout)
+        self.lstm = nn.LSTM(hidden, hidden, num_layers=layers,
+                            dropout=dropout, **factory)
+        self.head = nn.Linear(hidden, vocab, std=0.04, **factory)
+
+    def forward(self, ids):
+        out, _ = self.lstm(self.drop(self.embed(ids)))
+        return self.head(self.drop(out))
+
+
+def lstm_build(device="cuda", vocab=PTB_VOCAB, **widths):
+    """The PTB step: ``SGD(1.0, grad_clip=ClipGradByGlobalNorm(10))``,
+    mean cross entropy, f32, under ``to_static``; weights from seed 0,
+    the global key at ``TB_SEED``. Returns (model, step, optimizer, a
+    no-op after each step)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator(device).manual_seed(0)
+    model = PTBLarge(vocab, device=device, generator=gen, **widths)
+    opt = pt.optimizer.SGD(learning_rate=1.0, parameters=model.parameters(),
+                           grad_clip=pt.nn.ClipGradByGlobalNorm(PTB_CLIP))
+
+    @pt.jit.to_static
+    def train_step(ids, labels):
+        opt.clear_grad()
+        loss = F.cross_entropy(model(ids).reshape([-1, vocab]),
+                               labels.reshape([-1]))
+        loss.backward()
+        opt.step()
+        return loss
+
+    pt.seed(TB_SEED)
+    return model, train_step, opt, lambda: None
+
+
+def phase_lstm():
+    """The PTB large LSTM on 20 x 35 tokens (``_headline_path``, f32). No
+    kernel of the port lies on this path but the keep mask: a step draws
+    3 masks (the embedding's dropout, the one between the two LSTM
+    layers, the output's); the LSTM's time loop is torch's GEMMs and
+    elementwise kernels, the clip and SGD torch's. Returns {path:
+    (launches, numbers)}."""
+    data = torch.Generator("cuda").manual_seed(6)
+    ids = torch.randint(0, PTB_VOCAB, (PTB_B, PTB_T + 1), device="cuda",
+                        generator=data)
+    batch = (ids[:, :-1].contiguous(), ids[:, 1:].contiguous())
+    launches, numbers, model = _headline_path(
+        "lstm", lstm_build, batch, {"keep_mask": 3}, PTB_B * PTB_T,
+        "tokens")
+    del model
+    return {"lstm": (launches, numbers)}
 
 
 def main(argv=None):
@@ -5779,6 +6182,13 @@ def main(argv=None):
     flash64_err, flash64_timings = phase("flash64", phase_flash64)
     headline = phase("encoders", phase_encoders)
     headline.update(phase("vision", phase_vision))
+    sequence, tb_model, tb_batch = phase("transformer", phase_transformer)
+    headline.update(sequence)
+    headline["transformer_decode"] = phase(
+        "transformer decode", phase_transformer_decode, tb_model,
+        tb_batch[0])
+    del tb_model, tb_batch
+    headline.update(phase("lstm", phase_lstm))
     print("[headline] " + "; ".join(
         f"{tag}: " + ", ".join(f"{k} {v:.1f}" for k, v in numbers.items())
         for tag, (_, numbers) in headline.items()))
@@ -5836,21 +6246,24 @@ def main(argv=None):
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **shape})
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        t, vit = flash64_timings["bert"][name], flash64_timings["vit"][name]
+        t = flash64_timings["bert"][name]
         by_path = {tag: counts[name] for tag, (counts, _) in headline.items()}
-        kernels.append({
+        row = {
             "name": f"{name}_d64", "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": flash64_err[name],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "shape", "causal", "dtype")},
-            **{f"{k}_vit": vit[k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms",
-                                            "shape")},
-            **({"pair_ms": t["pair_ms"], "pair_library_ms":
-                t["pair_library_ms"], "pair_ms_vit": vit["pair_ms"],
-                "pair_library_ms_vit": vit["pair_library_ms"]}
-               if "pair_ms" in t else {})})
+                                 "library_ms", "shape", "causal", "dtype")}}
+        if "pair_ms" in t:
+            row.update(pair_ms=t["pair_ms"],
+                       pair_library_ms=t["pair_library_ms"])
+        # the other head_dim-64 shapes: ViT-B/16's and Transformer-base's
+        for tag in ("vit", "transformer"):
+            o = flash64_timings[tag][name]
+            row.update({f"{k}_{tag}": o[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "shape", "pair_ms", "pair_library_ms") if k in o})
+        kernels.append(row)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

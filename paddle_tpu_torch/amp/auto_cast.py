@@ -21,7 +21,7 @@ __all__ = ["BLACK_LIST", "WHITE_LIST", "amp_guard", "amp_state", "auto_cast",
 # functionals the port has: an op joins with the functional that calls
 # downcast_inputs for it
 WHITE_LIST = {"conv1d", "conv2d", "conv3d", "einsum", "linear", "matmul"}
-BLACK_LIST = {"cross_entropy", "layer_norm", "softmax"}
+BLACK_LIST = {"cross_entropy", "layer_norm", "log_softmax", "softmax"}
 _NARROW = (torch.bfloat16, torch.float16)
 
 

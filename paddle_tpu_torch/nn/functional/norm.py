@@ -21,7 +21,15 @@ from paddle_tpu_torch.amp.auto_cast import downcast_inputs
 from paddle_tpu_torch.amp.policy import current_policy
 from paddle_tpu_torch.ops.cuda import norm as _kernels
 
-__all__ = ["batch_norm", "fused_ln_residual", "layer_norm", "rms_norm"]
+__all__ = ["batch_norm", "fused_add_layer_norm", "fused_ln_residual",
+           "fused_norm_enabled", "layer_norm", "normalize", "rms_norm",
+           "set_fused_norm"]
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12):
+    """``x / max(||x||_p, epsilon)`` along ``axis``."""
+    norm = (x.abs() ** p).sum(dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp_min(norm, epsilon)
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
@@ -50,13 +58,31 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     return fn(x.movedim(-1, 1)).movedim(1, -1)
 
 
+_FUSED_NORM = [False]
+
+
+def set_fused_norm(flag=True):
+    """Turn the fused LayerNorm / RMSNorm path on (or off) for tensors
+    off CUDA too, where it computes the kernels' plain versions; returns
+    the previous value. On CUDA the fused path is the default whatever
+    this says, as on a TPU in the reference."""
+    prev = _FUSED_NORM[0]
+    _FUSED_NORM[0] = bool(flag)
+    return prev
+
+
+def fused_norm_enabled():
+    return _FUSED_NORM[0]
+
+
 def _use_fused(fused, x):
-    """An explicit ``fused`` wins; None means "on CUDA", as the
-    reference's None means "on a TPU". On a CPU tensor the fused path
+    """An explicit ``fused`` wins; None means "on CUDA, or everywhere
+    under :func:`set_fused_norm`", as the reference's None means "on a
+    TPU, or everywhere under its flag". On a CPU tensor the fused path
     computes the kernel's plain version."""
     if fused is not None:
         return bool(fused)
-    return x.is_cuda
+    return _FUSED_NORM[0] or x.is_cuda
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
@@ -113,6 +139,22 @@ def fused_ln_residual(x, residual, weight=None, bias=None, epsilon=1e-5,
     if act == "gelu":
         out = torch.nn.functional.gelu(out, approximate="tanh")
     return h, out.to(h.dtype)
+
+
+def fused_add_layer_norm(x, residual, weight, bias=None, epsilon=1e-5):
+    """The post-LN join ``LN(x + residual)``, y alone: the kernel's
+    y-only entry (:func:`paddle_tpu_torch.ops.cuda.norm.
+    fused_add_layer_norm`) whenever it takes the tensors, as the
+    reference's post-LN blocks call the Pallas kernel whatever the
+    device; other tensors go to the composition of
+    :func:`fused_ln_residual` before any launch, counted in ``ROUTED``.
+    y is in promote_types(x, residual)."""
+    xc, rc = x.contiguous(), residual.contiguous()
+    if _kernels.ln_kernel_takes(xc, weight, bias, rc):
+        return _kernels.fused_add_layer_norm(xc, rc, weight, bias, epsilon)
+    _kernels.ROUTED["fused_add_layer_norm"] += 1
+    return fused_ln_residual(x, residual, weight, bias, epsilon,
+                             fused=False)[1]
 
 
 def rms_norm(x, weight=None, epsilon=1e-6, fused=None):

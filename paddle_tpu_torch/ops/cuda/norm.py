@@ -3,6 +3,8 @@ versions and launch counts.
 
 - :func:`ln_fwd` replaces ``paddle_tpu/ops/pallas/norm.py:_ln_kernel``;
 - :func:`ln_res_fwd` replaces ``paddle_tpu/ops/pallas/norm.py:_ln_res_kernel``;
+  :func:`fused_add_layer_norm` is its y-only entry, the post-LN join
+  (``paddle_tpu/ops/pallas/norm.py:350``);
 - :func:`ln_bwd` replaces ``_ln_bwd_kernel_plain`` and ``_ln_bwd_kernel_res``
   (one kernel; ``gh=None`` is the plain variant);
 - :func:`rms_fwd` replaces ``paddle_tpu/ops/pallas/norm.py:_rms_kernel``.
@@ -39,15 +41,17 @@ import torch
 
 from paddle_tpu_torch.ops.cuda import cost, launch
 
-__all__ = ["LAUNCHES", "MAX_HIDDEN", "MAX_RMS_HIDDEN", "ROUTED", "ln_bwd",
-           "ln_bwd_split", "ln_fwd", "ln_fwd_split", "ln_kernel_takes",
-           "ln_res_fwd", "rms_fwd", "rms_kernel_takes"]
+__all__ = ["LAUNCHES", "MAX_HIDDEN", "MAX_RMS_HIDDEN", "ROUTED",
+           "fused_add_layer_norm", "ln_bwd", "ln_bwd_split", "ln_fwd",
+           "ln_fwd_split", "ln_kernel_takes", "ln_res_fwd", "rms_fwd",
+           "rms_kernel_takes"]
 
 LAUNCHES = launch.counts(("ln_fwd", "ln_res_fwd", "ln_bwd", "ln_bwd_res",
                           "rms_fwd"))
 # calls the normalization functionals sent to their composition because
 # the kernels do not take the tensors (ln_kernel_takes, rms_kernel_takes)
-ROUTED = launch.counts(("layer_norm", "fused_ln_residual", "rms_norm"))
+ROUTED = launch.counts(("layer_norm", "fused_ln_residual",
+                        "fused_add_layer_norm", "rms_norm"))
 MAX_HIDDEN = 4096        # forward and backward: H/8 threads a row, <= 512
 MAX_RMS_HIDDEN = 16384   # rms_fwd: a block of <= 512 threads, 32 values each
 _CHUNK = 8               # hidden must be a multiple: 16-byte accesses
@@ -505,6 +509,17 @@ def ln_res_fwd(x, residual, weight, bias=None, eps=1e-5, act=None):
     if weight is None:
         raise ValueError("ln_res_fwd needs a weight")
     return _LayerNormResidual.apply(x, residual, weight, bias, eps, act)
+
+
+def fused_add_layer_norm(x, residual, weight, bias=None, eps=1e-5,
+                         act=None):
+    """The post-LN join ``y = act(LN(x + residual))``, returning y alone
+    (``fused_add_layer_norm``, ``paddle_tpu/ops/pallas/norm.py:350``):
+    :func:`ln_res_fwd`'s kernel forward, whose h no one reads, so its
+    backward gets no cotangent for h and runs :func:`ln_bwd` without
+    ``gh`` (``_add_ln_bwd_rule``). dx comes back in x's type and
+    dresidual in the residual's; y is in promote_types(x, residual)."""
+    return ln_res_fwd(x, residual, weight, bias, eps, act)[1]
 
 
 def rms_fwd(x, weight=None, eps=1e-6):
